@@ -1,0 +1,64 @@
+"""The CluSD system config (a copy of repro.configs.base.CluSDConfig:
+same fields, same defaults, same derived properties)."""
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class CluSDConfig:
+    """The paper's system. Defaults = paper's MS MARCO settings (§2, §3)."""
+    name: str = "clusd"
+    family: str = "retrieval"
+    # corpus
+    n_docs: int = 8_800_000
+    dim: int = 768                   # RetroMAE/SimLM dim; RepLLaMA = 4096
+    n_clusters: int = 8192           # N
+    # sparse index
+    vocab: int = 30522
+    max_postings: int = 4096         # per-term posting budget (padded)
+    doc_terms: int = 128             # avg nnz per doc (synthetic)
+    # stage 1
+    k_sparse: int = 1000             # sparse retrieval depth k
+    bins: Tuple[int, ...] = (10, 25, 50, 100, 200, 500, 1000)  # bin edges
+    n_candidates: int = 32           # n = LSTM input sequence length
+    # stage 2
+    lstm_hidden: int = 32
+    n_neighbors: int = 128           # m: top-m centroid neighbor graph
+    u_bins: int = 6                  # inter-cluster distance bins
+    theta: float = 0.02              # selection threshold
+    max_selected: int = 32           # static selection budget
+    # fusion
+    alpha: float = 0.5               # sparse weight (both fusion methods)
+    k_final: int = 1000
+    fusion: str = "interp"           # "interp" | "rrf" (core/fusion.py)
+    rrf_k: float = 60.0              # RRF rank constant (fusion="rrf")
+    # hybrid candidate generation: neighbor-graph expansion of the
+    # stage-1 seeds (core/stage1.expand_candidates); 0 = off
+    expand_depth: int = 0
+    # training
+    train_queries: int = 5000
+    epochs: int = 150
+    lr: float = 1e-3
+    pos_weight: Optional[float] = 4.0
+    dtype: str = "float32"
+    impl: str = "shard_map"
+    serve_batch: int = 256
+
+    @property
+    def v_bins(self) -> int:
+        return len(self.bins)
+
+    @property
+    def n_candidates_total(self) -> int:
+        """Stage-1 candidate width after graph expansion: each expansion
+        step budgets one extra n_candidates block, capped at N."""
+        return min(self.n_candidates * (1 + max(self.expand_depth, 0)),
+                   self.n_clusters)
+
+    @property
+    def cluster_cap(self) -> int:
+        """Padded (balanced) cluster block size."""
+        return max(8, 2 ** math.ceil(
+            math.log2(1.5 * self.n_docs / self.n_clusters)))

@@ -1,0 +1,85 @@
+"""Carry state across from numpy arrays (for instance the fields of a JAX
+`CluSDIndex`, as the tests hand them over), so that both packages
+compute on the same index, selector and quantizer.
+
+  index_from_numpy(arrays)       -> repro_torch CluSDIndex
+  selector_from_numpy(params)    -> LSTMSelector
+  pq_from_numpy(codebooks, codes, rotation, nsub) -> PQ
+"""
+
+import numpy as np
+import torch
+
+from repro_torch.core.clusd import CluSDIndex
+from repro_torch.core.lstm import LSTMSelector
+from repro_torch.core.quant import PQ
+from repro_torch.core.sparse import SparseIndex
+from repro_torch.device import resolve_device
+
+_INDEX_DTYPES = {
+    "centroids": np.float32,
+    "cluster_docs": np.int32,
+    "doc_cluster": np.int32,
+    "neighbor_ids": np.int32,
+    "neighbor_sims": np.float32,
+    "bin_ids": np.int32,
+    "sparse_postings_docs": np.int32,
+    "sparse_postings_weights": np.float32,
+}
+
+
+def _tensor(x, dtype, dev):
+    return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(dev)
+
+
+def selector_from_numpy(params, *, device=None):
+    """The JAX LSTM param dict {wx (F,4H), wh (H,4H), b (4H,), head_w (H,1),
+    head_b (1,)} -> LSTMSelector with the same weights."""
+    dev = resolve_device(device)
+    wx = np.asarray(params["wx"], np.float32)
+    sel = LSTMSelector(wx.shape[0], np.asarray(params["wh"]).shape[0])
+    with torch.no_grad():
+        for name, p in sel.named_parameters():
+            src = np.array(params[name], dtype=np.float32)
+            if src.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {src.shape}, expected "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(src))
+    return sel.to(dev)
+
+
+def pq_from_numpy(codebooks, codes, rotation, nsub, *, device=None):
+    dev = resolve_device(device)
+    return PQ(codebooks=_tensor(codebooks, np.float32, dev),
+              codes=_tensor(codes, np.int32, dev),
+              rotation=None if rotation is None
+              else _tensor(rotation, np.float32, dev),
+              nsub=int(nsub))
+
+
+def index_from_numpy(arrays, *, device=None):
+    """arrays: {"centroids", "cluster_docs", "doc_cluster", "neighbor_ids",
+    "neighbor_sims", "bin_ids", "sparse_postings_docs",
+    "sparse_postings_weights"} as numpy, plus optional "n_docs",
+    "embeddings", "lstm_params" (a JAX param dict) and "quantizer" (a dict
+    of pq_from_numpy's arguments)."""
+    dev = resolve_device(device)
+    missing = [k for k in _INDEX_DTYPES if k not in arrays]
+    if missing:
+        raise KeyError(f"index arrays missing {missing}")
+    t = {k: _tensor(arrays[k], dt, dev) for k, dt in _INDEX_DTYPES.items()}
+    n_docs = int(arrays.get("n_docs", t["doc_cluster"].shape[0]))
+    emb = arrays.get("embeddings")
+    params = arrays.get("lstm_params")
+    pq = arrays.get("quantizer")
+    return CluSDIndex(
+        centroids=t["centroids"], cluster_docs=t["cluster_docs"],
+        doc_cluster=t["doc_cluster"], neighbor_ids=t["neighbor_ids"],
+        neighbor_sims=t["neighbor_sims"],
+        embeddings=None if emb is None else _tensor(emb, np.float32, dev),
+        sparse_index=SparseIndex(t["sparse_postings_docs"],
+                                 t["sparse_postings_weights"], n_docs),
+        selector=None if params is None
+        else selector_from_numpy(params, device=dev),
+        quantizer=None if pq is None else pq_from_numpy(**pq, device=dev),
+        bin_ids=t["bin_ids"])

@@ -1,0 +1,142 @@
+"""CluSD end-to-end: index build + the online selection stages (paper
+§2.1 steps 1-2).
+
+Index artifacts (device tensors unless noted):
+  centroids (N, dim) · cluster_docs (N, cap) · doc_cluster (D,)
+  neighbor_ids/sims (N, m) · sparse inverted index · LSTM selector
+
+Online (batched over queries):
+  1. sparse retrieval -> top-k ids/scores
+  2. Stage I: P/Q overlap features -> multikey sort -> top-n candidates
+     Stage II: LSTM over the candidate sequence -> f(C_i) >= theta ->
+     selected clusters (static budget max_selected, mask-padded)
+  3. score the selected cluster blocks -> fusion (repro_torch.engine)
+"""
+
+import copy
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import bins as bins_lib
+from repro_torch.core import features as feat_lib
+from repro_torch.core import fusion as fusion_lib
+from repro_torch.core import kmeans as km
+from repro_torch.core import stage1 as stage1_lib
+from repro_torch.core.fusion import topk_desc_index_asc
+from repro_torch.core.sparse import SparseIndex
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class CluSDIndex:
+    centroids: torch.Tensor      # (N, dim) float32
+    cluster_docs: torch.Tensor   # (N, cap) int32, -1 pad
+    doc_cluster: torch.Tensor    # (D,) int32
+    neighbor_ids: torch.Tensor   # (N, m) int32
+    neighbor_sims: torch.Tensor  # (N, m) float32
+    embeddings: Any              # (D, dim) or None (on disk / quantized)
+    sparse_index: SparseIndex
+    selector: Any = None         # LSTMSelector, or None (stage-1 order)
+    quantizer: Any = None        # optional PQ (core/quant.py)
+    bin_ids: Any = None          # (k_sparse,) rank -> bin id
+
+    @property
+    def n_docs(self):
+        return int(self.doc_cluster.shape[0])
+
+    @property
+    def n_clusters(self):
+        return int(self.centroids.shape[0])
+
+    @property
+    def device(self):
+        return self.centroids.device
+
+    def to(self, device):
+        """This index on `device`: tensors already there are shared, the
+        rest copied; the selector is always a copy (Module.to would move
+        the caller's in place)."""
+        def mv(x):
+            return x.to(device) if isinstance(x, torch.Tensor) else x
+        sel = None if self.selector is None \
+            else copy.deepcopy(self.selector).to(device)
+        return dataclasses.replace(
+            self, centroids=mv(self.centroids),
+            cluster_docs=mv(self.cluster_docs),
+            doc_cluster=mv(self.doc_cluster),
+            neighbor_ids=mv(self.neighbor_ids),
+            neighbor_sims=mv(self.neighbor_sims),
+            embeddings=mv(self.embeddings),
+            sparse_index=self.sparse_index.to(device), selector=sel,
+            bin_ids=mv(self.bin_ids))
+
+
+def build_index(cfg, embeddings, doc_terms, doc_weights, *, kmeans_iters=15,
+                generator=None, device=None) -> CluSDIndex:
+    """k-means clusters, the capacity-balanced cluster table, the centroid
+    neighbor graph, the sparse inverted index and the rank-bin table.
+    `embeddings` (D, dim) is a host array; it stays out of the index
+    (embeddings=None): serving reads blocks through a store."""
+    dev = resolve_device(device)
+    emb = np.asarray(embeddings, np.float32)
+    centroids, assign = km.kmeans(emb, cfg.n_clusters, kmeans_iters,
+                                  generator=generator, device=dev)
+    cluster_docs, doc_cluster = km.build_cluster_table(
+        assign.cpu().numpy(), cfg.n_clusters, cfg.cluster_cap, emb,
+        centroids.cpu().numpy())
+    m = min(cfg.n_neighbors, cfg.n_clusters - 1)
+    nb_ids, nb_sims = km.neighbor_graph(centroids, m)
+    sp = SparseIndex.build(doc_terms, doc_weights, cfg.vocab,
+                           cfg.max_postings, device=dev)
+    return CluSDIndex(
+        centroids=centroids, cluster_docs=torch.from_numpy(cluster_docs).to(dev),
+        doc_cluster=torch.from_numpy(doc_cluster).to(dev),
+        neighbor_ids=nb_ids, neighbor_sims=nb_sims, embeddings=None,
+        sparse_index=sp,
+        bin_ids=bins_lib.rank_bin_ids(cfg.bins, cfg.k_sparse, device=dev))
+
+
+def stage1_candidates(cfg, index, q_dense, sparse_ids, sparse_scores, *,
+                      stage1="overlap"):
+    """Step 1: sparse-overlap features -> ordered candidate clusters.
+    Returns {"cand", "feats", "qc_sim", "P", "Q"}."""
+    qc_sim = q_dense @ index.centroids.T                     # (B, N)
+    P, Q = bins_lib.overlap_features(
+        sparse_ids, fusion_lib.minmax_norm(sparse_scores), index.doc_cluster,
+        index.n_clusters, index.bin_ids, cfg.v_bins)
+    if stage1 == "overlap":
+        cand = stage1_lib.sort_by_overlap(P, qc_sim, cfg.n_candidates)
+    else:
+        cand = stage1_lib.sort_by_dist(qc_sim, cfg.n_candidates)
+    if cfg.expand_depth > 0 and cfg.n_candidates_total > cfg.n_candidates:
+        cand = stage1_lib.expand_candidates(
+            cand, index.neighbor_ids, index.neighbor_sims, qc_sim,
+            cfg.expand_depth, cfg.n_candidates_total)
+    feats = feat_lib.candidate_features(
+        cand, qc_sim, P, Q, index.neighbor_ids, index.neighbor_sims,
+        cfg.u_bins)
+    return {"cand": cand, "feats": feats, "qc_sim": qc_sim, "P": P, "Q": Q}
+
+
+def stage2_select(cfg, index, cand, feats):
+    """Step 2: selector probabilities -> thresholded, budgeted selection.
+    Returns {"probs", "sel_ids", "sel_mask"}."""
+    theta = cfg.theta
+    B, n = cand.shape
+    if index.selector is None:
+        # untrained: stage-1 order only — take the first max_selected
+        probs = torch.linspace(1.0, 0.5, n, device=cand.device)[None].repeat(B, 1)
+    else:
+        probs = index.selector(feats)
+    picked = probs >= theta                                  # (B, n)
+    # static budget: top max_selected by prob among picked; unpicked
+    # entries sort last via -inf and the mask is the picked bit carried
+    # through the permutation
+    masked = torch.where(picked, probs, -torch.inf)
+    _, top_i = topk_desc_index_asc(masked, min(cfg.max_selected, n))
+    sel_mask = picked.gather(1, top_i)
+    sel_ids = cand.gather(1, top_i)
+    return {"probs": probs, "sel_ids": sel_ids, "sel_mask": sel_mask}

@@ -1,0 +1,158 @@
+"""Sharded on-disk ClusterStore over a built index's per-shard code files
+(format v2), with the JAX package's routing and I/O accounting.
+
+Shard s memmaps `blocks/shard_s.codes.bin`, owning clusters [lo_s, hi_s).
+A fetch routes each requested cluster to its shard and coalesces runs of
+adjacent cluster ids *within* a shard into single contiguous memmap
+reads — `IOStats.n_ops` counts runs, not blocks. Stats are thread-safe so
+the engine's background prefetcher can share the store with serving.
+
+ShardedPQStore's record is one (cap, nsub) uint8 code block per cluster.
+`fetch_code_blocks` returns the RAW codes (`is_coded=True`): the engine
+caches codes and scores them on the device via ADC lookup tables
+(repro_torch.kernels.adc). `fetch_blocks` decodes through the codebooks
+on the host. The float-block store (format v1) is a later slice.
+"""
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.disk import IOStats, read_blocks_coalesced
+from repro_torch.core.quant import decode_code_blocks
+
+
+class _ShardedBlockFiles:
+    """Shared routing + run-coalescing over per-shard fixed-record files."""
+
+    is_host = True
+    is_coded = False
+
+    def __init__(self, shard_paths, shard_ranges, record_shape, record_dtype,
+                 cluster_docs, tombstones=None, stats: IOStats = None):
+        if len(shard_paths) != len(shard_ranges) or not shard_paths:
+            raise ValueError("need one path per shard range")
+        self.record_shape = tuple(int(x) for x in record_shape)
+        self.record_dtype = np.dtype(record_dtype)
+        self._lo = np.asarray([lo for lo, _ in shard_ranges], np.int64)
+        self._hi = np.asarray([hi for _, hi in shard_ranges], np.int64)
+        # ascending and non-overlapping; gaps are allowed (a store over a
+        # subset of the shards), and fetching a cluster in a gap raises
+        if np.any(self._lo >= self._hi) or np.any(self._lo[1:] < self._hi[:-1]):
+            raise ValueError(f"shard ranges must be ascending and "
+                             f"non-overlapping: "
+                             f"{list(zip(self._lo, self._hi))}")
+        self.n_clusters = int(self._hi[-1])
+        self.owned_ranges = [(int(lo), int(hi))
+                             for lo, hi in zip(self._lo, self._hi)]
+        self._mms = [
+            np.memmap(p, dtype=self.record_dtype, mode="r",
+                      shape=(int(hi - lo),) + self.record_shape)
+            for p, (lo, hi) in zip(shard_paths, shard_ranges)]
+        # tombstoned slots read as docs=-1/valid=False; their bytes stay
+        cd = np.asarray(cluster_docs)
+        if tombstones is not None:
+            tomb = np.asarray(tombstones)
+            if tomb.shape != cd.shape:
+                raise ValueError(f"tombstones shape {tomb.shape} != "
+                                 f"cluster_docs shape {cd.shape}")
+            cd = np.where(tomb > 0, -1, cd)
+        self.tombstones = tombstones
+        self.cluster_docs_np = cd
+        self.cluster_docs = torch.from_numpy(np.array(cd))
+        self.block_bytes = int(np.prod(self.record_shape)) * \
+            self.record_dtype.itemsize
+        self.stats = stats if stats is not None else IOStats()
+        self.decode_ms = 0.0          # host decode time, outside IOStats
+        self._lock = threading.Lock()
+
+    @property
+    def n_shards(self):
+        return len(self._mms)
+
+    def _decode(self, records):
+        """(n,) + record_shape raw records -> (n, cap, dim) float blocks."""
+        return records
+
+    def _empty_blocks(self):
+        return np.zeros((0,) + self.record_shape, self.record_dtype)
+
+    def _fetch_records(self, cluster_ids):
+        """1-D host sequence of cluster ids -> (raw records, docs, valid).
+        Routes to shards, reads coalesced runs and charges IOStats."""
+        ids = np.asarray(cluster_ids, np.int64).reshape(-1)
+        docs = self.cluster_docs_np[ids]
+        valid = docs >= 0
+        n = len(ids)
+        if n == 0:
+            return self._empty_blocks(), docs, valid
+        t0 = time.perf_counter()
+        out = np.empty((n,) + self.record_shape, self.record_dtype)
+        sid = np.searchsorted(self._hi, ids, side="right")
+        last = len(self._mms) - 1
+        bad = (ids < 0) | (sid > last) | (ids < self._lo[np.minimum(sid, last)])
+        if np.any(bad):
+            raise KeyError(f"cluster ids {ids[bad][:8].tolist()} not owned by "
+                           f"this store (owned ranges {self.owned_ranges})")
+        # split at shard changes OR non-adjacent ids; coalesce inside a run
+        brk = np.flatnonzero((np.diff(ids) != 1) | (np.diff(sid) != 0)) + 1
+        bounds = np.concatenate([[0], brk, [n]])
+        n_ops = 0
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            s = int(sid[lo])
+            local = ids[lo:hi] - self._lo[s]
+            _, runs = read_blocks_coalesced(self._mms[s], local, out,
+                                            out_offset=int(lo))
+            n_ops += runs
+        with self._lock:
+            self.stats.add(n_ops, n * self.block_bytes,
+                           (time.perf_counter() - t0) * 1e3)
+        return out, docs, valid
+
+    def fetch_blocks(self, cluster_ids):
+        """1-D host sequence of cluster ids -> (vecs, docs, valid)."""
+        records, docs, valid = self._fetch_records(cluster_ids)
+        t1 = time.perf_counter()
+        vecs = self._decode(records)
+        with self._lock:
+            self.decode_ms += (time.perf_counter() - t1) * 1e3
+        return vecs, docs, valid
+
+
+class ShardedPQStore(_ShardedBlockFiles):
+    """Format-v2 backend: PQ code shards. `IOStats.bytes` counts CODE
+    bytes — the 4*dim/nsub I/O reduction is visible there."""
+
+    is_coded = True
+
+    def __init__(self, shard_paths, shard_ranges, cap, codebooks,
+                 cluster_docs, rotation=None, out_dtype=np.float32,
+                 tombstones=None, stats: IOStats = None):
+        self.codebooks = np.asarray(codebooks, np.float32)
+        if self.codebooks.ndim != 3:
+            raise ValueError(f"codebooks must be (nsub, n_codes, dsub), "
+                             f"got {self.codebooks.shape}")
+        self.nsub = int(self.codebooks.shape[0])
+        self.rotation = None if rotation is None \
+            else np.asarray(rotation, np.float32)
+        super().__init__(shard_paths, shard_ranges, (int(cap), self.nsub),
+                         np.uint8, cluster_docs, tombstones=tombstones,
+                         stats=stats)
+        self.cap = int(cap)
+        self.dim = int(self.nsub * self.codebooks.shape[2])
+        self.dtype = np.dtype(out_dtype)
+
+    def _decode(self, records):
+        return decode_code_blocks(self.codebooks, records,
+                                  self.rotation).astype(self.dtype,
+                                                        copy=False)
+
+    def _empty_blocks(self):
+        return np.zeros((0, self.cap, self.nsub), np.uint8)
+
+    def fetch_code_blocks(self, cluster_ids):
+        """Like fetch_blocks but returns the RAW (n, cap, nsub) uint8 code
+        records — no host decode (decode_ms untouched)."""
+        return self._fetch_records(cluster_ids)

@@ -1,0 +1,34 @@
+"""Public LSTM-sequence op. CPU tensors take the plain version (ref.py);
+CUDA tensors launch the kernel of csrc/lstm.cu after the checks below,
+or raise. The kernel has no backward: training is a later slice."""
+
+import torch
+
+from repro_torch.kernels import on_cuda, record_launch, require
+from repro_torch.kernels.lstm import kernel
+from repro_torch.kernels.lstm.ref import lstm_sequence_ref
+
+
+def lstm_sequence(x, wx, wh, b):
+    """x: (B, n, F); wx: (F, 4H); wh: (H, 4H); b: (4H,) -> (B, n, H)."""
+    if not on_cuda(x, wx, wh, b):
+        return lstm_sequence_ref(x, wx, wh, b)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, wx, wh, b)):
+        raise RuntimeError("lstm_sequence's CUDA kernel has no backward; "
+                           "call it under torch.no_grad()")
+    for t, name, nd in ((x, "x", 3), (wx, "wx", 2), (wh, "wh", 2), (b, "b", 1)):
+        require(t, name, torch.float32, nd)
+    B, n, F = x.shape
+    H = wh.shape[0]
+    if wx.shape != (F, 4 * H) or wh.shape != (H, 4 * H) or b.shape != (4 * H,):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, wx "
+                         f"{tuple(wx.shape)}, wh {tuple(wh.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if 4 * H > 1024:
+        raise ValueError(f"hidden size {H}: 4H threads exceed a block's 1024")
+    out = torch.empty((B, n, H), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        kernel.lstm_sequence_cuda(x, wx, wh, b, out)
+    record_launch("lstm_sequence")
+    return out

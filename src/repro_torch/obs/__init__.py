@@ -1,0 +1,13 @@
+"""repro_torch.obs: the metrics registry and stage tracer the engine
+reports through (copies of the JAX package's jax-free `repro.obs`
+registry and tracer; the SLO monitor, exporter and explain log wait)."""
+
+from repro_torch.obs.registry import (  # noqa: F401
+    Counter, Gauge, Histogram, MetricsRegistry,
+)
+from repro_torch.obs.trace import (  # noqa: F401
+    NOOP_SPAN, NOOP_TRACE, Span, Trace, Tracer,
+)
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "NOOP_SPAN", "NOOP_TRACE", "Span", "Trace", "Tracer"]

@@ -11,6 +11,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where none is present")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

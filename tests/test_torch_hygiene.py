@@ -1,0 +1,90 @@
+"""Package hygiene of repro_torch: it imports neither jax nor the JAX
+package, and its entry points refuse to fall back to the CPU when no
+card is present and the caller did not ask for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+             or k == "repro" or k.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 30 and bad == "[]", out.stdout
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            mod = words[1].split(".")[0]
+            assert mod not in ("jax", "jaxlib", "repro"), line
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_with_default_device_raise_without_a_card(no_card):
+    from repro_torch.configs import clusd_msmarco
+    from repro_torch.core import clusd, kmeans, quant
+    from repro_torch.core.sparse import SparseIndex
+    from repro_torch.device import resolve_device
+    from repro_torch.engine import RetrievalEngine
+
+    X = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
+        lambda: kmeans.kmeans(X, 4, 2),
+        lambda: quant.train_pq(X, 2, iters=1),
+        lambda: SparseIndex.build(np.zeros((4, 2), np.int32),
+                                  np.ones((4, 2), np.float32), 8, 4),
+        lambda: clusd.build_index(clusd_msmarco.smoke(), X,
+                                  np.zeros((64, 2), np.int32),
+                                  np.ones((64, 2), np.float32)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+    class Store:
+        is_host = is_coded = True
+        cap, dim = 8, 8
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RetrievalEngine(clusd_msmarco.smoke(), None, Store())
+    assert resolve_device("cpu") == torch.device("cpu")
