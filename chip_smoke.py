@@ -10,21 +10,31 @@ Phases, each printed with its seconds:
   3. the state at the paper's widths (configs/clusd_msmarco.py `full()`:
      dim 768, N 8192, vocab 30522, k_sparse 1000, n 32, H 32, PQ nsub 96),
      cut to 2^20 synthetic docs (cap 256), built on the card by the
-     port's own build side and written as 8 code shards; a sha256 of
-     the built state shows that one seed builds one state;
-  4. serving: RetrievalEngine over ShardedPQStore answers 1024 queries
-     in batches of 256 (the first batch is warm-up); every kernel's
-     launch count over that run must be > 0;
-  5. torch.profiler over one steady batch: device busy share and the
-     device time by kernel;
-  6. each kernel against its plain PyTorch version on the inputs the
-     engine's stage functions make for the last batch of queries, timed
+     port's own build side; a sha256 of the built state shows that one
+     seed builds one state;
+  4. two index directories written by the port's `write_index`: v2 (PQ
+     code shards, 8 shards) and v1 (float32 blocks at the full widths,
+     8 shards, 6.4 GB);
+  5. v2 serving: `IndexReader.open(v2, verify="size").engine()` answers
+     1024 queries in batches of 256 (the first batch is warm-up), then
+     torch.profiler over one more steady batch;
+  6. v1 serving: the same 1024 queries through the v1 directory — the
+     "dot" tail and the cluster_score kernel, about 4 GB of unique float
+     blocks per batch — then one profiled batch;
+  7. reloads: `reload_index()` on the v1 engine while a second thread
+     keeps serving (0 failed batches, reloads 1, cache cleared, I/O
+     counters kept, ids equal to a fresh engine's), then
+     `reload_selector()` (the cache is kept);
+  8. each kernel against its plain version on the inputs the engines'
+     own stage functions make for their last batch of queries, timed
      with CUDA events beside one PyTorch call of the same function where
      there is one, and its bound;
-  7. parity: the same 16 queries served on the card and on the CPU
-     (plain versions) must agree.
+  9. parity: the same 16 queries served on the card and on the CPU
+     (plain versions) through each directory must agree.
 
-Prints the kernel table as one JSON line, the nvidia-smi line, and last
+Every kernel's launch count is zeroed just before each serving path and
+read just after it; the kernel table sums the two paths. Prints the
+kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero; without a
 card it exits 2 before doing anything.
 """
@@ -36,6 +46,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -94,42 +105,290 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path_inputs(cfg, index, store, qs, dev):
-    """The kernels' inputs for the last batch of MAX_BATCH queries, made by
-    the engine's own stage functions as RetrievalEngine runs them:
-    queries, the LUT, Stage-I features, the batch's unique code blocks
-    and each slot's position among them."""
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def isolated_ranks(scores, tol):
+    """Ranks more than `tol` from both neighbours' scores (the last rank's
+    next neighbour is unseen, so it is left out)."""
+    s = np.asarray(scores, np.float64)
+    gap = np.abs(s[:, :-1] - s[:, 1:])
+    ok = np.zeros(s.shape, bool)
+    ok[:, :-1] = gap > tol
+    ok[:, 1:-1] &= gap[:, :-1] > tol
+    return ok
+
+
+def queries(qs, lo, hi):
+    return qs.q_dense[lo:hi], qs.q_terms[lo:hi], qs.q_weights[lo:hi]
+
+
+def build_state(cfg, dev, n_queries):
+    """Corpus, queries, index, PQ and an untrained selector, built by the
+    port on `dev`. Returns (index, pq, corpus, queries)."""
+    from repro_torch.core.clusd import build_index
+    from repro_torch.core.features import feature_dim
+    from repro_torch.core.lstm import LSTMSelector
+    from repro_torch.core.quant import train_pq
+    from repro_torch.data import synth_corpus, synth_queries
+
+    g = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    corpus = synth_corpus(SEED, cfg.n_docs, cfg.dim, cfg.vocab,
+                          topic_noise=0.5)
+    qs = synth_queries(SEED + 1, corpus, n_queries)
+    print(f"  synthetic corpus + queries: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    index = build_index(cfg, corpus.embeddings, corpus.doc_terms,
+                        corpus.doc_weights, generator=g, device=dev)
+    sync(dev)
+    fill = (index.cluster_docs >= 0).sum(1)
+    print(f"  index (kmeans, cluster table, neighbor graph, sparse index): "
+          f"{time.perf_counter() - t0:.2f} s; cluster fill min "
+          f"{fill.min().item()} max {fill.max().item()}; postings "
+          f"{tuple(index.sparse_index.postings_docs.shape)}")
+    t0 = time.perf_counter()
+    nsub = min(NSUB, cfg.dim)
+    pq = train_pq(corpus.embeddings, nsub, sample_docs=1 << 16, generator=g,
+                  device=dev)
+    sync(dev)
+    print(f"  PQ nsub {nsub} train (sample of up to 65536 docs) + encode: "
+          f"{time.perf_counter() - t0:.2f} s")
+    digest = hashlib.sha256()
+    for t in (index.centroids, index.cluster_docs, index.neighbor_ids,
+              index.sparse_index.postings_docs, pq.codebooks, pq.codes):
+        digest.update(t.cpu().numpy().tobytes())
+    print(f"  state sha256 (centroids, cluster table, neighbor graph, "
+          f"postings, PQ): {digest.hexdigest()}")
+    index.selector = LSTMSelector(
+        feature_dim(cfg), cfg.lstm_hidden,
+        generator=torch.Generator().manual_seed(SEED)).to(dev)
+    return index, pq, corpus, qs
+
+
+def write_dirs(cfg, index, pq, corpus, tmp):
+    """The v2 and v1 (float32) index directories, by the port's writer."""
+    from repro_torch.index import write_index
+
+    out = {}
+    for name, kw in (("v2", dict(format_version=2, pq=pq)),
+                     ("v1", dict(format_version=1, block_dtype="float32"))):
+        t0 = time.perf_counter()
+        out[name] = os.path.join(tmp, name)
+        man = write_index(out[name], cfg, index, corpus.embeddings,
+                          n_shards=N_SHARDS, **kw)
+        shards = sum(man["files"][s["file"]]["bytes"]
+                     for s in man["block_shards"])
+        print(f"  {name}: {man['total_bytes']} bytes ({shards} in "
+              f"{len(man['block_shards'])} block shards), "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def check_results(cfg, ids, scores, n):
+    ids_np, sc_np = ids.cpu().numpy(), scores.cpu().numpy()
+    if ids_np.shape != (n, cfg.k_final) or not np.isfinite(sc_np).all() \
+            or (np.diff(sc_np, axis=1) > 0).any() \
+            or ids_np.min() < 0 or ids_np.max() >= cfg.n_docs:
+        raise AssertionError("served results malformed")
+    return ids_np
+
+
+def serve_path(name, path, qs, n, dev):
+    """Serve the first n queries through IndexReader.engine() with the
+    launch counts zeroed just before and read just after; check the
+    results; profile one more steady batch on the same engine. Returns
+    (launches, engine): the engine stays open for the caller."""
+    from repro_torch import kernels
+    from repro_torch.core import sparse as sparse_lib
+    from repro_torch.data import mrr_at
+    from repro_torch.index import IndexReader
+
+    t0 = time.perf_counter()
+    eng = IndexReader.open(path, verify="size").engine(
+        max_batch=MAX_BATCH, trace_sample_rate=1.0, device=dev)
+    print(f"  open + load_index: {time.perf_counter() - t0:.2f} s; "
+          f"store {type(eng.store).__name__}, use_adc {eng.use_adc}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids, scores = eng.retrieve(*queries(qs, 0, n))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stats = eng.stats()
+    print(f"  {name} kernel launches: {launches}")
+    if stats["prefetch_errors"]:
+        raise AssertionError(f"{stats['prefetch_errors']} prefetch fetches "
+                             "failed")
+    cfg = eng.cfg
+    ids_np = check_results(cfg, ids, scores, n)
+    sparse_ids = torch.cat([sparse_lib.sparse_retrieve_topk(
+        eng.index.sparse_index,
+        torch.from_numpy(qs.q_terms[lo:lo + MAX_BATCH]).to(dev),
+        torch.from_numpy(qs.q_weights[lo:lo + MAX_BATCH]).to(dev),
+        cfg.k_final)[0] for lo in range(0, n, MAX_BATCH)])
+    print(f"  wall {wall:.3f} s for {n} queries")
+    print(f"  stats: {json.dumps(stats)}")
+    for i, tr in enumerate(eng.tracer.traces):
+        print(f"  batch {i} spans (ms): "
+              f"{json.dumps({sp.name: round(sp.dur_ms, 3) for sp in tr.spans})}")
+    print(f"  MRR@10 {mrr_at(ids_np, qs.rel_doc[:n]):.4f}; sparse-only "
+          f"MRR@10 {mrr_at(sparse_ids.cpu().numpy(), qs.rel_doc[:n]):.4f} "
+          f"(untrained selector; for information)")
+    profile_batch(eng, queries(qs, n - MAX_BATCH, n), dev)
+    return launches, eng
+
+
+def profile_batch(eng, q3, dev):
+    """torch.profiler over one steady batch on a warm engine: device busy
+    share of the batch's wall time and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.retrieve(*q3)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_rows, cpu_rows = [], []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            dev_rows.append((dev_us / 1e3, ev.count, ev.key))
+        else:
+            cpu_rows.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in dev_rows)
+    tr = eng.tracer.traces[-1]
+    print(f"  profiled batch wall {wall_ms:.3f} ms; device busy "
+          f"{busy:.3f} ms; idle share {1 - busy / wall_ms:.3f}; spans (ms) "
+          f"{json.dumps({sp.name: round(sp.dur_ms, 3) for sp in tr.spans})}")
+    print("  device time by kernel / copy:")
+    for ms, count, key in sorted(dev_rows, reverse=True)[:12]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    print("  host (self CPU) time by op:")
+    for ms, count, key in sorted(cpu_rows, reverse=True)[:10]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def reload_phase(eng, path, qs, dev):
+    """reload_index() while a second thread serves, then reload_selector()."""
+    from repro_torch.index import IndexReader
+
+    q_next = queries(qs, 0, MAX_BATCH)
+    before = eng.stats()
+    failures, served = [], []
+    started = threading.Event()
+
+    def serve():
+        for i in range(2):
+            try:
+                started.set()
+                eng.retrieve(*queries(qs, i * MAX_BATCH,
+                                      (i + 1) * MAX_BATCH))
+                served.append(i)
+            except Exception as e:      # counted and raised below
+                failures.append(repr(e))
+
+    th = threading.Thread(target=serve)
+    th.start()
+    if not started.wait(600):
+        raise AssertionError("the serving thread did not start")
+    t0 = time.perf_counter()
+    gen = eng.reload_index()
+    reload_s = time.perf_counter() - t0
+    th.join(900)
+    if th.is_alive():
+        raise AssertionError("the serving thread did not finish")
+    ids, scores = eng.retrieve(*q_next)
+    sync(dev)
+    after = eng.stats()
+    print(f"  reload_index -> generation {gen} in {reload_s:.2f} s beside "
+          f"{len(served)} concurrent batches; failed batches "
+          f"{len(failures)} {failures}")
+    print(f"  reloads {after['reloads']}; cache clears "
+          f"{before['cache']['clears']} -> {after['cache']['clears']}; "
+          f"io.n_ops {before['io']['n_ops']} -> {after['io']['n_ops']}; "
+          f"io.bytes {before['io']['bytes']} -> {after['io']['bytes']}")
+    if failures or len(served) != 2 or after["reloads"] != 1 \
+            or after["cache"]["clears"] <= before["cache"]["clears"] \
+            or after["io"]["n_ops"] < before["io"]["n_ops"] \
+            or after["io"]["bytes"] < before["io"]["bytes"]:
+        raise AssertionError("reload_index under serving failed its checks")
+    with IndexReader.open(path).engine(max_batch=MAX_BATCH, prefetch=False,
+                                       trace_sample_rate=1.0,
+                                       device=dev) as fresh:
+        f_ids, f_sc = fresh.retrieve(*q_next)
+        spans = {sp.name: round(sp.dur_ms, 3)
+                 for sp in fresh.tracer.traces[-1].spans}
+    print(f"  fresh engine without prefetch, one batch: spans (ms) "
+          f"{json.dumps(spans)}")
+    ok = isolated_ranks(f_sc.cpu().numpy(), PARITY_GAP)
+    bad = int((ids.cpu().numpy()[ok] != f_ids.cpu().numpy()[ok]).sum())
+    print(f"  reloaded vs fresh engine: id mismatches {bad} over "
+          f"{int(ok.sum())} of {ok.size} ranks; max |score diff| "
+          f"{(scores - f_sc).abs().max().item():.3g}")
+    if bad or not torch.allclose(scores, f_sc, rtol=1e-5, atol=1e-6):
+        raise AssertionError("reloaded engine disagrees with a fresh one")
+    clears = after["cache"]["clears"]
+    t0 = time.perf_counter()
+    eng.reload_selector()
+    eng.retrieve(*q_next)
+    st = eng.stats()
+    print(f"  reload_selector in {time.perf_counter() - t0:.2f} s (with one "
+          f"batch); selector_reloads {st['selector_reloads']}; cache clears "
+          f"{st['cache']['clears']}; hits {after['cache']['hits']} -> "
+          f"{st['cache']['hits']}")
+    if st["selector_reloads"] != 1 or st["cache"]["clears"] != clears \
+            or st["cache"]["hits"] <= after["cache"]["hits"] \
+            or st["prefetch_errors"]:
+        raise AssertionError("reload_selector did not keep the cache")
+
+
+def main_path_inputs(eng, qs, dev):
+    """The kernels' inputs for the last batch of MAX_BATCH served queries,
+    made by the engine's own stage functions as RetrievalEngine runs
+    them: queries, the LUT (ADC), Stage-I features, the batch's unique
+    blocks (code blocks or float blocks) and each slot's position."""
     from repro_torch.engine import pipeline as pipe_lib
 
-    sl = slice(len(qs.rel_doc) - MAX_BATCH, None)
-    qd = torch.tensor(qs.q_dense[sl], dtype=torch.float32).to(dev)
-    qt = torch.tensor(qs.q_terms[sl], dtype=torch.int32).to(dev)
-    qw = torch.tensor(qs.q_weights[sl], dtype=torch.float32).to(dev)
+    q3 = queries(qs, N_QUERIES - MAX_BATCH, N_QUERIES)
+    qd = torch.tensor(q3[0], dtype=torch.float32).to(dev)
+    qt = torch.tensor(q3[1], dtype=torch.int32).to(dev)
+    qw = torch.tensor(q3[2], dtype=torch.float32).to(dev)
+    cfg, index, store = eng.cfg, eng.index, eng.store
     with torch.no_grad():
         _, _, cand, feats = pipe_lib.build_stage1_fn(cfg, index)(qd, qt, qw)
-        lut = pipe_lib.build_lut_fn(store.codebooks, store.rotation,
-                                    dev)(qd)
         sel_ids, sel_mask, _ = pipe_lib.build_stage2_fn(cfg, index)(cand,
                                                                     feats)
+        lut = pipe_lib.build_lut_fn(store.codebooks, store.rotation,
+                                    dev)(qd) if eng.use_adc else None
     uniq, pos = pipe_lib.dedup_selected(sel_ids.cpu().numpy(),
                                         sel_mask.cpu().numpy())
-    blocks = pipe_lib.fetch_unique_code_blocks(store, uniq)
+    fetch = pipe_lib.fetch_unique_code_blocks if eng.use_adc \
+        else pipe_lib.fetch_unique_blocks
+    blocks = fetch(store, uniq)
     return {"q": qd, "lut": lut, "feats": feats.float().contiguous(),
             "blocks": torch.from_numpy(blocks).to(dev),
             "pos": torch.from_numpy(pos).to(dev)}
 
 
-def check_kernels(dev, launches, inputs, pq, selector):
+def check_kernels(dev, launches, v2, v1, codebooks, selector):
     """Each kernel vs its plain version on the main path's inputs."""
     from repro_torch.kernels.adc import (adc_score_blocks,
                                          adc_score_blocks_ref, adc_tables,
                                          adc_tables_ref)
+    from repro_torch.kernels.cluster_score import (cluster_score,
+                                                   cluster_score_ref)
     from repro_torch.kernels.lstm import lstm_sequence, lstm_sequence_ref
 
     rows = []
 
     # adc_tables: (B, dim) queries, (nsub, K, dsub) codebooks
-    q, books = inputs["q"], pq.codebooks
+    q, books = v2["q"], codebooks
     B, dim = q.shape
     nsub, K, dsub = books.shape
     lut = adc_tables(q, books)
@@ -156,7 +415,7 @@ def check_kernels(dev, launches, inputs, pq, selector):
                  "library_max_abs_err": lib_err})
 
     # adc_score_blocks: the batch's LUT, unique code blocks and positions
-    lut, codes, sel = inputs["lut"], inputs["blocks"], inputs["pos"]
+    lut, codes, sel = v2["lut"], v2["blocks"], v2["pos"]
     U, cap, _ = codes.shape
     S = sel.shape[1]
     out = adc_score_blocks(lut, codes, sel)
@@ -181,8 +440,45 @@ def check_kernels(dev, launches, inputs, pq, selector):
                  "shapes": [tuple(lut.shape), (U, cap, nsub), (B, S),
                             f"{n_read} blocks read"]})
 
-    # lstm_sequence: the batch's Stage-I features through the selector
-    x = inputs["feats"]
+    # cluster_score: the v1 batch's queries, unique float blocks, positions
+    q, blocks, sel = v1["q"], v1["blocks"], v1["pos"]
+    U, cap, dim = blocks.shape
+    B, S = sel.shape
+    out = cluster_score(q, blocks, sel)
+    ref = cluster_score_ref(q, blocks, sel)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    # unit-norm embeddings: |score| <= 1; the kernel sums with FMA in
+    # lane order and a shuffle tree, the plain einsum in its own order
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"cluster_score disagrees with plain: {err}")
+    del ref
+    chunk = 32
+
+    def library():      # the einsum over gathered blocks, B in chunks
+        return torch.cat([torch.einsum(
+            "bd,bscd->bsc", q[i:i + chunk], blocks[sel[i:i + chunk].long()])
+            for i in range(0, B, chunk)])
+
+    lib_err = (library() - out).abs().max().item()
+    n_read = torch.unique(sel).numel()
+    b_ms, b_by = bound(4 * (n_read * cap * dim + B * dim + B * S * cap)
+                       + 4 * B * S, 2 * B * S * cap * dim)
+    rows.append({"name": "cluster_score", "route": "cuda",
+                 "source": "src/repro_torch/csrc/cluster_score.cu",
+                 "replaces": "src/repro/kernels/cluster_score/kernel.py:30",
+                 "launches": launches["cluster_score"], "max_abs_err": err,
+                 "ms": cuda_ms(lambda: cluster_score(q, blocks, sel), 20),
+                 "plain_ms": cuda_ms(
+                     lambda: cluster_score_ref(q, blocks, sel), 3, warmup=1),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": cuda_ms(library, 3, warmup=1),
+                 "shapes": [(B, dim), (U, cap, dim), (B, S),
+                            f"{n_read} blocks read"],
+                 "library_max_abs_err": lib_err})
+
+    # lstm_sequence: the v2 batch's Stage-I features through the selector
+    x = v2["feats"]
     w = {k: p.detach() for k, p in selector.named_parameters()}
     (B, n, F), (H, G) = x.shape, w["wh"].shape
     out = lstm_sequence(x, w["wx"], w["wh"], w["b"])
@@ -216,185 +512,33 @@ def check_kernels(dev, launches, inputs, pq, selector):
         print(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) launches "
-              f"{r['launches']} max_abs_err {r['max_abs_err']:.3g} shapes "
+              f"{r['launches']} max_abs_err {r['max_abs_err']:.3g} "
+              f"library_max_abs_err {r.get('library_max_abs_err')} shapes "
               f"{r['shapes']}", flush=True)
     return rows
 
 
-def isolated_ranks(scores, tol):
-    """Ranks more than `tol` from both neighbours' scores (the last rank's
-    next neighbour is unseen, so it is left out)."""
-    s = np.asarray(scores, np.float64)
-    gap = np.abs(s[:, :-1] - s[:, 1:])
-    ok = np.zeros(s.shape, bool)
-    ok[:, :-1] = gap > tol
-    ok[:, 1:-1] &= gap[:, :-1] > tol
-    return ok
+def parity(name, path, qs, dev, atol):
+    """The first PARITY_QUERIES queries through one directory, served on
+    `dev` and on the CPU (plain versions): ids equal at isolated ranks,
+    scores within rtol 1e-5 and `atol`."""
+    from repro_torch.index import IndexReader
 
-
-def build_state(cfg, dev, tmp, n_queries):
-    """Corpus, queries, index, PQ, code shards and an untrained selector,
-    built by the port on `dev`. Returns (index, store, pq, queries)."""
-    from repro_torch.core.clusd import build_index
-    from repro_torch.core.features import feature_dim
-    from repro_torch.core.lstm import LSTMSelector
-    from repro_torch.core.quant import train_pq
-    from repro_torch.data import synth_corpus, synth_queries
-    from repro_torch.engine import ShardedPQStore
-    from repro_torch.index import write_code_shards
-
-    g = torch.Generator().manual_seed(SEED)
-    t0 = time.perf_counter()
-    corpus = synth_corpus(SEED, cfg.n_docs, cfg.dim, cfg.vocab,
-                          topic_noise=0.5)
-    qs = synth_queries(SEED + 1, corpus, n_queries)
-    print(f"  synthetic corpus + queries: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    index = build_index(cfg, corpus.embeddings, corpus.doc_terms,
-                        corpus.doc_weights, generator=g, device=dev)
-    sync(dev)
-    fill = (index.cluster_docs >= 0).sum(1)
-    print(f"  index (kmeans, cluster table, neighbor graph, sparse index): "
-          f"{time.perf_counter() - t0:.2f} s; cluster fill min "
-          f"{fill.min().item()} max {fill.max().item()}; postings "
-          f"{tuple(index.sparse_index.postings_docs.shape)}")
-    t0 = time.perf_counter()
-    nsub = min(NSUB, cfg.dim)
-    pq = train_pq(corpus.embeddings, nsub, sample_docs=1 << 16, generator=g,
-                  device=dev)
-    sync(dev)
-    print(f"  PQ nsub {nsub} train (sample of up to 65536 docs) + encode: "
-          f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    cd = index.cluster_docs.cpu().numpy()
-    paths, ranges = write_code_shards(tmp, pq.codes.cpu().numpy(), cd,
-                                      N_SHARDS)
-    print(f"  {len(paths)} code shards: "
-          f"{sum(os.path.getsize(p) for p in paths)} bytes, "
-          f"{time.perf_counter() - t0:.2f} s")
-    digest = hashlib.sha256()
-    for t in (index.centroids, index.cluster_docs, index.neighbor_ids,
-              index.sparse_index.postings_docs, pq.codebooks, pq.codes):
-        digest.update(t.cpu().numpy().tobytes())
-    print(f"  state sha256 (centroids, cluster table, neighbor graph, "
-          f"postings, PQ): {digest.hexdigest()}")
-    index.selector = LSTMSelector(
-        feature_dim(cfg), cfg.lstm_hidden,
-        generator=torch.Generator().manual_seed(SEED)).to(dev)
-    store = ShardedPQStore(paths, ranges, cfg.cluster_cap,
-                           pq.codebooks.cpu().numpy(), cd)
-    return index, store, pq, qs
-
-
-def serve(cfg, index, store, qs, dev):
-    """Serve every query through RetrievalEngine with the launch counts
-    zeroed just before; check the results. Returns the launch counts."""
-    from repro_torch import kernels
-    from repro_torch.core import sparse as sparse_lib
-    from repro_torch.data import mrr_at
-    from repro_torch.engine import RetrievalEngine
-
-    n = len(qs.rel_doc)
-    kernels.reset_launches()
-    with RetrievalEngine(cfg, index, store, max_batch=MAX_BATCH,
-                         trace_sample_rate=1.0, device=dev) as eng:
-        t0 = time.perf_counter()
-        ids, scores = eng.retrieve(qs.q_dense, qs.q_terms, qs.q_weights)
-        sync(dev)
-        wall = time.perf_counter() - t0
-        stats = eng.stats()
-        spans = [{sp.name: round(sp.dur_ms, 3) for sp in tr.spans}
-                 for tr in eng.tracer.traces]
-    launches = dict(kernels.LAUNCHES)
-    print(f"  kernel launches: {launches}")
-    if stats["prefetch_errors"]:
-        raise AssertionError(f"{stats['prefetch_errors']} prefetch fetches "
-                             "failed")
-    ids_np, sc_np = ids.cpu().numpy(), scores.cpu().numpy()
-    if ids_np.shape != (n, cfg.k_final) or not np.isfinite(sc_np).all() \
-            or (np.diff(sc_np, axis=1) > 0).any() \
-            or ids_np.min() < 0 or ids_np.max() >= cfg.n_docs:
-        raise AssertionError("served results malformed")
-    sparse_ids = torch.cat([sparse_lib.sparse_retrieve_topk(
-        index.sparse_index,
-        torch.from_numpy(qs.q_terms[lo:lo + MAX_BATCH]).to(dev),
-        torch.from_numpy(qs.q_weights[lo:lo + MAX_BATCH]).to(dev),
-        cfg.k_final)[0] for lo in range(0, n, MAX_BATCH)])
-    print(f"  wall {wall:.3f} s for {n} queries")
-    print(f"  stats: {json.dumps(stats)}")
-    for i, sp in enumerate(spans):
-        print(f"  batch {i} spans (ms): {json.dumps(sp)}")
-    print(f"  MRR@10 {mrr_at(ids_np, qs.rel_doc):.4f}; sparse-only MRR@10 "
-          f"{mrr_at(sparse_ids.cpu().numpy(), qs.rel_doc):.4f} (untrained "
-          f"selector; for information)")
-    return launches
-
-
-def parity(cfg, index, store, qs, dev):
-    """The first PARITY_QUERIES queries served on `dev` and on the CPU."""
-    from repro_torch.engine import RetrievalEngine
-
-    sl = slice(0, PARITY_QUERIES)
-    q3 = (qs.q_dense[sl], qs.q_terms[sl], qs.q_weights[sl])
-    with RetrievalEngine(cfg, index, store, max_batch=MAX_BATCH,
-                         prefetch=False, device=dev) as eng:
+    q3 = queries(qs, 0, PARITY_QUERIES)
+    with IndexReader.open(path).engine(max_batch=MAX_BATCH, prefetch=False,
+                                       device=dev) as eng:
         g_ids, g_sc = (t.cpu().numpy() for t in eng.retrieve(*q3))
-    with RetrievalEngine(cfg, index.to("cpu"), store, max_batch=MAX_BATCH,
-                         prefetch=False, device="cpu") as eng:
+    with IndexReader.open(path).engine(max_batch=MAX_BATCH, prefetch=False,
+                                       device="cpu") as eng:
         c_ids, c_sc = (t.numpy() for t in eng.retrieve(*q3))
     ok = isolated_ranks(c_sc, PARITY_GAP)
     bad = int((g_ids[ok] != c_ids[ok]).sum())
-    close = np.allclose(g_sc, c_sc, rtol=1e-5, atol=0)
-    print(f"  ranks compared {int(ok.sum())} of {ok.size}; id mismatches "
-          f"{bad}; scores allclose(rtol 1e-5) {close}; max |score diff| "
-          f"{np.abs(g_sc - c_sc).max():.3g}")
+    close = np.allclose(g_sc, c_sc, rtol=1e-5, atol=atol)
+    print(f"  {name}: ranks compared {int(ok.sum())} of {ok.size}; id "
+          f"mismatches {bad}; scores allclose(rtol 1e-5, atol {atol}) "
+          f"{close}; max |score diff| {np.abs(g_sc - c_sc).max():.3g}")
     if bad or not close:
-        raise AssertionError("card and CPU disagree")
-
-
-def profile_batch(cfg, index, store, qs, dev):
-    """torch.profiler over one steady batch of MAX_BATCH queries (after a
-    warm-up batch on a fresh engine): device busy share of the batch's
-    wall time and the device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.engine import RetrievalEngine
-
-    q3 = [(x[:MAX_BATCH], x[MAX_BATCH:2 * MAX_BATCH])
-          for x in (qs.q_dense, qs.q_terms, qs.q_weights)]
-    with RetrievalEngine(cfg, index, store, max_batch=MAX_BATCH,
-                         device=dev) as eng:
-        eng.retrieve(*(w for w, _ in q3))
-        sync(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.retrieve(*(b for _, b in q3))
-            sync(dev)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_rows, cpu_rows = [], []
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            dev_rows.append((dev_us / 1e3, ev.count, ev.key))
-        else:
-            cpu_rows.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
-    busy = sum(r[0] for r in dev_rows)
-    print(f"  batch wall {wall_ms:.3f} ms (profiled); device busy "
-          f"{busy:.3f} ms; idle share {1 - busy / wall_ms:.3f}")
-    print("  device time by kernel / copy:")
-    for ms, count, key in sorted(dev_rows, reverse=True)[:12]:
-        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-    print("  host (self CPU) time by op:")
-    for ms, count, key in sorted(cpu_rows, reverse=True)[:10]:
-        print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-
-
-def sync(dev):
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize(dev)
+        raise AssertionError(f"{name}: card and CPU disagree")
 
 
 def main():
@@ -411,6 +555,7 @@ def main():
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
 
     with phase("device"):
         smi = subprocess.run(
@@ -439,23 +584,43 @@ def main():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="chip_smoke_") as tmp:
         with phase("state build"):
-            index, store, pq, qs = build_state(cfg, dev, tmp, N_QUERIES)
+            index, pq, corpus, qs = build_state(cfg, dev, N_QUERIES)
             print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f}"
                   f" GB allocated, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        with phase(f"serving {N_QUERIES} queries"):
-            launches = serve(cfg, index, store, qs, dev)
-            if min(launches.values()) <= 0:
-                raise AssertionError(f"a kernel of the main path never "
-                                     f"launched: {launches}")
-        with phase("profile of one steady batch"):
-            profile_batch(cfg, index, store, qs, dev)
+        with phase("index directories (write_index v2, v1 float32)"):
+            dirs = write_dirs(cfg, index, pq, corpus, tmp)
+            del index, corpus
+        with phase(f"v2 serving: {N_QUERIES} queries + 1 profiled batch"):
+            l_v2, eng_v2 = serve_path("v2", dirs["v2"], qs, N_QUERIES, dev)
+            eng_v2.close()
+        with phase(f"v1 serving: {N_QUERIES} queries + 1 profiled batch"):
+            l_v1, eng_v1 = serve_path("v1", dirs["v1"], qs, N_QUERIES, dev)
+        launches = {k: l_v2[k] + l_v1[k] for k in l_v2}
+        print(f"  launches over both paths: {launches}")
+        if min(l_v2[k] for k in ("adc_tables", "adc_score_blocks",
+                                 "lstm_sequence")) <= 0 \
+                or min(l_v1[k] for k in ("cluster_score",
+                                         "lstm_sequence")) <= 0:
+            raise AssertionError(f"a kernel of a main path never launched: "
+                                 f"v2 {l_v2}, v1 {l_v1}")
+        with phase("reloads on the v1 engine"):
+            reload_phase(eng_v1, dirs["v1"], qs, dev)
+            eng_v1.close()
         with phase("kernels vs plain versions on main-path inputs"):
-            inputs = main_path_inputs(cfg, index, store, qs, dev)
-            rows = check_kernels(dev, launches, inputs, pq, index.selector)
-        with phase(f"parity: {PARITY_QUERIES} queries, card vs CPU"):
-            parity(cfg, index, store, qs, dev)
-
+            v2_in = main_path_inputs(eng_v2, qs, dev)
+            v1_in = main_path_inputs(eng_v1, qs, dev)
+            codebooks = torch.from_numpy(eng_v2.store.codebooks).to(dev)
+            rows = check_kernels(dev, launches, v2_in, v1_in, codebooks,
+                                 eng_v2.index.selector)
+            del v1_in, v2_in
+        # v2's ADC scores are bitwise the plain version's, so rtol alone;
+        # v1's dot products are summed in another order on the card
+        for name, atol in (("v2", 0.0), ("v1", 1e-6)):
+            with phase(f"parity {name}: {PARITY_QUERIES} queries, card vs "
+                       f"CPU"):
+                parity(name, dirs[name], qs, dev, atol)
+    print(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in ("shapes",
                                                 "library_max_abs_err")}

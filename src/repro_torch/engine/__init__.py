@@ -1,13 +1,18 @@
 """Serving: the select/score/fuse stages over a host store, and the
 RetrievalEngine front-end (bucketed batching, LRU block cache, async
-prefetch, ADC scoring of raw PQ codes)."""
+prefetch, ADC scoring of raw PQ codes, "dot" scoring of float blocks,
+hot index and selector reloads, explain records)."""
 
 from repro_torch.engine.cache import BlockCache
 from repro_torch.engine.pipeline import (build_fused_scorer, dedup_selected,
+                                         fetch_unique_blocks,
                                          fetch_unique_code_blocks)
-from repro_torch.engine.server import RetrievalEngine, ServeStats, bucket_size
-from repro_torch.engine.stores import ClusterStore, ShardedPQStore
+from repro_torch.engine.server import (RetrievalEngine, ServeStats,
+                                       bucket_size, build_explain_records)
+from repro_torch.engine.stores import (ClusterStore, ShardedDiskStore,
+                                       ShardedPQStore)
 
 __all__ = ["BlockCache", "ClusterStore", "RetrievalEngine", "ServeStats",
-           "ShardedPQStore", "bucket_size", "build_fused_scorer",
-           "dedup_selected", "fetch_unique_code_blocks"]
+           "ShardedDiskStore", "ShardedPQStore", "bucket_size",
+           "build_explain_records", "build_fused_scorer", "dedup_selected",
+           "fetch_unique_blocks", "fetch_unique_code_blocks"]

@@ -1,6 +1,6 @@
 """Bounded LRU cache of hot cluster blocks, keyed by cluster id (the JAX
-engine's BlockCache; invalidation on index reloads waits for the slice
-that ports reload_index).
+engine's BlockCache). `RetrievalEngine.reload_index` replaces it on a
+generation swap and carries its counters; `clears` counts the swaps.
 
 Thread-safe: the serving thread and the background prefetcher share one
 instance. Tracks hit/miss/eviction counts for `stats()`.
@@ -9,10 +9,10 @@ The bound is a byte budget (`capacity_bytes`) on the ACTUAL bytes stored
 (`block.nbytes`), so what fits depends on what is cached: a PQ code
 block (cap x nsub uint8) is 4*dim/nsub times smaller than its float
 block. The engine sizes the budget in float32-block equivalents, so a
-code-backed store holds that many more clusters. `cached_bytes` in
-stats() reports the live total; `capacity` stays in stats() as None
-for key parity with the JAX engine, whose entry-count mode served float
-stores that this port does not serve yet.
+float store caches `cache_capacity` blocks and a code-backed store that
+many more clusters. `cached_bytes` in stats() reports the live total;
+`capacity` stays in stats() as None for key parity with the JAX engine,
+whose entry-count mode served stores of unknown geometry.
 """
 
 import collections

@@ -5,25 +5,38 @@
     is the first of its (stage, bucket) is flagged `compiled`, as in the
     JAX engine where it paid a jit compile, so steady-state statistics
     leave out the same batches.
-  * LRU block cache — fetched code blocks land in a byte-budgeted
-    BlockCache keyed by cluster id, sized in float32-block equivalents
-    (`cache_capacity * cap * dim * 4` bytes).
+  * LRU block cache — fetched blocks land in a byte-budgeted BlockCache
+    keyed by cluster id, sized in float32-block equivalents
+    (`cache_capacity * cap * dim * 4` bytes): a float store caches
+    `cache_capacity` blocks, a code-backed store 4*dim/nsub times more.
   * async prefetch — a background thread pulls Stage-I candidate blocks
     into the cache while the Stage-II selection runs.
-  * ADC serving — raw PQ codes flow disk -> cache -> device and are
-    scored against per-query lookup tables inside the fused tail; the
-    LUT is built right after Stage I. `lut_build_ms` / `adc_ms` report
-    steady-state time.
+  * fused tail — score -> fuse -> top-k over the batch's unique blocks on
+    the device. Code-backed stores (v2) serve by ADC (`use_adc`, auto-on):
+    raw PQ codes flow disk -> cache -> device and are scored against
+    per-query lookup tables built right after Stage I (kernels adc_tables,
+    adc_score_blocks). Float stores (v1) serve the "dot" tail: float
+    blocks are scored by the kernel cluster_score.
+
+Zero-downtime swaps: `reload_index()` hops to a newer committed index
+generation between batches (arrays and store rebuilt from the reader,
+stage functions and the block cache invalidated, the prefetch worker
+quiesced across the swap); `reload_selector()` swaps only the Stage-II
+selector and its calibrated theta/budget, keeping the store, the cache
+and the Stage-I functions. Sampled explain records
+(repro_torch.obs.ExplainLogger) say why each query retrieved what it did.
 
 Usage:
+    engine = IndexReader.open(index_dir).engine()        # reader-backed
     engine = RetrievalEngine(cfg, index, store=ShardedPQStore(...))
     ids, scores = engine.retrieve(q_dense, q_terms, q_weights)
     engine.stats()   # latency percentiles, cache hit rate, I/O counters
+    engine.reload_index()
     engine.close()
 
 `device=None` serves on the CUDA card (repro_torch.device); the index is
-moved there. reload_index / reload_selector and explain records wait for
-a later slice.
+moved there. Device-resident stores (the JAX engine's InMemoryStore and
+PQStore path) are not ported.
 """
 
 import collections
@@ -37,6 +50,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.convert import selector_from_numpy
+from repro_torch.core.fusion import FUSION_METHODS
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine import pipeline as pipe_lib
 from repro_torch.engine.cache import BlockCache
@@ -67,6 +82,61 @@ def _pad_rows(x, n_pad):
     if n_pad == 0:
         return x
     return np.concatenate([x, np.repeat(x[-1:], n_pad, axis=0)])
+
+
+def build_explain_records(cfg, *, qid_base, generation, n, cand, probs,
+                          sel_ids, sel_mask, final_ids, sparse_ids,
+                          doc_cluster):
+    """Explain records for one served batch (the JAX engine's schema).
+
+    Array arguments are batch-major, numpy or tensors on any device; only
+    the first `n` rows (real queries, not bucket padding) produce
+    records. `doc_cluster` maps doc id -> cluster id and decides the
+    dense side of the fusion contribution split."""
+    cand = _host(cand)[:n]
+    probs = _host(probs)[:n]
+    sel_np = _host(sel_ids)[:n]
+    mask_np = _host(sel_mask)[:n].astype(bool)
+    final = _host(final_ids)[:n]
+    sid = _host(sparse_ids)[:n]
+    dc = _host(doc_cluster)
+    n_seed = int(cfg.n_candidates)
+    theta = float(cfg.theta)
+    records = []
+    for i in range(n):
+        p = probs[i]
+        selected = [int(x) for x in sel_np[i][mask_np[i]]]
+        sel_set = set(selected)
+        over = int((p >= theta).sum())
+        sparse_set = {int(d) for d in sid[i] if int(d) >= 0}
+        contrib = {"sparse_only": 0, "dense_only": 0, "both": 0}
+        for d in (int(x) for x in final[i] if int(x) >= 0):
+            in_sparse = d in sparse_set
+            in_dense = d < len(dc) and int(dc[d]) in sel_set
+            if in_sparse and in_dense:
+                contrib["both"] += 1
+            elif in_sparse:
+                contrib["sparse_only"] += 1
+            elif in_dense:
+                contrib["dense_only"] += 1
+        records.append({
+            "qid": int(qid_base + i),
+            "generation": None if generation is None else int(generation),
+            "theta": round(theta, 6),
+            "budget": int(cfg.max_selected),
+            "fusion": cfg.fusion,
+            "expand_depth": int(cfg.expand_depth),
+            "n_seed": n_seed,
+            "cand": [int(x) for x in cand[i]],
+            "provenance": ["seed" if j < n_seed else "expand"
+                           for j in range(cand.shape[1])],
+            "probs": [round(float(x), 4) for x in p],
+            "selected": selected,
+            "n_over_theta": over,
+            "skipped_over_theta": max(0, over - len(selected)),
+            "fusion_contrib": contrib,
+        })
+    return records
 
 
 @dataclasses.dataclass
@@ -150,6 +220,12 @@ class ServeStats:
     def record_prefetch_error(self):
         self._prefetch_errors.inc()
 
+    def record_reload(self):
+        self._reloads.inc()
+
+    def record_selector_reload(self):
+        self._selector_reloads.inc()
+
     @property
     def compiled_buckets(self):
         return sorted(self._compiled_bucket_set)
@@ -171,49 +247,73 @@ class ServeStats:
                 "p99_ms": round(float(np.percentile(lat, 99)), 3),
                 "mean_ms": round(float(lat.mean()), 3)}
 
+    def reset(self):
+        """Zero every counter and drop the batch window."""
+        for c in (self._queries, self._batches, self._compile_batches,
+                  self._steady_queries, self._steady_ms,
+                  self._prefetch_enqueued, self._prefetch_errors,
+                  self._reloads, self._selector_reloads):
+            c.reset()
+        self._batch_ms_hist.reset()
+        self.batches.clear()
+        self._compiled_bucket_set.clear()
+
 
 class RetrievalEngine:
-    """Serving layer over a code-backed host ClusterStore."""
+    """Serving layer over a host ClusterStore: v1 float block shards
+    (ShardedDiskStore, "dot" tail) or v2 PQ code shards (ShardedPQStore,
+    ADC tail)."""
 
     _PF_CHUNK = 8            # blocks per prefetch fetch (lock granularity)
 
     def __init__(self, cfg, index, store, *, max_batch=256,
-                 cache_capacity=512, prefetch=True, trace_sample_rate=0.0,
-                 device=None):
-        if not (getattr(store, "is_host", False)
-                and getattr(store, "is_coded", False)):
+                 cache_capacity=512, prefetch=True, prefetch_depth=None,
+                 k=None, reader=None, use_adc=None, trace_sample_rate=0.0,
+                 fusion=None, explain=None, device=None):
+        if fusion is not None and fusion not in FUSION_METHODS:
+            raise ValueError(f"fusion must be one of {FUSION_METHODS}, "
+                             f"got {fusion!r}")
+        if not getattr(store, "is_host", False):
             raise NotImplementedError(
-                "this slice serves code-backed host stores (ShardedPQStore); "
-                "float-block and device stores come later")
+                "the port serves host stores (ShardedDiskStore, "
+                "ShardedPQStore); device-resident stores are not ported")
+        # per-engine fusion override: wins over the manifest config and is
+        # re-applied across index and selector reloads
+        self._fusion_override = fusion
         self.device = resolve_device(device)
-        self.cfg = cfg
+        self.cfg = self._apply_cfg_overrides(cfg)
         self.index = index.to(self.device)    # no copy where it already is
         self.store = store
-        self.use_adc = True
         self.max_batch = max(1, max_batch)
-        self.k = cfg.k_final
+        self.k = k or self.cfg.k_final
+        self.reader = reader            # IndexReader backing the reloads
+        # None = auto (ADC exactly when the store is code-backed); True
+        # demands a code-backed store; False serves decoded float blocks
+        self._explicit_use_adc = use_adc
+        self.use_adc = self._resolve_use_adc(store)
         self.metrics = MetricsRegistry()
         self.tracer = Tracer(sample_rate=trace_sample_rate)
+        # sampled explain telemetry (repro_torch.obs.ExplainLogger); None
+        # costs one attribute check per batch
+        self.explain = explain
         self._adc_ms = self.metrics.counter("serve.adc_ms")
         self._lut_build_ms = self.metrics.counter("serve.lut_build_ms")
         self._prefetch_enabled = bool(prefetch)
-        self._lock = threading.RLock()
+        self._swap_lock = threading.RLock()   # serving vs the reloads
+        self._pf_drop = False           # quiesce flag across index swaps
         self.serve_stats = ServeStats(self.metrics)
-        self.cache = BlockCache(int(cache_capacity)
-                                * store.cap * store.dim * 4) \
-            if cache_capacity else None
+        self._cache_capacity = cache_capacity
+        self.cache = self._make_cache(store) if cache_capacity else None
         # prefetch candidates a bit past the selection budget: Stage II
-        # mostly keeps high-ranked Stage-I candidates
-        self.prefetch_depth = min(cfg.n_candidates_total,
-                                  cfg.max_selected + cfg.max_selected // 2)
+        # mostly keeps high-ranked Stage-I candidates. An explicit depth
+        # is pinned; the default follows cfg.max_selected across reloads.
+        self._explicit_prefetch_depth = prefetch_depth
+        self.prefetch_depth = prefetch_depth if prefetch_depth is not None \
+            else self._default_prefetch_depth(self.cfg)
         self._fns: Dict[Any, Any] = {}          # (kind, bucket) -> fn
         self._pf_q = None
         self._pf_thread = None
-        if self._prefetch_enabled and self.cache is not None:
-            self._pf_q = queue.Queue(maxsize=64)
-            self._pf_thread = threading.Thread(target=self._prefetch_worker,
-                                               daemon=True)
-            self._pf_thread.start()
+        self._start_prefetch()
 
     @property
     def adc_ms(self):
@@ -225,7 +325,43 @@ class RetrievalEngine:
 
     # -- lifecycle ----------------------------------------------------------
 
-    def close(self):
+    def _resolve_use_adc(self, store):
+        coded = bool(getattr(store, "is_coded", False))
+        if self._explicit_use_adc is None:
+            return coded
+        if self._explicit_use_adc and not coded:
+            raise ValueError("use_adc=True needs a code-backed store "
+                             "(is_coded); this store serves float blocks")
+        return bool(self._explicit_use_adc)
+
+    def _make_cache(self, store):
+        """Byte budget in float32-block equivalents of the store's geometry."""
+        return BlockCache(int(self._cache_capacity) * int(store.cap)
+                          * int(store.dim) * 4)
+
+    def _apply_cfg_overrides(self, cfg):
+        if self._fusion_override is not None \
+                and cfg.fusion != self._fusion_override:
+            cfg = dataclasses.replace(cfg, fusion=self._fusion_override)
+        return cfg
+
+    @staticmethod
+    def _default_prefetch_depth(cfg):
+        return min(cfg.n_candidates_total,
+                   cfg.max_selected + cfg.max_selected // 2)
+
+    def _refresh_prefetch_depth(self, cfg):
+        if self._explicit_prefetch_depth is None:
+            self.prefetch_depth = self._default_prefetch_depth(cfg)
+
+    def _start_prefetch(self):
+        if self._prefetch_enabled and self.cache is not None:
+            self._pf_q = queue.Queue(maxsize=64)
+            self._pf_thread = threading.Thread(target=self._prefetch_worker,
+                                               daemon=True)
+            self._pf_thread.start()
+
+    def _stop_prefetch(self):
         if self._pf_q is not None:
             self._pf_q.put(None)
             # the queue is bounded and fetches are chunked, so the drain is
@@ -234,6 +370,9 @@ class RetrievalEngine:
             self._pf_q = None
             self._pf_thread = None
 
+    def close(self):
+        self._stop_prefetch()
+
     def __enter__(self):
         return self
 
@@ -241,30 +380,152 @@ class RetrievalEngine:
         self.close()
         return False
 
+    # -- hot swaps ----------------------------------------------------------
+
+    def reload_index(self, reader=None, *, verify="none"):
+        """Hot-swap to the index's current committed generation: re-read
+        the manifest (`IndexReader.refresh`), rebuild the arrays and the
+        store, and replace them between batches. Stage functions and the
+        block cache are invalidated; the prefetch worker is stopped across
+        the swap, so no block of the old generation can land in the fresh
+        cache. In-flight batches finish on the old generation. Cumulative
+        counters (I/O, decode, cache hits/misses/evictions/clears, ADC and
+        LUT times) are carried over: only `reset_stats()` zeroes them.
+        Returns the generation now served."""
+        reader = reader if reader is not None else self.reader
+        if reader is None:
+            raise ValueError("reload_index needs an IndexReader (construct "
+                             "the engine via IndexReader.engine, or pass "
+                             "reader=)")
+        tr = self.tracer.trace("reload_index")
+        with tr.span("reload"):
+            reader.refresh(verify=verify)
+            cfg, index = reader.load_index(device=self.device)
+            cfg = self._apply_cfg_overrides(cfg)
+            store = reader.open_store(cluster_docs=index.cluster_docs)
+            # quiesce prefetch: drop queued candidate ids and wait out any
+            # fetch against the old store before the cache is replaced
+            restart = self._pf_thread is not None
+            self._pf_drop = True
+            if restart:
+                self._stop_prefetch()
+            with self._swap_lock:
+                old_store = self.store
+                self.cfg, self.index, self.store = cfg, index, store
+                self.reader = reader
+                self.use_adc = self._resolve_use_adc(store)
+                self._refresh_prefetch_depth(cfg)
+                self._fns.clear()
+                self._carry_store_counters(old_store, store)
+                if self.cache is not None:
+                    # cluster ids now name the new generation's blocks and
+                    # the byte budget may move with the geometry: a new
+                    # cache that keeps the lifetime counters
+                    old = self.cache
+                    new = self._make_cache(store)
+                    new.hits, new.misses = old.hits, old.misses
+                    new.evictions, new.clears = old.evictions, old.clears + 1
+                    self.cache = new
+                self.serve_stats.record_reload()
+            self._pf_drop = False
+            if restart:
+                self._start_prefetch()
+        tr.finish(generation=reader.generation)
+        return reader.generation
+
+    @staticmethod
+    def _stage1_cfg(cfg):
+        """The config slice the Stage-I functions close over; a selector
+        publish that moves it invalidates them too."""
+        return (cfg.k_sparse, cfg.bins, cfg.n_candidates, cfg.expand_depth,
+                cfg.n_candidates_total, cfg.u_bins)
+
+    @staticmethod
+    def _carry_store_counters(old_store, new_store):
+        """Carry the cumulative I/O and host-decode counters onto the new
+        store, so stats() stays engine-lifetime across reload_index."""
+        if new_store is old_store:
+            return
+        old_io, new_io = old_store.stats, new_store.stats
+        new_io.add(old_io.n_ops, old_io.bytes, old_io.wall_ms)
+        new_store.decode_ms += old_store.decode_ms
+
+    def reload_selector(self, reader=None, *, verify="none"):
+        """Hot-swap only the Stage-II selector: adopt a newer generation's
+        LSTM weights and calibrated theta/budget (a selector publish)
+        without touching the store, the block cache, the prefetch worker
+        or the Stage-I functions. If the corpus moved too (arrays or block
+        shards differ), fall back to `reload_index()`. Returns the
+        generation now served."""
+        reader = reader if reader is not None else self.reader
+        if reader is None:
+            raise ValueError("reload_selector needs an IndexReader "
+                             "(construct the engine via IndexReader.engine, "
+                             "or pass reader=)")
+        before = (reader.manifest.get("arrays"),
+                  reader.manifest.get("block_shards"))
+        reader.refresh(verify=verify)
+        after = (reader.manifest.get("arrays"),
+                 reader.manifest.get("block_shards"))
+        if before != after:
+            return self.reload_index(reader, verify="none")
+        tr = self.tracer.trace("reload_selector")
+        with tr.span("reload"):
+            cfg = self._apply_cfg_overrides(reader.config())
+            params = reader.lstm_params()
+            selector = None if params is None \
+                else selector_from_numpy(params, device=self.device)
+            with self._swap_lock:
+                old_cfg = self.cfg
+                self.cfg = cfg
+                self.index.selector = selector
+                self.reader = reader
+                self._refresh_prefetch_depth(cfg)
+                # stage2 closes over the selector, theta and the budget;
+                # the fused tails over the whole config. Stage I, the LUT
+                # builder (codebooks only) and the cache stay valid.
+                stale = {"stage2", "adc", "dot"}
+                if self._stage1_cfg(old_cfg) != self._stage1_cfg(cfg):
+                    stale.add("stage1")
+                for key in [k for k in self._fns if k[0] in stale]:
+                    del self._fns[key]
+                self.serve_stats.record_selector_reload()
+        tr.finish(generation=reader.generation)
+        return reader.generation
+
     # -- prefetch -----------------------------------------------------------
 
-    def _fill(self, cids):
-        return np.asarray(self.store.fetch_code_blocks(np.asarray(cids))[0])
+    def _cache_fill_fn(self):
+        """What a cache miss fetches: raw code blocks under ADC serving,
+        float blocks otherwise (one record type per generation)."""
+        store = self.store
+        if self.use_adc:
+            return lambda c: np.asarray(
+                store.fetch_code_blocks(np.asarray(c))[0])
+        return lambda c: np.asarray(store.fetch_blocks(np.asarray(c))[0])
 
     def _prefetch_worker(self):
         while True:
             cids = self._pf_q.get()
             if cids is None:
                 return
+            if self._pf_drop:
+                continue        # a reload is under way: stale candidates
             try:
                 # record=False: prefetch probes must not skew the serving
                 # hit rate; small chunks keep the serving thread from
                 # waiting behind the whole candidate set
+                fill = self._cache_fill_fn()
                 for i in range(0, len(cids), self._PF_CHUNK):
                     self.cache.get_or_fetch_many(
-                        cids[i:i + self._PF_CHUNK], self._fill, record=False)
+                        cids[i:i + self._PF_CHUNK], fill, record=False)
             except Exception:       # prefetch is best-effort; never kill serving
                 _log.exception("prefetch of %d blocks failed", len(cids))
                 self.serve_stats.record_prefetch_error()
 
     def _enqueue_prefetch(self, cand):
         """cand: (B, n_candidates) host array, stage-1 ordered."""
-        q = self._pf_q
+        q = self._pf_q      # snapshot: reload_index may null the attribute
         if q is None:
             return
         cids = np.unique(cand[:, :self.prefetch_depth])
@@ -302,10 +563,12 @@ class RetrievalEngine:
                                                       self.store.rotation,
                                                       self.device))
 
-    def _fused_fn(self, bucket, ubucket):
-        return self._fn("adc", (bucket, ubucket),
+    def _fused_fn(self, kind, bucket, ubucket):
+        """One score -> fuse -> top-k tail per (mode, batch bucket,
+        unique-block bucket)."""
+        return self._fn(kind, (bucket, ubucket),
                         lambda: pipe_lib.build_fused_scorer(
-                            self.cfg, self.index, k=self.k))
+                            self.cfg, self.index, k=self.k, mode=kind))
 
     # -- serving ------------------------------------------------------------
 
@@ -329,7 +592,9 @@ class RetrievalEngine:
         return torch.cat(out_ids), torch.cat(out_scores)
 
     def _retrieve_chunk(self, q_dense, q_terms, q_weights):
-        with self._lock, torch.inference_mode():
+        # one chunk serves on one index generation: the reloads take the
+        # same lock, so swaps land between chunks, never inside one
+        with self._swap_lock, torch.inference_mode():
             n = int(q_dense.shape[0])
             bucket = bucket_size(n, self.max_batch)
             self._built_fn = False
@@ -361,48 +626,66 @@ class RetrievalEngine:
         return b
 
     def _serve_host(self, bucket, qd, qt, qw, tr=NOOP_TRACE, n=None):
+        n = bucket if n is None else n
         dev = self.device
         with tr.span("stage1"):
             sid, ss, cand, feats = self._stage1_fn(bucket)(qd, qt, qw)
             cand_np = cand.cpu().numpy()    # device sync for Stage I
             # start pulling candidate blocks while Stage II runs
             self._enqueue_prefetch(cand_np)
-        # the LUT depends only on the queries: build it while the
-        # prefetcher pulls candidate code blocks
-        with tr.span("lut_build"):
-            t0 = time.perf_counter()
-            lut = self._lut_fn(bucket)(qd)
-            synchronize(dev)
-            if not self._built_fn:   # steady-state only
-                self._lut_build_ms.inc((time.perf_counter() - t0) * 1e3)
+        lut = None
+        if self.use_adc:
+            # the LUT depends only on the queries: build it while the
+            # prefetcher pulls candidate code blocks
+            with tr.span("lut_build"):
+                t0 = time.perf_counter()
+                lut = self._lut_fn(bucket)(qd)
+                synchronize(dev)
+                if not self._built_fn:   # steady-state only
+                    self._lut_build_ms.inc((time.perf_counter() - t0) * 1e3)
         with tr.span("stage2_select"):
-            sel_ids, sel_mask, _ = self._stage2_fn(bucket)(cand, feats)
+            sel_ids, sel_mask, probs = self._stage2_fn(bucket)(cand, feats)
             sel_np = sel_ids.cpu().numpy()  # device sync for Stage II
             mask_np = sel_mask.cpu().numpy()
         with tr.span("fuse"):               # host glue: dedup + positions
             uniq, pos = pipe_lib.dedup_selected(sel_np, mask_np)
         if bool(mask_np.any()):
             with tr.span("cache_fetch", n_blocks=len(uniq)) as sp:
-                blocks = pipe_lib.fetch_unique_code_blocks(
-                    self.store, uniq, self.cache, trace=tr)
+                fetch = pipe_lib.fetch_unique_code_blocks if self.use_adc \
+                    else pipe_lib.fetch_unique_blocks
+                blocks = fetch(self.store, uniq, self.cache, trace=tr)
                 sp.annotate(bytes=int(blocks.nbytes))
         else:       # nothing selected: zero placeholder, no I/O
-            blocks = np.zeros((1, self.store.cap, self.store.nsub), np.uint8)
+            blocks = np.zeros(
+                (1, self.store.cap,
+                 self.store.nsub if self.use_adc else self.store.dim),
+                np.uint8 if self.use_adc else np.float32)
         with tr.span("fused_score_topk"):
             # the JAX engine pads the unique-block axis to a power of two
             # to bound its compilations; eager PyTorch needs no padding,
             # but the power of two stays part of the stage key, so that a
             # batch is flagged `compiled` exactly when the JAX engine's is
-            ub = self._pow2(blocks.shape[0])
-            fn = self._fused_fn(bucket, ub)
+            kind = "adc" if self.use_adc else "dot"
+            fn = self._fused_fn(kind, bucket, self._pow2(blocks.shape[0]))
             t0 = time.perf_counter()
             with tr.span("h2d", bytes=int(blocks.nbytes)):
                 blocks_d = torch.from_numpy(blocks).to(dev)
                 pos_d = torch.from_numpy(pos).to(dev)
-            ids, scores = fn(lut, sid, ss, sel_ids, sel_mask, blocks_d, pos_d)
+            ids, scores = fn(lut if self.use_adc else qd, sid, ss, sel_ids,
+                             sel_mask, blocks_d, pos_d)
             synchronize(dev)
-            if not self._built_fn:   # steady-state only
+            if self.use_adc and not self._built_fn:   # steady-state only
                 self._adc_ms.inc((time.perf_counter() - t0) * 1e3)
+        if self.explain is not None and self.explain.sample():
+            for rec in build_explain_records(
+                    self.cfg,
+                    qid_base=self.serve_stats.n_queries,
+                    generation=None if self.reader is None
+                    else self.reader.generation,
+                    n=n, cand=cand_np, probs=probs, sel_ids=sel_np,
+                    sel_mask=mask_np, final_ids=ids, sparse_ids=sid,
+                    doc_cluster=self.index.doc_cluster):
+                self.explain.emit(rec)
         return ids, scores
 
     # -- introspection ------------------------------------------------------
@@ -420,8 +703,11 @@ class RetrievalEngine:
         reg.gauge("io.wall_ms").set(round(io.wall_ms, 2))
         reg.gauge("io.model_ms").set(round(io.model_ms(), 2))
         reg.gauge("serve.decode_ms").set(round(self.store.decode_ms, 2))
+        if self.reader is not None:
+            reg.gauge("serve.generation").set(self.reader.generation)
 
     def stats(self):
+        """The JAX engine's stats() keys for a host store."""
         self._sync_gauges()
         ss = self.serve_stats
         io = self.store.stats
@@ -437,6 +723,8 @@ class RetrievalEngine:
                "fusion": self.cfg.fusion,
                "expand_depth": self.cfg.expand_depth,
                **ss.latency_percentiles()}
+        if self.reader is not None:
+            out["generation"] = self.reader.generation
         if self.cache is not None:
             out["cache"] = self.cache.stats()
         out["io"] = {"n_ops": io.n_ops, "bytes": io.bytes,
@@ -444,6 +732,23 @@ class RetrievalEngine:
                      "model_ms": round(io.model_ms(), 2)}
         out["use_adc"] = self.use_adc
         out["decode_ms"] = round(self.store.decode_ms, 2)
-        out["adc_ms"] = round(self.adc_ms, 2)
-        out["lut_build_ms"] = round(self.lut_build_ms, 2)
+        if self.use_adc:
+            out["adc_ms"] = round(self.adc_ms, 2)
+            out["lut_build_ms"] = round(self.lut_build_ms, 2)
         return out
+
+    def reset_stats(self):
+        """Zero every serving statistic in place (batch windows, counters,
+        cache hit/miss/eviction/clear counts, store IOStats and decode
+        time) without touching the stage functions, the cached blocks or
+        the tracer's traces. The only reset: reloads carry counters."""
+        with self._swap_lock:
+            self.metrics.reset()
+            self.serve_stats.reset()
+            if self.cache is not None:
+                with self.cache._lock:
+                    self.cache.hits = self.cache.misses = 0
+                    self.cache.evictions = self.cache.clears = 0
+            io = self.store.stats
+            io.n_ops, io.bytes, io.wall_ms = 0, 0, 0.0
+            self.store.decode_ms = 0.0

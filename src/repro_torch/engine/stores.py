@@ -13,13 +13,19 @@ backend (`is_coded`) also answers `fetch_code_blocks(cluster_ids) ->
 exposes `codebooks`/`rotation`/`nsub`, so the pipeline scores codes via
 ADC lookup tables without decoding floats.
 
-This slice serves the v2 code-shard store, ShardedPQStore
-(repro_torch.index.sharded); the float-block and device stores wait.
+Two host stores speak it, both from repro_torch.index.sharded:
+ShardedDiskStore (format-v1 float block shards; `is_coded=False`, with
+`cap`, `dim` and float32 decode of float32, bfloat16 and int8 records)
+and ShardedPQStore (format-v2 PQ code shards). Both mask an updated
+index's tombstoned slots at fetch time. The JAX package's device stores
+(InMemoryStore, PQStore) are not ported.
 """
 
 from typing import Protocol, runtime_checkable
 
-from repro_torch.index.sharded import ShardedPQStore  # noqa: F401
+from repro_torch.index.sharded import (  # noqa: F401
+    ShardedDiskStore, ShardedPQStore,
+)
 
 
 @runtime_checkable

@@ -1,11 +1,58 @@
-"""The write side of a v2 index that serving needs: even cluster ranges
-per shard and the code-shard writer, byte for byte the JAX package's
-(`shard_ranges`, `_write_code_blocks`). The manifest, arrays, checkpoint
-and the reader wait for a later slice."""
+"""The write side of an index directory, byte for byte the JAX package's
+`repro.index.builder` for one in-memory state:
 
+  write_index(out_dir, cfg, index, embeddings, ...) serializes a built
+  CluSDIndex into the versioned layout of index/format.py:
+    format_version=1 — float block shards, per shard a raw (hi-lo, cap,
+      dim) tensor in float32, bfloat16 or int8 (int8 stamps a global
+      `block_scale` into the manifest geometry);
+    format_version=2 — PQ code shards, per shard a raw (hi-lo, cap, nsub)
+      uint8 tensor, the (nsub, 256, dsub) codebooks, and the sparse
+      postings compacted to CSR.
+  The LSTM selector goes to lstm/step_0 (repro_torch.checkpoint); the
+  manifest lists every artifact's size and sha256. Everything is staged
+  in `<out_dir>.tmp` and committed by rename.
+
+The PQ for a v2 write is given (`pq=` or `index.quantizer`): training
+codebooks inside the writer, streaming and memmap builds, and deltas
+(index/update.py) are not ported yet.
+"""
+
+import dataclasses
 import os
+import shutil
+import time
 
 import numpy as np
+
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.index import format as fmt
+
+_ARRAY_DTYPES = {
+    "centroids": np.float32,
+    "cluster_docs": np.int32,
+    "doc_cluster": np.int32,
+    "neighbor_ids": np.int32,
+    "neighbor_sims": np.float32,
+    "bin_ids": np.int32,
+    "sparse_postings_docs": np.int32,
+    "sparse_postings_weights": np.float32,
+    # v2 compact (CSR) postings
+    "sparse_postings_data": np.int32,
+    "sparse_postings_wdata": np.float32,
+    "sparse_postings_indptr": np.int64,
+    "tombstones": np.uint8,
+}
+
+# embedding rows read per gather while packing blocks
+CHUNK_DOCS = 1 << 16
+
+
+def _np(x):
+    """numpy view of a host array or (any-device) tensor."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def shard_ranges(n_clusters, n_shards):
@@ -18,6 +65,53 @@ def shard_ranges(n_clusters, n_shards):
         ranges.append((lo, hi))
         lo = hi
     return ranges
+
+
+def pack_blocks(embeddings, cluster_docs, block_dtype="float32", scale=None):
+    """The (n, cap, dim) cluster-block records of a doc table, in the
+    shard's record dtype (bfloat16 as uint16 bits). Only member rows of
+    `embeddings` are read. `scale` quantizes int8 records: rows / scale,
+    rounded half to even, clipped to [-127, 127]."""
+    name = fmt.resolve_block_dtype(block_dtype)
+    cd = np.asarray(cluster_docs)
+    dim = embeddings.shape[1]
+    blocks = np.zeros(cd.shape + (dim,), fmt.record_dtype(name))
+    mask = cd >= 0
+    rows = np.asarray(embeddings[cd[mask]], np.float32)
+    if name == "bfloat16":
+        blocks[mask] = fmt.f32_to_bf16_bits(rows)
+    elif name == "int8":
+        if scale is None:
+            raise ValueError("int8 blocks need a scale")
+        info = np.iinfo(np.int8)
+        rows = np.clip(np.round(rows / np.float32(scale)), info.min + 1,
+                       info.max)
+        blocks[mask] = rows.astype(np.int8)
+    else:
+        blocks[mask] = rows
+    return blocks
+
+
+def _write_float_blocks(path, embeddings, cd, block_dtype, scale=None):
+    """Stream one shard's float block records to `path`, reading at most
+    ~CHUNK_DOCS embedding rows per gather."""
+    cap = cd.shape[1]
+    group = max(1, CHUNK_DOCS // max(1, cap))
+    with open(path, "wb") as f:
+        for lo in range(0, cd.shape[0], group):
+            pack_blocks(embeddings, cd[lo:lo + group], block_dtype,
+                        scale=scale).tofile(f)
+
+
+def _block_scale(embeddings):
+    """Global int8 dequantization scale max|emb|/127, read in chunks."""
+    amax = 0.0
+    D = int(embeddings.shape[0])
+    for lo in range(0, D, CHUNK_DOCS):
+        chunk = np.asarray(embeddings[lo:lo + CHUNK_DOCS], np.float32)
+        if chunk.size:
+            amax = max(amax, float(np.abs(chunk).max()))
+    return (amax / 127.0) if amax > 0 else 1.0
 
 
 def write_code_blocks(path, codes, cluster_docs):
@@ -34,16 +128,199 @@ def write_code_blocks(path, codes, cluster_docs):
     block.tofile(path)
 
 
-def write_code_shards(out_dir, codes, cluster_docs, n_shards):
-    """Write `blocks/shard_{s:05d}.codes.bin` under out_dir for every even
-    cluster range. Returns (paths, ranges) for ShardedPQStore."""
-    os.makedirs(os.path.join(out_dir, "blocks"), exist_ok=True)
-    codes = np.asarray(codes)
-    cd = np.asarray(cluster_docs)
-    ranges = shard_ranges(cd.shape[0], n_shards)
-    paths = []
-    for s, (lo, hi) in enumerate(ranges):
-        path = os.path.join(out_dir, "blocks", f"shard_{s:05d}.codes.bin")
-        write_code_blocks(path, codes, cd[lo:hi])
-        paths.append(path)
-    return paths, ranges
+def postings_csr(postings_docs, postings_weights):
+    """Padded (V, P) postings -> CSR (data, wdata, indptr); lossless."""
+    pd = np.asarray(postings_docs)
+    pw = np.asarray(postings_weights)
+    valid = pd >= 0
+    counts = valid.sum(axis=1)
+    indptr = np.zeros(pd.shape[0] + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return pd[valid].astype(np.int32), pw[valid].astype(np.float32), indptr
+
+
+def postings_from_csr(data, wdata, indptr, min_width=1):
+    """Inverse of `postings_csr`: re-pad CSR postings into (V, P) arrays,
+    P = max(min_width, longest row). The pad width never affects
+    retrieval."""
+    data = np.asarray(data)
+    wdata = np.asarray(wdata)
+    indptr = np.asarray(indptr)
+    counts = np.diff(indptr)
+    V = len(counts)
+    P = int(max(min_width, counts.max() if V else 0, 1))
+    pd = np.full((V, P), -1, np.int32)
+    pw = np.zeros((V, P), np.float32)
+    mask = np.arange(P)[None, :] < counts[:, None]
+    pd[mask] = data
+    pw[mask] = wdata
+    return pd, pw
+
+
+def _cluster_fill_stats(cluster_docs):
+    fill = (np.asarray(cluster_docs) >= 0).sum(axis=1)
+    return {"min": int(fill.min()), "max": int(fill.max()),
+            "mean": round(float(fill.mean()), 2),
+            "empty": int((fill == 0).sum())}
+
+
+def _write_pq_arrays(tmp, pq_arrays, nsub, dtype=None):
+    """Serialize PQ artifacts under pq/ and return their manifest entry."""
+    os.makedirs(os.path.join(tmp, "pq"))
+    pq_paths = {}
+    for name, arr in pq_arrays.items():
+        rel = os.path.join("pq", f"{name}.npy")
+        arr = _np(arr) if dtype is None else _np(arr).astype(dtype)
+        np.save(os.path.join(tmp, rel), arr)
+        pq_paths[name] = rel
+    return {"nsub": int(nsub), "arrays": pq_paths}
+
+
+def selector_params(selector):
+    """An LSTMSelector's weights as the JAX param dict {wx, wh, b, head_w,
+    head_b} of numpy float32 arrays."""
+    return {k: _np(p).astype(np.float32)
+            for k, p in selector.named_parameters()}
+
+
+def write_index(out_dir, cfg, index, embeddings, *, n_shards=4,
+                block_dtype="float32", format_version=fmt.FORMAT_VERSION,
+                pq=None):
+    """Serialize `index` (a repro_torch CluSDIndex, on any device) and its
+    cluster blocks under `out_dir` as generation 0; staged in
+    `<out_dir>.tmp`, committed by rename. Returns the manifest.
+
+    embeddings: the (D, dim) float32 host matrix (np.memmap is fine: reads
+    are bounded by CHUNK_DOCS rows). format_version=2 needs a PQ (`pq`,
+    else `index.quantizer`)."""
+    if format_version not in fmt.SUPPORTED_VERSIONS:
+        raise ValueError(f"format_version {format_version} not in "
+                         f"{fmt.SUPPORTED_VERSIONS}")
+    t0 = time.perf_counter()
+    block_dtype = fmt.resolve_block_dtype(block_dtype)
+    cd = _np(index.cluster_docs)
+    n_clusters, cap = cd.shape
+    dim = int(embeddings.shape[1])
+    out_dir = os.path.abspath(out_dir)
+    tmp = out_dir + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(os.path.join(tmp, "blocks"))
+
+    v2 = format_version == fmt.FORMAT_VERSION_PQ
+    sp_index = index.sparse_index
+    arrays = {
+        "centroids": index.centroids,
+        "cluster_docs": cd,
+        "doc_cluster": index.doc_cluster,
+        "neighbor_ids": index.neighbor_ids,
+        "neighbor_sims": index.neighbor_sims,
+        "bin_ids": index.bin_ids,
+    }
+    if v2:
+        data, wdata, indptr = postings_csr(_np(sp_index.postings_docs),
+                                           _np(sp_index.postings_weights))
+        arrays.update(sparse_postings_data=data, sparse_postings_wdata=wdata,
+                      sparse_postings_indptr=indptr)
+    else:
+        arrays.update(sparse_postings_docs=sp_index.postings_docs,
+                      sparse_postings_weights=sp_index.postings_weights)
+    array_paths = {}
+    for name, arr in arrays.items():
+        rel = f"{name}.npy"
+        np.save(os.path.join(tmp, rel),
+                _np(arr).astype(_ARRAY_DTYPES[name], copy=False))
+        array_paths[name] = rel
+
+    pq_meta = None
+    geometry = {"n_docs": index.n_docs, "dim": dim,
+                "n_clusters": n_clusters, "cap": cap,
+                "block_dtype": block_dtype}
+    ranges = shard_ranges(n_clusters, n_shards)
+    block_shards = []
+    if v2:
+        the_pq = pq if pq is not None else index.quantizer
+        if the_pq is None:
+            raise ValueError("a format-2 index needs a PQ (pq= or "
+                             "index.quantizer); training one inside the "
+                             "writer is not ported")
+        codes = _np(the_pq.codes)
+        if codes.shape[0] != index.n_docs:
+            raise ValueError(f"PQ codes cover {codes.shape[0]} docs, "
+                             f"index has {index.n_docs}")
+        geometry["nsub"] = int(the_pq.nsub)
+        geometry["code_dtype"] = "uint8"
+        pq_arrays = {"codebooks": the_pq.codebooks}
+        if the_pq.rotation is not None:
+            pq_arrays["rotation"] = the_pq.rotation
+        pq_meta = _write_pq_arrays(tmp, pq_arrays, the_pq.nsub,
+                                   dtype=np.float32)
+        for s, (lo, hi) in enumerate(ranges):
+            rel = os.path.join("blocks", f"shard_{s:05d}.codes.bin")
+            write_code_blocks(os.path.join(tmp, rel), codes, cd[lo:hi])
+            block_shards.append({"file": rel, "cluster_lo": lo,
+                                 "cluster_hi": hi})
+    else:
+        scale = None
+        if block_dtype == "int8":
+            scale = _block_scale(embeddings)
+            geometry["block_scale"] = scale
+        for s, (lo, hi) in enumerate(ranges):
+            rel = os.path.join("blocks", f"shard_{s:05d}.bin")
+            _write_float_blocks(os.path.join(tmp, rel), embeddings,
+                                cd[lo:hi], block_dtype, scale=scale)
+            block_shards.append({"file": rel, "cluster_lo": lo,
+                                 "cluster_hi": hi})
+        # v1 carries the full PQ artifacts (codebooks + per-doc codes)
+        # when the index has a quantizer
+        if index.quantizer is not None:
+            q = index.quantizer
+            pq_arrays = {"codebooks": q.codebooks, "codes": q.codes}
+            if q.rotation is not None:
+                pq_arrays["rotation"] = q.rotation
+            pq_meta = _write_pq_arrays(tmp, pq_arrays, q.nsub)
+
+    lstm_meta = None
+    if index.selector is not None:
+        params = selector_params(index.selector)
+        lstm_meta = {"dir": "lstm", "step": 0, "selector": "lstm",
+                     "feat_dim": int(params["wx"].shape[0]),
+                     "hidden": int(params["wh"].shape[0])}
+        save_checkpoint(os.path.join(tmp, "lstm"), 0, params,
+                        extra={k: lstm_meta[k]
+                               for k in ("selector", "feat_dim",
+                                         "hidden")})
+
+    files = fmt.scan_files(tmp)
+    manifest = {
+        "format_version": format_version,
+        "kind": "clusd-index",
+        "generation": 0,
+        "parent_generation": None,
+        "config": dataclasses.asdict(cfg),
+        "geometry": geometry,
+        "arrays": array_paths,
+        "block_shards": block_shards,
+        "lstm": lstm_meta,
+        "pq": pq_meta,
+        "stats": {
+            "cluster_fill": _cluster_fill_stats(cd),
+            "truncated_postings": int(getattr(sp_index,
+                                              "truncated_postings", 0)),
+            "pack_wall_s": round(time.perf_counter() - t0, 3),
+        },
+        "extra": {},
+        "files": files,
+        "total_bytes": sum(e["bytes"] for e in files.values()),
+    }
+    fmt.write_manifest(tmp, manifest)
+    # move any previous index aside first, so a crash in the window
+    # never leaves out_dir without a readable index
+    old = out_dir + ".old"
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    if os.path.exists(out_dir):
+        os.rename(out_dir, old)
+    os.rename(tmp, out_dir)
+    shutil.rmtree(old, ignore_errors=True)
+    return manifest

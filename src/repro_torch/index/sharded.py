@@ -1,17 +1,24 @@
-"""Sharded on-disk ClusterStore over a built index's per-shard code files
-(format v2), with the JAX package's routing and I/O accounting.
+"""Sharded on-disk ClusterStores over a built index's per-shard block
+files, with the JAX package's routing and I/O accounting.
 
-Shard s memmaps `blocks/shard_s.codes.bin`, owning clusters [lo_s, hi_s).
+Shard s memmaps `blocks/shard_s.bin` (v1) or `.codes.bin` (v2), owning
+clusters [lo_s, hi_s).
 A fetch routes each requested cluster to its shard and coalesces runs of
 adjacent cluster ids *within* a shard into single contiguous memmap
 reads — `IOStats.n_ops` counts runs, not blocks. Stats are thread-safe so
 the engine's background prefetcher can share the store with serving.
 
-ShardedPQStore's record is one (cap, nsub) uint8 code block per cluster.
-`fetch_code_blocks` returns the RAW codes (`is_coded=True`): the engine
-caches codes and scores them on the device via ADC lookup tables
-(repro_torch.kernels.adc). `fetch_blocks` decodes through the codebooks
-on the host. The float-block store (format v1) is a later slice.
+Two record encodings behind the same routing:
+
+  * ShardedDiskStore (format v1): one (cap, dim) float block per cluster,
+    stored as float32 (returned as read), bfloat16 (read as uint16 bits
+    and widened by hand: the card machine has no ml_dtypes) or int8
+    (`record * block_scale`).
+  * ShardedPQStore (format v2): one (cap, nsub) uint8 code block per
+    cluster. `fetch_code_blocks` returns the RAW codes (`is_coded=True`):
+    the engine caches codes and scores them on the device via ADC lookup
+    tables (repro_torch.kernels.adc). `fetch_blocks` decodes through the
+    codebooks on the host.
 """
 
 import threading
@@ -22,6 +29,8 @@ import torch
 
 from repro_torch.core.disk import IOStats, read_blocks_coalesced
 from repro_torch.core.quant import decode_code_blocks
+from repro_torch.index.format import (bf16_bits_to_f32, record_dtype,
+                                      resolve_block_dtype)
 
 
 class _ShardedBlockFiles:
@@ -119,6 +128,47 @@ class _ShardedBlockFiles:
         with self._lock:
             self.decode_ms += (time.perf_counter() - t1) * 1e3
         return vecs, docs, valid
+
+    def fetch_clusters(self, cluster_ids, stats: IOStats = None):
+        """Blocks only, as a CPU float tensor; `stats` is an optional extra
+        sink (the store's own IOStats always accumulates)."""
+        t0 = time.perf_counter()
+        before = (self.stats.n_ops, self.stats.bytes)
+        vecs, _, _ = self.fetch_blocks(cluster_ids)
+        if stats is not None:
+            stats.add(self.stats.n_ops - before[0],
+                      self.stats.bytes - before[1],
+                      (time.perf_counter() - t0) * 1e3)
+        return torch.from_numpy(np.ascontiguousarray(vecs))
+
+
+class ShardedDiskStore(_ShardedBlockFiles):
+    """Format-v1 backend: raw (cap, dim) cluster blocks in float32,
+    bfloat16 or int8 (`dtype` names the block_dtype of the manifest),
+    decoded to float32 on fetch."""
+
+    def __init__(self, shard_paths, shard_ranges, cap, dim, cluster_docs,
+                 dtype="float32", block_scale=None, tombstones=None,
+                 stats: IOStats = None):
+        self.block_dtype = resolve_block_dtype(dtype)
+        super().__init__(shard_paths, shard_ranges, (int(cap), int(dim)),
+                         record_dtype(self.block_dtype), cluster_docs,
+                         tombstones=tombstones, stats=stats)
+        self.cap, self.dim = int(cap), int(dim)
+        if self.block_dtype == "int8":
+            if block_scale is None:
+                raise ValueError("int8 shards need the manifest geometry's "
+                                 "block_scale to decode")
+            self.block_scale = float(block_scale)
+        else:
+            self.block_scale = None
+
+    def _decode(self, records):
+        if self.block_dtype == "float32":
+            return records
+        if self.block_dtype == "int8":
+            return records.astype(np.float32) * np.float32(self.block_scale)
+        return bf16_bits_to_f32(records)
 
 
 class ShardedPQStore(_ShardedBlockFiles):

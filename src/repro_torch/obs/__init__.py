@@ -1,7 +1,8 @@
 """repro_torch.obs: the metrics registry and stage tracer the engine
 reports through (copies of the JAX package's jax-free `repro.obs`
-registry and tracer; the SLO monitor, exporter and explain log wait)."""
+registry, tracer and explain log; the SLO monitor and exporter wait)."""
 
+from repro_torch.obs.explain import ExplainLogger  # noqa: F401
 from repro_torch.obs.registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry,
 )
@@ -9,5 +10,5 @@ from repro_torch.obs.trace import (  # noqa: F401
     NOOP_SPAN, NOOP_TRACE, Span, Trace, Tracer,
 )
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+__all__ = ["Counter", "ExplainLogger", "Gauge", "Histogram", "MetricsRegistry",
            "NOOP_SPAN", "NOOP_TRACE", "Span", "Trace", "Tracer"]

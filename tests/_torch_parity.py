@@ -73,3 +73,148 @@ def isolated_ranks(scores, tol=1e-5):
     ok[:, :-1] = gap_next > tol
     ok[:, 1:-1] &= gap_next[:, :-1] > tol
     return ok
+
+
+def write_jax_dirs(root, cfg, index, corpus, pq, *, n_shards=3):
+    """JAX-written index directories of one state under `root`:
+    {"f32", "bf16", "int8"} (format 1) and "v2" (format 2, PQ codes)."""
+    import os
+
+    from repro import index as jindex
+
+    emb = np.asarray(corpus.embeddings)
+    out = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16"),
+                        ("int8", "int8")):
+        out[name] = os.path.join(str(root), name)
+        jindex.write_index(out[name], cfg, index, emb, n_shards=n_shards,
+                           block_dtype=dtype)
+    out["v2"] = os.path.join(str(root), "v2")
+    jindex.write_index(out["v2"], cfg, index, emb, n_shards=n_shards,
+                       format_version=2, pq=pq)
+    return out
+
+
+def jax_delta(index, dim, vocab, seed, *, n_del=3, n_rep=2, n_app=2):
+    """A JAX IndexDelta against `index`: deletes, replacements and
+    appends, made from a seed with numpy."""
+    from repro import index as jindex
+
+    rng = np.random.default_rng(seed)
+    dc = np.asarray(index.doc_cluster)
+    live = np.flatnonzero(dc >= 0)
+    dele = rng.choice(live, n_del, replace=False)
+    reps = rng.choice(np.setdiff1d(live, dele), n_rep, replace=False)
+    ids = np.concatenate([reps, np.arange(len(dc), len(dc) + n_app)])
+    terms = rng.integers(0, vocab, (len(ids), 4)).astype(np.int32)
+    return jindex.IndexDelta(
+        upsert_ids=ids,
+        upsert_embeddings=rng.standard_normal((len(ids), dim)).astype(
+            np.float32),
+        upsert_terms=terms,
+        upsert_weights=rng.lognormal(0.0, 0.5, terms.shape).astype(
+            np.float32),
+        delete_ids=dele)
+
+
+
+def jax_dirs_state(tmp_path_factory, *, delta_seed=None):
+    """`jax_smoke_state(0)`, its PQ (nsub 8) and the JAX-written
+    directories of `write_jax_dirs`; given `delta_seed`, also "delta": a
+    copy of "f32" with one JAX delta generation. Returns (cfg, index,
+    corpus, pq, dirs)."""
+    import shutil
+
+    import jax
+
+    from repro import index as jindex
+    from repro.core import quant as jquant
+
+    cfg, index, corpus = jax_smoke_state(0)
+    pq = jquant.train_pq(jax.random.key(1), corpus.embeddings, nsub=8,
+                         iters=3)
+    root = tmp_path_factory.mktemp("jax_dirs")
+    dirs = write_jax_dirs(root, cfg, index, corpus, pq)
+    if delta_seed is not None:
+        dirs["delta"] = str(shutil.copytree(dirs["f32"], root / "delta"))
+        jindex.write_index_delta(dirs["delta"], jax_delta(
+            index, cfg.dim, cfg.vocab, seed=delta_seed))
+    return cfg, index, corpus, pq, dirs
+
+
+# -- serving both packages' engines on one directory -------------------------
+
+SERVE_BATCH = 16
+
+
+def queries3(qs):
+    return qs.q_dense, qs.q_terms, qs.q_weights
+
+
+def serve_jax(path, qs, **kw):
+    """ids, scores, stats() of a fresh JAX engine over `path`."""
+    from repro import index as jindex
+
+    with jindex.IndexReader.open(path).engine(max_batch=SERVE_BATCH,
+                                              prefetch=False, **kw) as eng:
+        ids, sc = eng.retrieve(*queries3(qs))
+        return np.asarray(ids), np.asarray(sc), eng.stats()
+
+
+def serve_torch(path, qs, **kw):
+    """ids, scores, stats() of a fresh port engine on the CPU."""
+    from repro_torch.index import IndexReader
+
+    with IndexReader.open(path).engine(max_batch=SERVE_BATCH,
+                                       prefetch=False, device="cpu",
+                                       **kw) as eng:
+        ids, sc = eng.retrieve(*queries3(qs))
+        return ids.numpy(), sc.numpy(), eng.stats()
+
+
+def live_engines(path, **kw):
+    """(JAX engine, port engine on the CPU) over `path`, left open."""
+    from repro import index as jindex
+    from repro_torch.index import IndexReader
+
+    jeng = jindex.IndexReader.open(path).engine(max_batch=SERVE_BATCH,
+                                                prefetch=False, **kw)
+    teng = IndexReader.open(path).engine(max_batch=SERVE_BATCH,
+                                         prefetch=False, device="cpu", **kw)
+    return jeng, teng
+
+
+def retrieve_np(eng, qs):
+    ids, sc = eng.retrieve(*queries3(qs))
+    if isinstance(ids, torch.Tensor):
+        return ids.numpy(), sc.numpy()
+    return np.asarray(ids), np.asarray(sc)
+
+
+def assert_same_results(t, j, fusion="interp"):
+    """Ids equal at the isolated ranks of the JAX scores, scores allclose
+    at rtol 1e-5, atol 1e-6."""
+    tids, tsc = t[:2]
+    jids, jsc = j[:2]
+    assert tids.shape == jids.shape
+    ok = isolated_ranks(jsc)
+    # rrf scores are rank reciprocals: docs at one rank of one list tie
+    # exactly, so fewer ranks are isolated than under interp
+    assert ok.mean() > (0.9 if fusion == "interp" else 0.3)
+    np.testing.assert_array_equal(tids[ok], jids[ok])
+    np.testing.assert_allclose(tsc, jsc, rtol=1e-5, atol=1e-6)
+
+
+def assert_same_stats_surface(ts, js):
+    """The engines' stats(): same keys, same counts and I/O."""
+    assert sorted(ts) == sorted(js)
+    for k in ("cache", "io"):
+        assert sorted(ts[k]) == sorted(js[k]), k
+    for key in ("n_queries", "n_batches", "n_compile_batches",
+                "compiled_buckets", "use_adc", "fusion", "reloads",
+                "selector_reloads"):
+        assert ts[key] == js[key], key
+    assert ts["io"]["n_ops"] == js["io"]["n_ops"] > 0
+    assert ts["io"]["bytes"] == js["io"]["bytes"]
+    for k in ("hits", "misses", "evictions", "clears", "size"):
+        assert ts["cache"][k] == js["cache"][k], k

@@ -1,8 +1,8 @@
-"""The slice end to end on the CPU: the JAX package builds a smoke-width
-index and writes it as a v2 (PQ code shard) index; the port writes the
-same code shards byte for byte, opens JAX's shard files with its own
-ShardedPQStore, and its RetrievalEngine(device="cpu") serves 32 queries
-against the JAX RetrievalEngine over JAX's store.
+"""The v2 path end to end on the CPU: the JAX package builds a smoke-width
+index and writes it as a v2 (PQ code shard) index; the port's writer
+gives the same code shards byte for byte, the port opens JAX's shard
+files with its own ShardedPQStore, and its RetrievalEngine(device="cpu")
+serves 32 queries against the JAX RetrievalEngine over JAX's store.
 
 Tolerances: result ids equal at every rank more than 1e-5 from both
 neighbours' scores (the two engines sum ADC and sparse scores in other
@@ -29,7 +29,7 @@ from repro_torch.core import clusd as tcl
 from repro_torch.core import quant as tquant
 from repro_torch.engine import RetrievalEngine, ShardedPQStore
 from repro_torch.engine import pipeline as tpipe
-from repro_torch.index import shard_ranges, write_code_shards
+from repro_torch.index import IndexReader, shard_ranges, write_index
 
 N_SHARDS = 3
 
@@ -67,10 +67,14 @@ def test_code_shards_byte_identical_to_jax_writer(built, tmp_path):
     t_pq = convert.pq_from_numpy(pq.codebooks, pq.codes, None, pq.nsub,
                                  device="cpu")
     assert t_pq.codes.dtype == torch.int32
-    paths, _ = write_code_shards(str(tmp_path), t_pq.codes.numpy(), cd,
-                                 N_SHARDS)
-    for path, shard in zip(paths, manifest["block_shards"]):
-        with open(path, "rb") as f, \
+    t_index = convert.index_from_numpy(index_arrays(index), device="cpu")
+    t_out = str(tmp_path / "idx")
+    t_man = write_index(t_out, torch_cfg(cfg), t_index,
+                        np.zeros((cd.max() + 1, cfg.dim), np.float32),
+                        n_shards=N_SHARDS, format_version=2, pq=t_pq)
+    assert t_man["block_shards"] == manifest["block_shards"]
+    for shard in manifest["block_shards"]:
+        with open(os.path.join(t_out, shard["file"]), "rb") as f, \
                 open(os.path.join(out, shard["file"]), "rb") as g:
             assert f.read() == g.read(), shard["file"]
 
@@ -156,19 +160,31 @@ def test_fused_lists_have_no_duplicate_ids(built):
 
 
 def test_engine_rejects_a_float_store(built):
+    """A float-block store serves the "dot" tail; demanding ADC over it
+    raises, as in the JAX engine. A device-resident store (not ported)
+    raises too."""
     cfg, index, *_ = built
     t_index = convert.index_from_numpy(index_arrays(index), device="cpu")
 
     class FloatStore:
         is_host, is_coded = True, False
+        cap, dim = 8, 32
+
+    with pytest.raises(ValueError, match="code-backed"):
+        RetrievalEngine(torch_cfg(cfg), t_index, FloatStore(), use_adc=True,
+                        device="cpu")
+
+    class DeviceStore:
+        is_host, is_coded = False, False
 
     with pytest.raises(NotImplementedError):
-        RetrievalEngine(torch_cfg(cfg), t_index, FloatStore(), device="cpu")
+        RetrievalEngine(torch_cfg(cfg), t_index, DeviceStore(), device="cpu")
 
 
 def test_build_index_serves_end_to_end_on_cpu(tmp_path):
     """The port's own build side (k-means, cluster table, sparse index,
-    PQ, code shards) feeding its engine, as chip_smoke.py drives it."""
+    PQ) written by its write_index and served through its IndexReader,
+    as chip_smoke.py drives it."""
     from repro_torch.configs import clusd_msmarco
     from repro_torch.core.features import feature_dim
     from repro_torch.core.lstm import LSTMSelector
@@ -186,13 +202,12 @@ def test_build_index_serves_end_to_end_on_cpu(tmp_path):
                          generator=g, device="cpu")
     index.selector = LSTMSelector(feature_dim(cfg), cfg.lstm_hidden,
                                   generator=g)
-    cd = index.cluster_docs.numpy()
-    paths, ranges = write_code_shards(str(tmp_path), pq.codes.numpy(), cd, 4)
-    store = ShardedPQStore(paths, ranges, cd.shape[1], pq.codebooks.numpy(),
-                           cd)
+    write_index(str(tmp_path / "v2"), cfg, index, corpus.embeddings,
+                n_shards=4, format_version=2, pq=pq)
     qs = synth_queries(2, corpus, 24)
-    with RetrievalEngine(cfg, index, store, max_batch=8,
-                         device="cpu") as eng:
+    with IndexReader.open(str(tmp_path / "v2"), verify="full").engine(
+            max_batch=8, device="cpu") as eng:
+        assert isinstance(eng.store, ShardedPQStore) and eng.use_adc
         ids, scores = eng.retrieve(qs.q_dense, qs.q_terms, qs.q_weights)
         stats = eng.stats()
     assert ids.shape == (24, cfg.k_final) and torch.isfinite(scores).all()
