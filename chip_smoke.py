@@ -15,28 +15,36 @@ Phases, each printed with its seconds:
   4. two index directories written by the port's `write_index`: v2 (PQ
      code shards, 8 shards) and v1 (float32 blocks at the full widths,
      8 shards, 6.4 GB);
-  5. v2 serving: `IndexReader.open(v2, verify="size").engine()` answers
-     1024 queries in batches of 256 (the first batch is warm-up), then
-     torch.profiler over one more steady batch;
-  6. v1 serving: the same 1024 queries through the v1 directory — the
+  5. device stores: `RetrievalEngine(cfg, index)` with no store serves
+     the 1024 queries in batches of 256 from an InMemoryStore (the
+     index's float embeddings and their 6.4 GB (N, cap, dim) block
+     table, the cluster_score kernel), then from a PQStore (the index's
+     PQ and its (N, cap, nsub) code table, the ADC kernels), each with
+     one profiled batch and the card-vs-CPU parity on 16 queries; the
+     PQStore engine's last batch gives the topk and bin_overlap kernels
+     their main-path inputs;
+  6. v2 serving: `IndexReader.open(v2, verify="size").engine()` answers
+     the 1024 queries, then torch.profiler over one more steady batch;
+  7. v1 serving: the same 1024 queries through the v1 directory — the
      "dot" tail and the cluster_score kernel, about 4 GB of unique float
      blocks per batch — then one profiled batch;
-  7. reloads: `reload_index()` on the v1 engine while a second thread
+  8. reloads: `reload_index()` on the v1 engine while a second thread
      keeps serving (0 failed batches, reloads 1, cache cleared, I/O
      counters kept, ids equal to a fresh engine's), then
      `reload_selector()` (the cache is kept);
-  8. each kernel against its plain version on the inputs the engines'
+  9. each kernel against its plain version on the inputs the engines'
      own stage functions make for their last batch of queries, timed
      with CUDA events beside one PyTorch call of the same function where
      there is one, and its bound;
-  9. parity: the same 16 queries served on the card and on the CPU
+ 10. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each directory must agree.
 
 Every kernel's launch count is zeroed just before each serving path and
-read just after it; the kernel table sums the two paths. Prints the
-kernel table as one JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Any failure exits non-zero; without a
-card it exits 2 before doing anything.
+read just after it; each path must have launched each kernel it runs
+(topk and bin_overlap on all four), and the kernel table sums the four
+paths. Prints the kernel table as one JSON line, the nvidia-smi line,
+and last {"ok": true, "device": {...}}. Any failure exits non-zero;
+without a card it exits 2 before doing anything.
 """
 
 import dataclasses
@@ -196,21 +204,15 @@ def check_results(cfg, ids, scores, n):
     return ids_np
 
 
-def serve_path(name, path, qs, n, dev):
-    """Serve the first n queries through IndexReader.engine() with the
-    launch counts zeroed just before and read just after; check the
-    results; profile one more steady batch on the same engine. Returns
-    (launches, engine): the engine stays open for the caller."""
+def serve_engine(name, eng, qs, n, dev):
+    """Serve the first n queries through `eng` with the launch counts
+    zeroed just before and read just after; check the results; print the
+    stats and spans; profile one more steady batch. Returns the launch
+    counts of the run."""
     from repro_torch import kernels
     from repro_torch.core import sparse as sparse_lib
     from repro_torch.data import mrr_at
-    from repro_torch.index import IndexReader
 
-    t0 = time.perf_counter()
-    eng = IndexReader.open(path, verify="size").engine(
-        max_batch=MAX_BATCH, trace_sample_rate=1.0, device=dev)
-    print(f"  open + load_index: {time.perf_counter() - t0:.2f} s; "
-          f"store {type(eng.store).__name__}, use_adc {eng.use_adc}")
     kernels.reset_launches()
     t0 = time.perf_counter()
     ids, scores = eng.retrieve(*queries(qs, 0, n))
@@ -238,7 +240,80 @@ def serve_path(name, path, qs, n, dev):
           f"MRR@10 {mrr_at(sparse_ids.cpu().numpy(), qs.rel_doc[:n]):.4f} "
           f"(untrained selector; for information)")
     profile_batch(eng, queries(qs, n - MAX_BATCH, n), dev)
+    return launches
+
+
+def serve_path(name, path, qs, n, dev):
+    """serve_engine over IndexReader.open(path).engine(). Returns
+    (launches, engine): the engine stays open for the caller."""
+    from repro_torch.index import IndexReader
+
+    t0 = time.perf_counter()
+    eng = IndexReader.open(path, verify="size").engine(
+        max_batch=MAX_BATCH, trace_sample_rate=1.0, device=dev)
+    print(f"  open + load_index: {time.perf_counter() - t0:.2f} s; "
+          f"store {type(eng.store).__name__}, use_adc {eng.use_adc}")
+    return serve_engine(name, eng, qs, n, dev), eng
+
+
+def serve_device(name, cfg, index, qs, n, dev):
+    """serve_engine over RetrievalEngine(cfg, index): no store given, so
+    the engine builds the index's default device store. Returns
+    (launches, engine)."""
+    from repro_torch.engine import RetrievalEngine
+
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = RetrievalEngine(cfg, index, max_batch=MAX_BATCH,
+                          trace_sample_rate=1.0, device=dev)
+    sync(dev)
+    table = eng.store.code_blocks if eng.store.is_coded else eng.store.blocks
+    print(f"  engine + store: {time.perf_counter() - t0:.2f} s; store "
+          f"{type(eng.store).__name__}, block table "
+          f"{tuple(table.shape)} {table.dtype} {table.nbytes} bytes")
+    launches = serve_engine(name, eng, qs, n, dev)
+    if on_card:
+        print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f} "
+              f"GB allocated, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB since the "
+              f"engine was made")
     return launches, eng
+
+
+def tail_inputs(eng, qs, dev):
+    """The topk and bin_overlap kernels' inputs for the last batch of
+    MAX_BATCH queries, made by the stage functions the device-store
+    engine runs: the sparse score matrix (a (B, D) view of a (B, D + 1)
+    buffer) and its top-k, the Stage-I overlap inputs, and the fused
+    (B, n_docs) buffer (a view of a (B, n_docs + 1) buffer)."""
+    from repro_torch.core import clusd as clusd_lib
+    from repro_torch.core import fusion as fusion_lib
+    from repro_torch.core import sparse as sparse_lib
+    from repro_torch.engine import pipeline as pipe_lib
+
+    q3 = queries(qs, N_QUERIES - MAX_BATCH, N_QUERIES)
+    qd = torch.tensor(q3[0], dtype=torch.float32).to(dev)
+    qt = torch.tensor(q3[1], dtype=torch.int32).to(dev)
+    qw = torch.tensor(q3[2], dtype=torch.float32).to(dev)
+    cfg, index = eng.cfg, eng.index
+    with torch.no_grad():
+        sid, ss, full = sparse_lib.sparse_retrieve(index.sparse_index, qt,
+                                                   qw, cfg.k_sparse)
+        sel = clusd_lib.select_clusters(cfg, index, qd, sid, ss)
+        did, dscore, dmask = pipe_lib.score_selected(
+            eng.store, qd, sel["sel_ids"], sel["sel_mask"])
+        fused = fusion_lib.fuse_buffer(
+            sid, ss, did, torch.where(dmask, dscore, 0.0), dmask,
+            index.n_docs, cfg.alpha, method=cfg.fusion, rrf_k=cfg.rrf_k)
+        c_of = index.doc_cluster[sid.long()].int()
+        norm = fusion_lib.minmax_norm(ss).float().contiguous()
+    sync(dev)
+    return {"fused": fused[:, :index.n_docs], "k_final": eng.k,
+            "sparse": full, "k_sparse": cfg.k_sparse, "c_of": c_of,
+            "bin_ids": index.bin_ids.int().contiguous(), "norm": norm,
+            "n_clusters": index.n_clusters, "v": cfg.v_bins}
 
 
 def profile_batch(eng, q3, dev):
@@ -267,10 +342,10 @@ def profile_batch(eng, q3, dev):
           f"{busy:.3f} ms; idle share {1 - busy / wall_ms:.3f}; spans (ms) "
           f"{json.dumps({sp.name: round(sp.dur_ms, 3) for sp in tr.spans})}")
     print("  device time by kernel / copy:")
-    for ms, count, key in sorted(dev_rows, reverse=True)[:12]:
+    for ms, count, key in sorted(dev_rows, reverse=True)[:10]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
     print("  host (self CPU) time by op:")
-    for ms, count, key in sorted(cpu_rows, reverse=True)[:10]:
+    for ms, count, key in sorted(cpu_rows, reverse=True)[:6]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
@@ -376,14 +451,16 @@ def main_path_inputs(eng, qs, dev):
             "pos": torch.from_numpy(pos).to(dev)}
 
 
-def check_kernels(dev, launches, v2, v1, codebooks, selector):
+def check_kernels(dev, launches, v2, v1, tail, codebooks, selector):
     """Each kernel vs its plain version on the main path's inputs."""
     from repro_torch.kernels.adc import (adc_score_blocks,
                                          adc_score_blocks_ref, adc_tables,
                                          adc_tables_ref)
+    from repro_torch.kernels.bin_overlap import bin_overlap, bin_overlap_ref
     from repro_torch.kernels.cluster_score import (cluster_score,
                                                    cluster_score_ref)
     from repro_torch.kernels.lstm import lstm_sequence, lstm_sequence_ref
+    from repro_torch.kernels.topk import topk, topk_ref
 
     rows = []
 
@@ -508,6 +585,66 @@ def check_kernels(dev, launches, v2, v1, codebooks, selector):
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                  "shapes": [(B, n, F), (F, G), (H, G), (G,)],
                  "library_max_abs_err": lib_err})
+    # topk: the fuse top-k over the last batch's fused buffer and the
+    # sparse top-k over its score matrix, both row-strided views
+    errs, notes = [], []
+    for key, kk in (("fused", tail["k_final"]), ("sparse", tail["k_sparse"])):
+        x = tail[key]
+        v, i = topk(x, kk)
+        rv, ri = topk_ref(x, kk)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, ri)
+                and torch.equal(v.view(torch.int32), rv.view(torch.int32))):
+            raise AssertionError(f"topk on the {key} rows is not bitwise "
+                                 f"the plain version")
+        errs.append((v - rv).abs().max().item())
+        B, D = x.shape
+        b_ms, b_by = bound(4 * B * D + 12 * B * kk, B * D)
+        t = {"ms": cuda_ms(lambda: topk(x, kk), 10),
+             "plain_ms": cuda_ms(lambda: topk_ref(x, kk), 3),
+             "library_ms": cuda_ms(lambda: torch.topk(x, kk), 10),
+             "bound_ms": b_ms, "bound_by": b_by}
+        notes.append((key, (B, D), x.stride(0), kk, t))
+    _, (B, D), stride, kk, t = notes[0]
+    rows.append({"name": "topk", "route": "cuda",
+                 "source": "src/repro_torch/csrc/topk.cu",
+                 "replaces": "src/repro/kernels/topk/kernel.py:36",
+                 "launches": launches["topk"], "max_abs_err": max(errs), **t,
+                 "shapes": [f"{key} ({shape[0]}, {shape[1]}) row stride "
+                            f"{st} k {kk_}: " + ", ".join(
+                                f"{a} {b:.4f}" if isinstance(b, float)
+                                else f"{a} {b}" for a, b in tt.items())
+                            for key, shape, st, kk_, tt in notes]})
+
+    # bin_overlap: Stage I's P/Q over the last batch's sparse top-k. The
+    # plain version on the card adds with atomics; the kernel is held
+    # bitwise to the plain version's sequential order on the CPU.
+    c_of, bins, norm = tail["c_of"], tail["bin_ids"], tail["norm"]
+    N, nv = tail["n_clusters"], tail["v"]
+    P, Q = bin_overlap(c_of, bins, norm, n_clusters=N, v=nv)
+    cP, cQ = bin_overlap_ref(c_of.cpu(), bins.cpu(), norm.cpu(),
+                             n_clusters=N, v=nv)
+    gP, gQ = bin_overlap_ref(c_of, bins, norm, n_clusters=N, v=nv)
+    torch.cuda.synchronize()
+    if not (torch.equal(P.cpu(), cP)
+            and torch.equal(Q.cpu().view(torch.int32), cQ.view(torch.int32))):
+        raise AssertionError("bin_overlap is not bitwise the plain version")
+    B, k = c_of.shape
+    b_ms, b_by = bound(8 * B * N * nv + 8 * B * k + 4 * bins.numel(), B * k)
+    rows.append({"name": "bin_overlap", "route": "cuda",
+                 "source": "src/repro_torch/csrc/bin_overlap.cu",
+                 "replaces": "src/repro/kernels/bin_overlap/kernel.py:39",
+                 "launches": launches["bin_overlap"],
+                 "max_abs_err": (Q.cpu() - cQ).abs().max().item(),
+                 "ms": cuda_ms(lambda: bin_overlap(
+                     c_of, bins, norm, n_clusters=N, v=nv), 20),
+                 "plain_ms": cuda_ms(lambda: bin_overlap_ref(
+                     c_of, bins, norm, n_clusters=N, v=nv), 10),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "shapes": [(B, k), tuple(bins.shape), f"N {N} v {nv}",
+                            f"P > 1 in {int((P > 1).sum())} slots"],
+                 "library_max_abs_err": "plain on the card (atomics) vs "
+                 f"CPU: Q {(gQ.cpu() - cQ).abs().max().item():.3g}"})
     for r in rows:
         print(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
@@ -518,18 +655,14 @@ def check_kernels(dev, launches, v2, v1, codebooks, selector):
     return rows
 
 
-def parity(name, path, qs, dev, atol):
-    """The first PARITY_QUERIES queries through one directory, served on
-    `dev` and on the CPU (plain versions): ids equal at isolated ranks,
+def parity(name, make_engine, qs, dev, atol):
+    """The first PARITY_QUERIES queries served by make_engine(dev) and by
+    make_engine("cpu") (plain versions): ids equal at isolated ranks,
     scores within rtol 1e-5 and `atol`."""
-    from repro_torch.index import IndexReader
-
     q3 = queries(qs, 0, PARITY_QUERIES)
-    with IndexReader.open(path).engine(max_batch=MAX_BATCH, prefetch=False,
-                                       device=dev) as eng:
+    with make_engine(dev) as eng:
         g_ids, g_sc = (t.cpu().numpy() for t in eng.retrieve(*q3))
-    with IndexReader.open(path).engine(max_batch=MAX_BATCH, prefetch=False,
-                                       device="cpu") as eng:
+    with make_engine("cpu") as eng:
         c_ids, c_sc = (t.numpy() for t in eng.retrieve(*q3))
     ok = isolated_ranks(c_sc, PARITY_GAP)
     bad = int((g_ids[ok] != c_ids[ok]).sum())
@@ -539,6 +672,29 @@ def parity(name, path, qs, dev, atol):
           f"{close}; max |score diff| {np.abs(g_sc - c_sc).max():.3g}")
     if bad or not close:
         raise AssertionError(f"{name}: card and CPU disagree")
+
+
+def dir_engine(path):
+    from repro_torch.index import IndexReader
+    return lambda d: IndexReader.open(path).engine(
+        max_batch=MAX_BATCH, prefetch=False, device=d)
+
+
+def device_engine(cfg, index):
+    from repro_torch.engine import RetrievalEngine
+    return lambda d: RetrievalEngine(cfg, index.to(d), max_batch=MAX_BATCH,
+                                     device=d)
+
+
+# the kernels each serving path must launch
+PATH_KERNELS = {
+    "memory": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+    "pq": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
+           "bin_overlap"),
+    "v2": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
+           "bin_overlap"),
+    "v1": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+}
 
 
 def main():
@@ -570,7 +726,9 @@ def main():
     with phase("kernel build (nvcc, sm_90a)"):
         for name, log in build.build_all().items():
             print(f"--- {name}.cu: {log['seconds']:.2f} s -> {log['so']}")
-            print(log["ptxas"].strip())
+            print("\n".join(ln for ln in log["ptxas"].splitlines()
+                            if "Compiling entry" in ln or "Used" in ln
+                            or "spill" in ln))
 
     cfg = dataclasses.replace(clusd_msmarco.full(), n_docs=N_DOCS)
     print(f"config: dim {cfg.dim} N {cfg.n_clusters} cap {cfg.cluster_cap} "
@@ -590,20 +748,44 @@ def main():
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         with phase("index directories (write_index v2, v1 float32)"):
             dirs = write_dirs(cfg, index, pq, corpus, tmp)
-            del index, corpus
+        paths = {}
+        # device stores: the ADC tail is bitwise the plain version's, so
+        # rtol alone for PQStore; dot products are summed in another order
+        # on the card, so atol 1e-6 for InMemoryStore
+        index.embeddings = torch.from_numpy(corpus.embeddings).to(dev)
+        with phase(f"device InMemoryStore serving: {N_QUERIES} queries + 1 "
+                   f"profiled batch + parity on {PARITY_QUERIES}"):
+            paths["memory"], eng = serve_device("memory", cfg, index, qs,
+                                                N_QUERIES, dev)
+            eng.close()
+            del eng
+            parity("memory", device_engine(cfg, index), qs, dev, 1e-6)
+        index.embeddings, index.quantizer = None, pq
+        del corpus
+        with phase(f"device PQStore serving: {N_QUERIES} queries + 1 "
+                   f"profiled batch + parity on {PARITY_QUERIES}"):
+            paths["pq"], eng = serve_device("pq", cfg, index, qs, N_QUERIES,
+                                            dev)
+            tail = tail_inputs(eng, qs, dev)
+            eng.close()
+            del eng
+            parity("pq", device_engine(cfg, index), qs, dev, 0.0)
+        del index, pq
         with phase(f"v2 serving: {N_QUERIES} queries + 1 profiled batch"):
-            l_v2, eng_v2 = serve_path("v2", dirs["v2"], qs, N_QUERIES, dev)
+            paths["v2"], eng_v2 = serve_path("v2", dirs["v2"], qs, N_QUERIES,
+                                             dev)
             eng_v2.close()
         with phase(f"v1 serving: {N_QUERIES} queries + 1 profiled batch"):
-            l_v1, eng_v1 = serve_path("v1", dirs["v1"], qs, N_QUERIES, dev)
-        launches = {k: l_v2[k] + l_v1[k] for k in l_v2}
-        print(f"  launches over both paths: {launches}")
-        if min(l_v2[k] for k in ("adc_tables", "adc_score_blocks",
-                                 "lstm_sequence")) <= 0 \
-                or min(l_v1[k] for k in ("cluster_score",
-                                         "lstm_sequence")) <= 0:
-            raise AssertionError(f"a kernel of a main path never launched: "
-                                 f"v2 {l_v2}, v1 {l_v1}")
+            paths["v1"], eng_v1 = serve_path("v1", dirs["v1"], qs, N_QUERIES,
+                                             dev)
+        launches = {k: sum(p[k] for p in paths.values())
+                    for k in paths["v2"]}
+        print(f"  launches over the four paths: {launches}")
+        missing = {p: [k for k in PATH_KERNELS[p] if paths[p][k] <= 0]
+                   for p in PATH_KERNELS}
+        if any(missing.values()):
+            raise AssertionError(f"kernels of a main path never launched: "
+                                 f"{missing}; launches {paths}")
         with phase("reloads on the v1 engine"):
             reload_phase(eng_v1, dirs["v1"], qs, dev)
             eng_v1.close()
@@ -611,15 +793,15 @@ def main():
             v2_in = main_path_inputs(eng_v2, qs, dev)
             v1_in = main_path_inputs(eng_v1, qs, dev)
             codebooks = torch.from_numpy(eng_v2.store.codebooks).to(dev)
-            rows = check_kernels(dev, launches, v2_in, v1_in, codebooks,
-                                 eng_v2.index.selector)
-            del v1_in, v2_in
+            rows = check_kernels(dev, launches, v2_in, v1_in, tail,
+                                 codebooks, eng_v2.index.selector)
+            del v1_in, v2_in, tail
         # v2's ADC scores are bitwise the plain version's, so rtol alone;
         # v1's dot products are summed in another order on the card
         for name, atol in (("v2", 0.0), ("v1", 1e-6)):
             with phase(f"parity {name}: {PARITY_QUERIES} queries, card vs "
                        f"CPU"):
-                parity(name, dirs[name], qs, dev, atol)
+                parity(name, dir_engine(dirs[name]), qs, dev, atol)
     print(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in ("shapes",

@@ -2,15 +2,17 @@
 features (paper §2.2): P(C_i, B_j) = |C_i ∩ B_j| (count overlap) and
 Q(C_i, B_j) = mean sparse score of docs in C_i ∩ B_j (score overlap).
 
-The segment-sum form of the JAX path, as two scatter-adds into a
-(B, N*v) buffer. Counts are exact in any order; the score sums are
-atomic on CUDA, so Q differs from the CPU's in the last bits.
+The features come from the bin_overlap kernel on the card
+(repro_torch.kernels.bin_overlap: no atomics, each slot's scores summed
+in rank order) and from its plain scatter-add version on the CPU; both
+give the JAX package's segment_sum bit for bit.
 """
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bin_overlap import ops as bin_overlap_ops
 
 
 def rank_bin_ids(bins, k, *, device=None):
@@ -28,13 +30,7 @@ def overlap_features(top_ids, top_scores, doc_cluster, n_clusters, bin_ids, v):
     doc_cluster: (D,) cluster of each doc; bin_ids: (k,) bin of each
     rank. Returns P, Q: (B, N, v) float32.
     """
-    B, k = top_ids.shape
-    c_of = doc_cluster[top_ids.long()].long()              # (B, k)
-    slot = c_of * v + bin_ids[None, :].long()              # (B, k)
-    cnt = torch.zeros((B, n_clusters * v), dtype=torch.float32,
-                      device=top_ids.device)
-    cnt.scatter_add_(1, slot, torch.ones_like(top_scores, dtype=torch.float32))
-    ssum = torch.zeros_like(cnt).scatter_add_(1, slot, top_scores.float())
-    P = cnt.reshape(B, n_clusters, v)
-    Q = (ssum / cnt.clamp(min=1.0)).reshape(B, n_clusters, v)
-    return P, Q
+    c_of = doc_cluster[top_ids.long()].int()               # (B, k)
+    return bin_overlap_ops.bin_overlap(
+        c_of, bin_ids.int().contiguous(), top_scores.float().contiguous(),
+        n_clusters=n_clusters, v=v)

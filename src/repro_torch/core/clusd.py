@@ -10,7 +10,8 @@ Online (batched over queries):
   2. Stage I: P/Q overlap features -> multikey sort -> top-n candidates
      Stage II: LSTM over the candidate sequence -> f(C_i) >= theta ->
      selected clusters (static budget max_selected, mask-padded)
-  3. score the selected cluster blocks -> fusion (repro_torch.engine)
+  3. score the selected cluster blocks -> fusion (repro_torch.engine;
+     `retrieve` runs all three over the index's device store)
 """
 
 import copy
@@ -63,6 +64,11 @@ class CluSDIndex:
             return x.to(device) if isinstance(x, torch.Tensor) else x
         sel = None if self.selector is None \
             else copy.deepcopy(self.selector).to(device)
+        pq = self.quantizer
+        if pq is not None:
+            pq = dataclasses.replace(pq, codebooks=mv(pq.codebooks),
+                                     codes=mv(pq.codes),
+                                     rotation=mv(pq.rotation))
         return dataclasses.replace(
             self, centroids=mv(self.centroids),
             cluster_docs=mv(self.cluster_docs),
@@ -71,7 +77,7 @@ class CluSDIndex:
             neighbor_sims=mv(self.neighbor_sims),
             embeddings=mv(self.embeddings),
             sparse_index=self.sparse_index.to(device), selector=sel,
-            bin_ids=mv(self.bin_ids))
+            quantizer=pq, bin_ids=mv(self.bin_ids))
 
 
 def build_index(cfg, embeddings, doc_terms, doc_weights, *, kmeans_iters=15,
@@ -121,16 +127,41 @@ def stage1_candidates(cfg, index, q_dense, sparse_ids, sparse_scores, *,
     return {"cand": cand, "feats": feats, "qc_sim": qc_sim, "P": P, "Q": Q}
 
 
-def stage2_select(cfg, index, cand, feats):
+def full_dense_topk(embeddings, q_dense, k):
+    """Exhaustive dense retrieval: the top-k of q_dense @ embeddings.T
+    under the lax.top_k rule (the topk kernel on the card). Returns (ids
+    (B, k) int32, scores (B, k))."""
+    scores = q_dense.float() @ embeddings.float().T
+    s, i = topk_desc_index_asc(scores, k)
+    return i.int(), s
+
+
+def _selector_module(selector, selector_params, index, device):
+    """The Stage-II LSTMSelector: one made from `selector_params` (the JAX
+    package's LSTM param dict, as arrays) when given, else the index's.
+    Only the "lstm" selector is ported."""
+    if selector != "lstm":
+        raise NotImplementedError(f"selector {selector!r} is not ported; "
+                                  f"only 'lstm' is")
+    if selector_params is None:
+        return index.selector
+    from repro_torch.convert import selector_from_numpy
+    return selector_from_numpy(selector_params, device=device)
+
+
+def stage2_select(cfg, index, cand, feats, *, selector="lstm", theta=None,
+                  selector_params=None):
     """Step 2: selector probabilities -> thresholded, budgeted selection.
-    Returns {"probs", "sel_ids", "sel_mask"}."""
-    theta = cfg.theta
+    `theta` overrides cfg.theta; `selector_params` overrides the index's
+    selector. Returns {"probs", "sel_ids", "sel_mask"}."""
+    theta = cfg.theta if theta is None else theta
     B, n = cand.shape
-    if index.selector is None:
+    module = _selector_module(selector, selector_params, index, cand.device)
+    if module is None:
         # untrained: stage-1 order only — take the first max_selected
         probs = torch.linspace(1.0, 0.5, n, device=cand.device)[None].repeat(B, 1)
     else:
-        probs = index.selector(feats)
+        probs = module(feats)
     picked = probs >= theta                                  # (B, n)
     # static budget: top max_selected by prob among picked; unpicked
     # entries sort last via -inf and the mask is the picked bit carried
@@ -140,3 +171,40 @@ def stage2_select(cfg, index, cand, feats):
     sel_mask = picked.gather(1, top_i)
     sel_ids = cand.gather(1, top_i)
     return {"probs": probs, "sel_ids": sel_ids, "sel_mask": sel_mask}
+
+
+def select_clusters(cfg, index, q_dense, sparse_ids, sparse_scores, *,
+                    selector="lstm", stage1="overlap", theta=None,
+                    selector_params=None):
+    """Steps 1-2: Stage-I candidates and features, then the Stage-II
+    selection. Returns the union of both stages' dicts."""
+    s1 = stage1_candidates(cfg, index, q_dense, sparse_ids, sparse_scores,
+                           stage1=stage1)
+    s2 = stage2_select(cfg, index, s1["cand"], s1["feats"],
+                       selector=selector, theta=theta,
+                       selector_params=selector_params)
+    return {**s1, **s2}
+
+
+def score_selected(index, q_dense, sel_ids, sel_mask, embeddings=None):
+    """Step-3 dense scoring of explicit selections through an
+    InMemoryStore over `embeddings` (default: the index's). Returns
+    (doc_ids (B, S*cap) int32, scores with -inf at invalid, valid)."""
+    from repro_torch.engine import pipeline as pipe_lib
+    from repro_torch.engine import stores as stores_lib
+    emb = embeddings if embeddings is not None else index.embeddings
+    store = stores_lib.InMemoryStore(emb, index.cluster_docs)
+    return pipe_lib.score_selected(store, q_dense, sel_ids, sel_mask)
+
+
+def retrieve(cfg, index, q_dense, q_terms, q_weights, *, selector="lstm",
+             stage1="overlap", theta=None, selector_params=None, k=None):
+    """The full CluSD pipeline over the index's default device store
+    (PQStore when it carries a quantizer, else InMemoryStore). Returns
+    (ids, scores, diag) as engine.pipeline.retrieve."""
+    from repro_torch.engine import pipeline as pipe_lib
+    from repro_torch.engine import stores as stores_lib
+    return pipe_lib.retrieve(
+        cfg, index, stores_lib.store_for_index(index), q_dense, q_terms,
+        q_weights, selector=selector, stage1=stage1, theta=theta,
+        selector_params=selector_params, k=k)

@@ -14,40 +14,27 @@ left out of the min-max range and of the ranks.
 Ties: `lax.top_k` returns ties in ascending index order; `torch.topk`
 promises no order among them. `topk_desc_index_asc` applies the rule
 explicitly and is the port's one top-k (sparse retrieval, Stage-I
-sort-by-distance, Stage-II budget, the neighbor graph and this fuse).
+sort-by-distance, Stage-II budget, the neighbor graph, the full dense
+top-k and this fuse): the topk kernel on the card.
 """
 
 import torch
+
+from repro_torch.kernels.topk import ops as topk_ops
 
 FUSION_METHODS = ("interp", "rrf")
 
 
 def topk_desc_index_asc(x, k):
     """The k largest entries of each row of x (..., D), ordered (value
-    desc, index asc) — `jax.lax.top_k`'s tie rule. Returns (values,
-    indices int64).
+    desc, index asc) — `jax.lax.top_k`'s rule, with its total order of
+    floats (-0.0 below +0.0). Returns (values, indices int64).
 
-    torch.topk finds the k-th value exactly; every entry above it is in,
-    and of the entries equal to it the lowest-indexed ones fill the rest.
-    A stable sort of those k then orders them.
+    On CUDA tensors this is the topk kernel (repro_torch.kernels.topk),
+    which reads a row-strided view such as `fused[:, :n_docs]` in place;
+    on CPU tensors its plain version.
     """
-    D = x.shape[-1]
-    if not 0 <= k <= D:
-        raise ValueError(f"k={k} out of range for rows of length {D}")
-    if k == 0:
-        return x[..., :0], torch.zeros(x.shape[:-1] + (0,), dtype=torch.long,
-                                       device=x.device)
-    kth = torch.topk(x, k, dim=-1, sorted=True).values[..., -1:]
-    above = x > kth
-    tied = x == kth
-    room = k - above.sum(-1, keepdim=True, dtype=torch.int32)
-    keep = above | (tied & (torch.cumsum(tied, -1, dtype=torch.int32) <= room))
-    # exactly k entries per row are kept; nonzero lists them row-major,
-    # so each row's indices come out ascending
-    idx = keep.reshape(-1, D).nonzero()[:, 1].reshape(x.shape[:-1] + (k,))
-    vals = x.gather(-1, idx)
-    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
-    return vals.gather(-1, order), idx.gather(-1, order)
+    return topk_ops.topk(x, k)
 
 
 def minmax_norm(scores, mask=None):
@@ -85,19 +72,16 @@ def side_contrib(scores, mask, weight, method, rrf_k):
                      f"expected one of {FUSION_METHODS}")
 
 
-def fuse_topk(sparse_ids, sparse_scores, dense_ids, dense_scores, dense_mask,
-              n_docs, alpha, k, *, sparse_mask=None, method="interp",
-              rrf_k=60.0):
-    """Union-merge + fuse + global top-k over an (B, n_docs + 1) buffer.
-
-    sparse_ids/scores: (B, Ks), optional sparse_mask; dense_ids/scores:
-    (B, Kd) with dense_mask. Returns (ids (B, k) int32, scores (B, k)).
+def fuse_buffer(sparse_ids, sparse_scores, dense_ids, dense_scores,
+                dense_mask, n_docs, alpha, *, sparse_mask=None,
+                method="interp", rrf_k=60.0):
+    """The (B, n_docs + 1) fused-score buffer that fuse_topk ranks: each
+    side's contributions scatter-added at their doc ids, masked entries
+    into the dump column n_docs.
 
     A doc gets at most one addend from each side (the serving path
     feeds duplicate-free lists), and two addends onto 0.0 give the same
-    sum in either order, so the atomic CUDA scatter is exact. Masked
-    entries go to the dump column n_docs.
-    """
+    sum in either order, so the atomic CUDA scatter is exact."""
     if sparse_mask is None:
         sparse_mask = torch.ones_like(sparse_ids, dtype=torch.bool)
     s_c = side_contrib(sparse_scores, sparse_mask, alpha, method, rrf_k)
@@ -109,5 +93,19 @@ def fuse_topk(sparse_ids, sparse_scores, dense_ids, dense_scores, dense_mask,
                        d_c.float())
     fused.scatter_add_(1, torch.where(sparse_mask, sparse_ids, n_docs).long(),
                        s_c.float())
+    return fused
+
+
+def fuse_topk(sparse_ids, sparse_scores, dense_ids, dense_scores, dense_mask,
+              n_docs, alpha, k, *, sparse_mask=None, method="interp",
+              rrf_k=60.0):
+    """Union-merge + fuse + global top-k over the fuse_buffer.
+
+    sparse_ids/scores: (B, Ks), optional sparse_mask; dense_ids/scores:
+    (B, Kd) with dense_mask. Returns (ids (B, k) int32, scores (B, k)).
+    The top-k reads the buffer's first n_docs columns in place."""
+    fused = fuse_buffer(sparse_ids, sparse_scores, dense_ids, dense_scores,
+                        dense_mask, n_docs, alpha, sparse_mask=sparse_mask,
+                        method=method, rrf_k=rrf_k)
     scores, ids = topk_desc_index_asc(fused[:, :n_docs], k)
     return ids.int(), scores

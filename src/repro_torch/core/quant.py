@@ -5,7 +5,11 @@ nsub subspaces x 256 codes, scored via per-query ADC lookup tables
   * `train_pq`: per-subspace k-means on a sample of the corpus, with an
     optional PCA rotation (OPQ-lite);
   * `pq_encode`: nearest codebook entry per subspace, in row chunks;
-  * `decode_code_blocks`: host-side reconstruction of code blocks.
+  * `decode_code_blocks`: host-side reconstruction of code blocks;
+  * `adc_tables`, `adc_score`, `reconstruct`: per-query LUTs, LUT scores
+    of doc ids, and decoded vectors of a PQ on the device;
+  * `score_selected_pq`: Step-3 scoring over a PQStore;
+  * `identity_pq`: a lossless PQ of a tiny corpus, for parity tests.
 """
 
 import dataclasses
@@ -16,6 +20,7 @@ import torch
 
 from repro_torch.core import kmeans as km
 from repro_torch.device import resolve_device
+from repro_torch.kernels import adc as adc_ops
 
 
 @dataclasses.dataclass
@@ -93,3 +98,59 @@ def decode_code_blocks(codebooks, codes, rotation=None):
     if rotation is not None:
         flat = flat @ np.asarray(rotation, np.float32).T
     return flat
+
+
+def adc_tables(pq: PQ, q):
+    """q: (B, dim) -> LUT (B, nsub, 256), the OPQ rotation folded in (the
+    adc_tables kernel on the card)."""
+    return adc_ops.adc_tables(q.float(), pq.codebooks, pq.rotation)
+
+
+def adc_score(pq: PQ, lut, doc_ids):
+    """lut: (B, nsub, 256); doc_ids: (B, K) -> approximate scores (B, K):
+    score[b, k] = sum over ascending s of lut[b, s, codes[doc_ids[b, k],
+    s]], one float32 accumulator (negative ids read doc 0)."""
+    codes = pq.codes[doc_ids.clamp(min=0).long()].long()   # (B, K, nsub)
+    acc = torch.zeros(doc_ids.shape, dtype=torch.float32, device=lut.device)
+    for s in range(pq.nsub):
+        acc = acc + lut[:, s, :].float().gather(1, codes[..., s])
+    return acc
+
+
+def reconstruct(pq: PQ, doc_ids):
+    """Decoded embeddings of the given doc ids: (K, dim)."""
+    codes = pq.codes[doc_ids.long()].long()                  # (K, nsub)
+    vecs = pq.codebooks[torch.arange(pq.nsub, device=codes.device)[None],
+                        codes]                               # (K, nsub, dsub)
+    flat = vecs.reshape(doc_ids.shape[0], -1)
+    if pq.rotation is not None:
+        flat = flat @ pq.rotation.T
+    return flat
+
+
+def score_selected_pq(index, q_dense, sel_ids, sel_mask):
+    """Quantized Step-3 scoring through a PQStore over `index.quantizer`
+    (the adc_tables and adc_score_blocks kernels on the card). Returns
+    (doc_ids (B, S*cap) int32, scores with -inf at invalid, valid)."""
+    from repro_torch.engine import pipeline as pipe_lib
+    from repro_torch.engine import stores as stores_lib
+    store = stores_lib.PQStore(index.quantizer, index.cluster_docs)
+    return pipe_lib.score_selected(store, q_dense, sel_ids, sel_mask)
+
+
+def identity_pq(embeddings, nsub=1, *, device=None):
+    """Exact (lossless) PQ of a corpus of at most 256 docs: doc d's code in
+    every subspace is d, and the codebook entries are the docs' own
+    sub-vectors, so ADC reproduces the exact dot product. For parity
+    tests and debugging, not for real indexes."""
+    X = torch.from_numpy(np.array(embeddings, np.float32))
+    D, dim = X.shape
+    if D > 256 or dim % nsub:
+        raise ValueError(f"identity PQ needs <= 256 docs and nsub | dim, got "
+                         f"{D} docs, dim {dim}, nsub {nsub}")
+    dsub = dim // nsub
+    books = torch.zeros((nsub, 256, dsub), dtype=torch.float32)
+    books[:, :D] = X.reshape(D, nsub, dsub).permute(1, 0, 2)
+    codes = torch.arange(D, dtype=torch.int32)[:, None].repeat(1, nsub)
+    dev = resolve_device(device)
+    return PQ(books.to(dev), codes.to(dev), None, nsub)

@@ -1,7 +1,8 @@
-"""Serving: the select/score/fuse stages over a host store, and the
-RetrievalEngine front-end (bucketed batching, LRU block cache, async
-prefetch, ADC scoring of raw PQ codes, "dot" scoring of float blocks,
-hot index and selector reloads, explain records)."""
+"""Serving: the select/score/fuse pipeline over a device store
+(InMemoryStore, PQStore) or a host store, and the RetrievalEngine
+front-end (bucketed batching, LRU block cache, async prefetch, ADC
+scoring of raw PQ codes, "dot" scoring of float blocks, hot index and
+selector reloads, explain records)."""
 
 from repro_torch.engine.cache import BlockCache
 from repro_torch.engine.pipeline import (build_fused_scorer, dedup_selected,
@@ -9,10 +10,13 @@ from repro_torch.engine.pipeline import (build_fused_scorer, dedup_selected,
                                          fetch_unique_code_blocks)
 from repro_torch.engine.server import (RetrievalEngine, ServeStats,
                                        bucket_size, build_explain_records)
-from repro_torch.engine.stores import (ClusterStore, ShardedDiskStore,
-                                       ShardedPQStore)
+from repro_torch.engine.stores import (ClusterStore, InMemoryStore, PQStore,
+                                       ShardedDiskStore, ShardedPQStore,
+                                       store_for_index)
 
-__all__ = ["BlockCache", "ClusterStore", "RetrievalEngine", "ServeStats",
+__all__ = ["BlockCache", "ClusterStore", "InMemoryStore", "PQStore",
+           "RetrievalEngine", "ServeStats",
            "ShardedDiskStore", "ShardedPQStore", "bucket_size",
            "build_explain_records", "build_fused_scorer", "dedup_selected",
-           "fetch_unique_blocks", "fetch_unique_code_blocks"]
+           "fetch_unique_blocks", "fetch_unique_code_blocks",
+           "store_for_index"]

@@ -1,5 +1,15 @@
-"""The CluSD select/score/fuse stages that the serving engine drives over
-a host (disk) store, batched over queries:
+"""The CluSD select/score/fuse pipeline, parameterised by a ClusterStore.
+
+`retrieve(cfg, index, store, ...)` runs sparse retrieval, the Stage-I/II
+selection, scoring of the selected blocks through `store` and the fused
+top-k, with `score_and_fuse` and `score_selected` as its Step 3. A
+device store (InMemoryStore, PQStore) scores its block table in place
+with the slots' cluster ids as positions; a host store deduplicates the
+batch's selection and fetches each unique block once.
+
+The serving engine drives device stores through `retrieve` (its
+`device_pipeline` span) and host (disk) stores through these stages,
+batched over queries:
 
   stage1: sparse retrieval + Stage-I candidates and features
   lut:    per-query ADC lookup tables (kernel: adc_tables)
@@ -128,3 +138,89 @@ def build_fused_scorer(cfg, index, *, k, mode="adc"):
                                     k, method=method, rrf_k=rrf_k)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# Step 3 against any store, and the full pipeline
+# ---------------------------------------------------------------------------
+
+def _flat_docs(cluster_docs, sel_ids, sel_mask):
+    docs = cluster_docs[sel_ids.long()]                         # (B, S, cap)
+    B, S, cap = docs.shape
+    valid = (docs >= 0) & sel_mask[:, :, None]
+    return (torch.where(valid, docs, 0).reshape(B, S * cap).int(),
+            valid.reshape(B, S * cap))
+
+
+def score_selected(store, q_dense, sel_ids, sel_mask):
+    """Device-store scoring of the selected clusters: the store scores its
+    block table in place (`score_blocks`: cluster_score, or adc_tables +
+    adc_score_blocks). q_dense (B, dim); sel_ids/sel_mask (B, S).
+    Returns (doc_ids (B, S*cap) int32, scores with -inf at invalid,
+    valid)."""
+    docs_flat, valid = _flat_docs(store.cluster_docs, sel_ids, sel_mask)
+    scores = store.score_blocks(q_dense, sel_ids).reshape(valid.shape)
+    return docs_flat, torch.where(valid, scores, -torch.inf), valid
+
+
+def score_selected_host(store, q_dense, sel_ids, sel_mask, cache=None):
+    """Host-store scoring with score_selected's contract: the batch's
+    selection is deduplicated, each unique float block fetched once
+    (through `cache` when given), shipped to the device and scored there
+    by the cluster_score kernel with each slot's position."""
+    dev = q_dense.device
+    uniq, pos = dedup_selected(sel_ids.cpu().numpy(), sel_mask.cpu().numpy())
+    if bool(sel_mask.any()):
+        blocks = torch.from_numpy(fetch_unique_blocks(store, uniq,
+                                                      cache)).to(dev)
+    else:
+        blocks = torch.zeros((1, store.cap, store.dim), dtype=torch.float32,
+                             device=dev)
+    docs_flat, valid = _flat_docs(store.cluster_docs.to(dev), sel_ids,
+                                  sel_mask)
+    scores = cluster_score(q_dense.float().contiguous(), blocks,
+                           torch.from_numpy(pos).to(dev)).reshape(valid.shape)
+    return docs_flat, torch.where(valid, scores, -torch.inf), valid
+
+
+def score_and_fuse(cfg, index, store, q_dense, sparse_ids, sparse_scores,
+                   sel_ids, sel_mask, *, k=None, cache=None):
+    """Step 3: dense-score the selected clusters via `store`, fuse with the
+    sparse results. Returns (ids, scores, dmask)."""
+    k = k or cfg.k_final
+    if getattr(store, "is_host", False):
+        did, dscore, dmask = score_selected_host(store, q_dense, sel_ids,
+                                                 sel_mask, cache=cache)
+    else:
+        did, dscore, dmask = score_selected(store, q_dense, sel_ids, sel_mask)
+    ids, scores = fusion_lib.fuse_topk(
+        sparse_ids, sparse_scores, did, torch.where(dmask, dscore, 0.0),
+        dmask, index.n_docs, cfg.alpha, k, method=cfg.fusion,
+        rrf_k=cfg.rrf_k)
+    return ids, scores, dmask
+
+
+def retrieve(cfg, index, store, q_dense, q_terms, q_weights, *,
+             selector="lstm", stage1="overlap", theta=None,
+             selector_params=None, k=None, cache=None):
+    """The full CluSD pipeline against any store. Returns (ids, scores,
+    diag) with diag {"n_selected", "frac_docs_scanned", "sparse_ids",
+    "sparse_scores", "cand", "probs", "sel_ids", "sel_mask"}."""
+    k = k or cfg.k_final
+    sparse_ids, sparse_scores = sparse_lib.sparse_retrieve_topk(
+        index.sparse_index, q_terms, q_weights, cfg.k_sparse)
+    sel = clusd_lib.select_clusters(cfg, index, q_dense, sparse_ids,
+                                    sparse_scores, selector=selector,
+                                    stage1=stage1, theta=theta,
+                                    selector_params=selector_params)
+    ids, scores, dmask = score_and_fuse(
+        cfg, index, store, q_dense, sparse_ids, sparse_scores,
+        sel["sel_ids"], sel["sel_mask"], k=k, cache=cache)
+    diag = {
+        "n_selected": sel["sel_mask"].sum(1),
+        "frac_docs_scanned": dmask.float().mean(1) * dmask.shape[1]
+        / index.n_docs,
+        "sparse_ids": sparse_ids, "sparse_scores": sparse_scores,
+        **{k_: sel[k_] for k_ in ("cand", "probs", "sel_ids", "sel_mask")},
+    }
+    return ids, scores, diag

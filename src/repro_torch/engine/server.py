@@ -1,4 +1,4 @@
-"""RetrievalEngine: the serving front-end over a host (disk) store.
+"""RetrievalEngine: the serving front-end over a ClusterStore.
 
   * bucketed batching — query batches are padded to power-of-two sizes
     (capped at `max_batch`); oversize batches are chunked. A batch that
@@ -11,8 +11,13 @@
     `cache_capacity` blocks, a code-backed store 4*dim/nsub times more.
   * async prefetch — a background thread pulls Stage-I candidate blocks
     into the cache while the Stage-II selection runs.
-  * fused tail — score -> fuse -> top-k over the batch's unique blocks on
-    the device. Code-backed stores (v2) serve by ADC (`use_adc`, auto-on):
+  * device stores (InMemoryStore, PQStore; the default, `store=None`,
+    is `store_for_index(index)`) serve the whole batch on the device
+    through `pipeline.retrieve` (span `device_pipeline`), with no block
+    cache, prefetch thread or explain records, as in the JAX engine.
+  * fused tail (host stores) — score -> fuse -> top-k over the batch's
+    unique blocks on the device. Code-backed stores (v2) serve by ADC
+    (`use_adc`, auto-on):
     raw PQ codes flow disk -> cache -> device and are scored against
     per-query lookup tables built right after Stage I (kernels adc_tables,
     adc_score_blocks). Float stores (v1) serve the "dot" tail: float
@@ -28,6 +33,7 @@ and the Stage-I functions. Sampled explain records
 
 Usage:
     engine = IndexReader.open(index_dir).engine()        # reader-backed
+    engine = RetrievalEngine(cfg, index)                 # device store
     engine = RetrievalEngine(cfg, index, store=ShardedPQStore(...))
     ids, scores = engine.retrieve(q_dense, q_terms, q_weights)
     engine.stats()   # latency percentiles, cache hit rate, I/O counters
@@ -35,8 +41,7 @@ Usage:
     engine.close()
 
 `device=None` serves on the CUDA card (repro_torch.device); the index is
-moved there. Device-resident stores (the JAX engine's InMemoryStore and
-PQStore path) are not ported.
+moved there, and a default device store is built there from it.
 """
 
 import collections
@@ -54,6 +59,7 @@ from repro_torch.convert import selector_from_numpy
 from repro_torch.core.fusion import FUSION_METHODS
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine import pipeline as pipe_lib
+from repro_torch.engine import stores as stores_lib
 from repro_torch.engine.cache import BlockCache
 from repro_torch.obs import NOOP_TRACE, MetricsRegistry, Tracer
 
@@ -260,37 +266,35 @@ class ServeStats:
 
 
 class RetrievalEngine:
-    """Serving layer over a host ClusterStore: v1 float block shards
-    (ShardedDiskStore, "dot" tail) or v2 PQ code shards (ShardedPQStore,
-    ADC tail)."""
+    """Serving layer over a ClusterStore: a device store (InMemoryStore,
+    PQStore), v1 float block shards (ShardedDiskStore, "dot" tail) or v2
+    PQ code shards (ShardedPQStore, ADC tail)."""
 
     _PF_CHUNK = 8            # blocks per prefetch fetch (lock granularity)
 
-    def __init__(self, cfg, index, store, *, max_batch=256,
+    def __init__(self, cfg, index, store=None, *, max_batch=256,
                  cache_capacity=512, prefetch=True, prefetch_depth=None,
                  k=None, reader=None, use_adc=None, trace_sample_rate=0.0,
                  fusion=None, explain=None, device=None):
         if fusion is not None and fusion not in FUSION_METHODS:
             raise ValueError(f"fusion must be one of {FUSION_METHODS}, "
                              f"got {fusion!r}")
-        if not getattr(store, "is_host", False):
-            raise NotImplementedError(
-                "the port serves host stores (ShardedDiskStore, "
-                "ShardedPQStore); device-resident stores are not ported")
         # per-engine fusion override: wins over the manifest config and is
         # re-applied across index and selector reloads
         self._fusion_override = fusion
         self.device = resolve_device(device)
         self.cfg = self._apply_cfg_overrides(cfg)
         self.index = index.to(self.device)    # no copy where it already is
-        self.store = store
+        self.store = store if store is not None \
+            else stores_lib.store_for_index(self.index)
+        self.is_host = bool(getattr(self.store, "is_host", False))
         self.max_batch = max(1, max_batch)
         self.k = k or self.cfg.k_final
         self.reader = reader            # IndexReader backing the reloads
         # None = auto (ADC exactly when the store is code-backed); True
         # demands a code-backed store; False serves decoded float blocks
         self._explicit_use_adc = use_adc
-        self.use_adc = self._resolve_use_adc(store)
+        self.use_adc = self._resolve_use_adc(self.store)
         self.metrics = MetricsRegistry()
         self.tracer = Tracer(sample_rate=trace_sample_rate)
         # sampled explain telemetry (repro_torch.obs.ExplainLogger); None
@@ -303,7 +307,8 @@ class RetrievalEngine:
         self._pf_drop = False           # quiesce flag across index swaps
         self.serve_stats = ServeStats(self.metrics)
         self._cache_capacity = cache_capacity
-        self.cache = self._make_cache(store) if cache_capacity else None
+        self.cache = self._make_cache(self.store) \
+            if (self.is_host and cache_capacity) else None
         # prefetch candidates a bit past the selection budget: Stage II
         # mostly keeps high-ranked Stage-I candidates. An explicit depth
         # is pinned; the default follows cfg.max_selected across reloads.
@@ -326,13 +331,16 @@ class RetrievalEngine:
     # -- lifecycle ----------------------------------------------------------
 
     def _resolve_use_adc(self, store):
+        """ADC serving of the host tail: None = auto (on exactly when a
+        host store is code-backed); True demands a code-backed store. A
+        device store scores through its own kernels either way."""
         coded = bool(getattr(store, "is_coded", False))
         if self._explicit_use_adc is None:
-            return coded
+            return self.is_host and coded
         if self._explicit_use_adc and not coded:
             raise ValueError("use_adc=True needs a code-backed store "
                              "(is_coded); this store serves float blocks")
-        return bool(self._explicit_use_adc)
+        return bool(self._explicit_use_adc) and self.is_host
 
     def _make_cache(self, store):
         """Byte budget in float32-block equivalents of the store's geometry."""
@@ -412,6 +420,7 @@ class RetrievalEngine:
             with self._swap_lock:
                 old_store = self.store
                 self.cfg, self.index, self.store = cfg, index, store
+                self.is_host = True
                 self.reader = reader
                 self.use_adc = self._resolve_use_adc(store)
                 self._refresh_prefetch_depth(cfg)
@@ -444,8 +453,8 @@ class RetrievalEngine:
     def _carry_store_counters(old_store, new_store):
         """Carry the cumulative I/O and host-decode counters onto the new
         store, so stats() stays engine-lifetime across reload_index."""
-        if new_store is old_store:
-            return
+        if new_store is old_store or not old_store.is_host:
+            return          # a device store keeps no I/O or decode counters
         old_io, new_io = old_store.stats, new_store.stats
         new_io.add(old_io.n_ops, old_io.bytes, old_io.wall_ms)
         new_store.decode_ms += old_store.decode_ms
@@ -482,9 +491,10 @@ class RetrievalEngine:
                 self.reader = reader
                 self._refresh_prefetch_depth(cfg)
                 # stage2 closes over the selector, theta and the budget;
-                # the fused tails over the whole config. Stage I, the LUT
-                # builder (codebooks only) and the cache stay valid.
-                stale = {"stage2", "adc", "dot"}
+                # the device pipeline and the fused tails over the whole
+                # config. Stage I, the LUT builder (codebooks only) and
+                # the cache stay valid.
+                stale = {"stage2", "device", "adc", "dot"}
                 if self._stage1_cfg(old_cfg) != self._stage1_cfg(cfg):
                     stale.add("stage1")
                 for key in [k for k in self._fns if k[0] in stale]:
@@ -549,6 +559,21 @@ class RetrievalEngine:
             self._built_fn = True     # first batch of this (stage, bucket)
         return fn
 
+    def _device_fn(self, bucket):
+        """The whole device-store pipeline, fn(qd, qt, qw) -> (ids, scores,
+        n_selected). It closes over the config, index and store it was
+        built for, not over the engine, so that a closed engine's store
+        is freed without waiting for the cycle collector."""
+        cfg, index, store, k = self.cfg, self.index, self.store, self.k
+
+        def build():
+            def run(qd, qt, qw):
+                ids, scores, diag = pipe_lib.retrieve(cfg, index, store, qd,
+                                                      qt, qw, k=k)
+                return ids, scores, diag["n_selected"]
+            return run
+        return self._fn("device", bucket, build)
+
     def _stage1_fn(self, bucket):
         return self._fn("stage1", bucket,
                         lambda: pipe_lib.build_stage1_fn(self.cfg, self.index))
@@ -611,8 +636,13 @@ class RetrievalEngine:
                 synchronize(dev)
             # batch_ms starts after the input pad/transfer (`pad` span)
             t0 = time.perf_counter()
-            ids, scores = self._serve_host(bucket, qd, qt, qw, tr, n=n)
-            synchronize(dev)
+            if self.is_host:
+                ids, scores = self._serve_host(bucket, qd, qt, qw, tr, n=n)
+                synchronize(dev)
+            else:
+                with tr.span("device_pipeline"):
+                    ids, scores, _ = self._device_fn(bucket)(qd, qt, qw)
+                    synchronize(dev)
             ms = (time.perf_counter() - t0) * 1e3
             tr.finish(compiled=self._built_fn, batch_ms=round(ms, 3))
             self.serve_stats.record(n, bucket, self._built_fn, ms)
@@ -691,26 +721,28 @@ class RetrievalEngine:
     # -- introspection ------------------------------------------------------
 
     def _sync_gauges(self):
-        """Mirror cache/IOStats counters into registry gauges."""
+        """Mirror cache/IOStats counters into registry gauges (a device
+        store has neither)."""
         reg = self.metrics
         if self.cache is not None:
             for k, v in self.cache.stats().items():
                 if isinstance(v, (int, float)):
                     reg.gauge(f"cache.{k}").set(v)
-        io = self.store.stats
-        reg.gauge("io.n_ops").set(io.n_ops)
-        reg.gauge("io.bytes").set(io.bytes)
-        reg.gauge("io.wall_ms").set(round(io.wall_ms, 2))
-        reg.gauge("io.model_ms").set(round(io.model_ms(), 2))
-        reg.gauge("serve.decode_ms").set(round(self.store.decode_ms, 2))
+        if self.is_host:
+            io = self.store.stats
+            reg.gauge("io.n_ops").set(io.n_ops)
+            reg.gauge("io.bytes").set(io.bytes)
+            reg.gauge("io.wall_ms").set(round(io.wall_ms, 2))
+            reg.gauge("io.model_ms").set(round(io.model_ms(), 2))
+            reg.gauge("serve.decode_ms").set(round(self.store.decode_ms, 2))
         if self.reader is not None:
             reg.gauge("serve.generation").set(self.reader.generation)
 
     def stats(self):
-        """The JAX engine's stats() keys for a host store."""
+        """The JAX engine's stats() keys: `io`, `use_adc` and `decode_ms`
+        for a host store only, as there."""
         self._sync_gauges()
         ss = self.serve_stats
-        io = self.store.stats
         out = {"n_queries": ss.n_queries,
                "n_batches": ss.n_batches,
                "n_compile_batches": ss.n_compile_batches,
@@ -727,14 +759,16 @@ class RetrievalEngine:
             out["generation"] = self.reader.generation
         if self.cache is not None:
             out["cache"] = self.cache.stats()
-        out["io"] = {"n_ops": io.n_ops, "bytes": io.bytes,
-                     "wall_ms": round(io.wall_ms, 2),
-                     "model_ms": round(io.model_ms(), 2)}
-        out["use_adc"] = self.use_adc
-        out["decode_ms"] = round(self.store.decode_ms, 2)
-        if self.use_adc:
-            out["adc_ms"] = round(self.adc_ms, 2)
-            out["lut_build_ms"] = round(self.lut_build_ms, 2)
+        if self.is_host:
+            io = self.store.stats
+            out["io"] = {"n_ops": io.n_ops, "bytes": io.bytes,
+                         "wall_ms": round(io.wall_ms, 2),
+                         "model_ms": round(io.model_ms(), 2)}
+            out["use_adc"] = self.use_adc
+            out["decode_ms"] = round(self.store.decode_ms, 2)
+            if self.use_adc:
+                out["adc_ms"] = round(self.adc_ms, 2)
+                out["lut_build_ms"] = round(self.lut_build_ms, 2)
         return out
 
     def reset_stats(self):
@@ -749,6 +783,7 @@ class RetrievalEngine:
                 with self.cache._lock:
                     self.cache.hits = self.cache.misses = 0
                     self.cache.evictions = self.cache.clears = 0
-            io = self.store.stats
-            io.n_ops, io.bytes, io.wall_ms = 0, 0, 0.0
-            self.store.decode_ms = 0.0
+            if self.is_host:
+                io = self.store.stats
+                io.n_ops, io.bytes, io.wall_ms = 0, 0, 0.0
+                self.store.decode_ms = 0.0

@@ -186,7 +186,7 @@ class IndexReader:
             return ShardedPQStore(
                 paths, ranges, g["cap"], self._pq_array("codebooks"),
                 cluster_docs, rotation=self._pq_array("rotation"),
-                out_dtype=np.float32, tombstones=tomb,
+                out_dtype=g["block_dtype"], tombstones=tomb,
                 stats=stats)
         return ShardedDiskStore(
             paths, ranges, g["cap"], g["dim"], cluster_docs,

@@ -29,8 +29,8 @@ import torch
 
 from repro_torch.core.disk import IOStats, read_blocks_coalesced
 from repro_torch.core.quant import decode_code_blocks
-from repro_torch.index.format import (bf16_bits_to_f32, record_dtype,
-                                      resolve_block_dtype)
+from repro_torch.index.format import (bf16_bits_to_f32, f32_to_bf16_bits,
+                                      record_dtype, resolve_block_dtype)
 
 
 class _ShardedBlockFiles:
@@ -173,7 +173,13 @@ class ShardedDiskStore(_ShardedBlockFiles):
 
 class ShardedPQStore(_ShardedBlockFiles):
     """Format-v2 backend: PQ code shards. `IOStats.bytes` counts CODE
-    bytes — the 4*dim/nsub I/O reduction is visible there."""
+    bytes — the 4*dim/nsub I/O reduction is visible there.
+
+    `out_dtype` is the decoded blocks' type (the directory's
+    `block_dtype`). "bfloat16" rounds the decoded floats to bfloat16 (to
+    nearest even, by hand: the card machine has no ml_dtypes) and keeps
+    them as float32 values, the values the JAX store's bfloat16 blocks
+    hold."""
 
     is_coded = True
 
@@ -192,12 +198,14 @@ class ShardedPQStore(_ShardedBlockFiles):
                          stats=stats)
         self.cap = int(cap)
         self.dim = int(self.nsub * self.codebooks.shape[2])
-        self.dtype = np.dtype(out_dtype)
+        self.round_bf16 = str(out_dtype) == "bfloat16"
+        self.dtype = np.dtype(np.float32 if self.round_bf16 else out_dtype)
 
     def _decode(self, records):
-        return decode_code_blocks(self.codebooks, records,
-                                  self.rotation).astype(self.dtype,
-                                                        copy=False)
+        out = decode_code_blocks(self.codebooks, records, self.rotation)
+        if self.round_bf16:
+            return bf16_bits_to_f32(f32_to_bf16_bits(out))
+        return out.astype(self.dtype, copy=False)
 
     def _empty_blocks(self):
         return np.zeros((0, self.cap, self.nsub), np.uint8)

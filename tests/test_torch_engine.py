@@ -161,8 +161,9 @@ def test_fused_lists_have_no_duplicate_ids(built):
 
 def test_engine_rejects_a_float_store(built):
     """A float-block store serves the "dot" tail; demanding ADC over it
-    raises, as in the JAX engine. A device-resident store (not ported)
-    raises too."""
+    raises, as in the JAX engine. A device store serves: with no store
+    the engine builds an InMemoryStore from the index's embeddings, and
+    demanding ADC over that raises as in the JAX engine too."""
     cfg, index, *_ = built
     t_index = convert.index_from_numpy(index_arrays(index), device="cpu")
 
@@ -174,11 +175,15 @@ def test_engine_rejects_a_float_store(built):
         RetrievalEngine(torch_cfg(cfg), t_index, FloatStore(), use_adc=True,
                         device="cpu")
 
-    class DeviceStore:
-        is_host, is_coded = False, False
-
-    with pytest.raises(NotImplementedError):
-        RetrievalEngine(torch_cfg(cfg), t_index, DeviceStore(), device="cpu")
+    arrays = dict(index_arrays(index), embeddings=np.asarray(index.embeddings))
+    t_index = convert.index_from_numpy(arrays, device="cpu")
+    with RetrievalEngine(torch_cfg(cfg), t_index, device="cpu") as eng:
+        assert type(eng.store).__name__ == "InMemoryStore"
+        assert not eng.is_host and not eng.use_adc and eng.cache is None
+    with pytest.raises(ValueError, match="code-backed"):
+        JaxEngine(cfg, index, use_adc=True)
+    with pytest.raises(ValueError, match="code-backed"):
+        RetrievalEngine(torch_cfg(cfg), t_index, use_adc=True, device="cpu")
 
 
 def test_build_index_serves_end_to_end_on_cpu(tmp_path):
