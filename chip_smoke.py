@@ -32,25 +32,37 @@ Phases, each printed with its seconds:
      keeps serving (0 failed batches, reloads 1, cache cleared, I/O
      counters kept, ids equal to a fresh engine's), then
      `reload_selector()` (the cache is kept);
-  9. each kernel against its plain version on the inputs the engines'
-     own stage functions make for their last batch of queries, timed
-     with CUDA events beside one PyTorch call of the same function where
-     there is one, and its bound;
- 10. parity: the same 16 queries served on the card and on the CPU
+  9. recsys: wide_deep full (configs/wide_deep.py `full()`: 40 fields,
+     embed_dim 32, mlp 1024-512-256): its fused tables (22,372,352 padded
+     rows, 2.86 GB, and the 89.5 MB wide table) filled on the card from a
+     torch.Generator; `make_serve_step` over RecsysStream batches of 512
+     (the serve_p99 shape) and 262,144 (serve_bulk); a CluSD candidate
+     index of 1M items from `candidate_tower` (k-means into 4096
+     clusters of 256 slots, the cluster table and neighbour graph); 64
+     queries, one at a time, through `clusd_candidate_retrieval` beside
+     `brute_force_retrieval` (their top-100 overlap for information);
+     card-vs-CPU parity of logits on 16 rows and of retrieval ids on 4
+     queries;
+ 10. each kernel against its plain version on the inputs the engines'
+     own stage functions (and the recsys phase) make, timed with CUDA
+     events beside one PyTorch call of the same function where there is
+     one, and its bound;
+ 11. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each directory must agree.
 
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk and bin_overlap on all four), and the kernel table sums the four
-paths. Prints the kernel table as one JSON line, the nvidia-smi line,
-and last {"ok": true, "device": {...}}. Any failure exits non-zero;
-without a card it exits 2 before doing anything.
+(topk and bin_overlap on all five, embedding_bag on recsys), and the
+kernel table sums the five paths. Prints the kernel table as one JSON
+line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
+failure exits non-zero; without a card it exits 2 before doing anything.
 """
 
 import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -71,6 +83,14 @@ N_QUERIES = 1024
 MAX_BATCH = 256
 PARITY_QUERIES = 16
 PARITY_GAP = 1e-5
+# recsys phase: wide_deep full(), the serve_p99 and serve_bulk batch
+# sizes (timed batches of each) and the retrieval_cand shape
+RECSYS_SIZE = "full"
+RECSYS_SERVE_BATCHES = {512: 32, 262144: 6}
+RECSYS_CANDIDATES = 1_000_000      # in N 4096 clusters x cap 256 slots
+RECSYS_CLUSTERS, RECSYS_CAP = 4096, 256
+RECSYS_QUERIES = 64
+RECSYS_PARITY_ROWS, RECSYS_PARITY_QUERIES = 16, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 
@@ -111,6 +131,24 @@ def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_summary(text):
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its name
+    (with bfloat16 marked), registers, barriers, shared memory, spills."""
+    out, name = [], None
+    for ln in text.splitlines():
+        if "Compiling entry" in ln:
+            m = re.search(r"\d+([A-Za-z_]*kernel\w*?)(?:I|E|P)", ln)
+            name = (m.group(1) if m else ln.split("'")[1][:60]) \
+                + ("<bf16>" if "bfloat16" in ln else "")
+        elif "spill" in ln and name:
+            spill = "spill stores/loads " + "/".join(
+                re.findall(r"(\d+) bytes spill", ln)) + " B"
+        elif "Used" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def sync(dev):
@@ -319,12 +357,21 @@ def tail_inputs(eng, qs, dev):
 def profile_batch(eng, q3, dev):
     """torch.profiler over one steady batch on a warm engine: device busy
     share of the batch's wall time and the device time by kernel."""
+    profile_call(lambda: eng.retrieve(*q3), dev, 10, 6,
+                 lambda: eng.tracer.traces[-1].spans)
+
+
+def profile_call(fn, dev, n_dev, n_host, spans=None):
+    """torch.profiler over one call of fn: the wall time, the device busy
+    time and idle share, the top n_dev device kernels / copies and the
+    top n_host host ops by self time (and the spans of spans(), if
+    given)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.retrieve(*q3)
+        fn()
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_rows, cpu_rows = [], []
@@ -337,15 +384,16 @@ def profile_batch(eng, q3, dev):
         else:
             cpu_rows.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in dev_rows)
-    tr = eng.tracer.traces[-1]
-    print(f"  profiled batch wall {wall_ms:.3f} ms; device busy "
-          f"{busy:.3f} ms; idle share {1 - busy / wall_ms:.3f}; spans (ms) "
-          f"{json.dumps({sp.name: round(sp.dur_ms, 3) for sp in tr.spans})}")
+    extra = "" if spans is None else " spans (ms) " + json.dumps(
+        {sp.name: round(sp.dur_ms, 3) for sp in spans()})
+    print(f"  profiled wall {wall_ms:.3f} ms; device busy {busy:.3f} ms; "
+          f"idle share {1 - busy / wall_ms:.3f}; device launches "
+          f"{sum(r[1] for r in dev_rows)};{extra}")
     print("  device time by kernel / copy:")
-    for ms, count, key in sorted(dev_rows, reverse=True)[:10]:
+    for ms, count, key in sorted(dev_rows, reverse=True)[:n_dev]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
     print("  host (self CPU) time by op:")
-    for ms, count, key in sorted(cpu_rows, reverse=True)[:6]:
+    for ms, count, key in sorted(cpu_rows, reverse=True)[:n_host]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
@@ -423,6 +471,260 @@ def reload_phase(eng, path, qs, dev):
         raise AssertionError("reload_selector did not keep the cache")
 
 
+def _no_label(batch):
+    return {k: v for k, v in batch.items() if k != "label"}
+
+
+def _ms_stats(ms):
+    """p50, p99 and items per second of steady calls (the first left out)."""
+    steady = np.asarray(ms[1:] if len(ms) > 1 else ms)
+    return (float(np.percentile(steady, 50)), float(np.percentile(steady, 99)),
+            steady)
+
+
+def recsys_model(dev):
+    """wide_deep full() on the card: its fused tables filled from a CUDA
+    torch.Generator."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys as rs
+
+    cfg = get_config("wide-deep", RECSYS_SIZE)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    model = rs.RecsysModel(cfg, rs.init_params(cfg, g, device=dev),
+                           device=dev)
+    sync(dev)
+    t, w = model.tables.weight, model.wide.weight
+    print(f"  {cfg.name}: {len(cfg.table_sizes)} fields, embed_dim "
+          f"{cfg.embed_dim}, mlp {cfg.mlp}; fused tables {tuple(t.shape)} "
+          f"{t.nbytes} bytes, wide {tuple(w.shape)} {w.nbytes} bytes; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if t.is_cuda:
+        print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f} "
+              f"GB allocated")
+    return cfg, model
+
+
+def recsys_serve(cfg, model, dev):
+    """make_serve_step over RecsysStream batches (drawn on the host and
+    uploaded before the clock starts). Returns the first batch of 512 and
+    its probabilities on the card, and the last batch of 262,144."""
+    from repro_torch.data import RecsysStream
+    from repro_torch.models import recsys as rs
+
+    stream = RecsysStream(cfg, seed=SEED + 1)
+    serve = rs.make_serve_step(cfg)
+    first = None
+    for B, n in RECSYS_SERVE_BATCHES.items():
+        t0 = time.perf_counter()
+        batches = [rs.as_batch(_no_label(stream.batch(B)), dev)
+                   for _ in range(n)]
+        sync(dev)
+        draw_s = time.perf_counter() - t0
+        ms = []
+        with torch.inference_mode():
+            for b in batches:
+                t0 = time.perf_counter()
+                p = serve(model, b)
+                sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if p.shape != (B,) or not bool(((p >= 0) & (p <= 1)).all()):
+                    raise AssertionError("served probabilities malformed")
+                if first is None:
+                    first = (b, p)
+        del p
+        p50, p99, steady = _ms_stats(ms)
+        print(f"  serve batch {B}: {n} batches (drawn in {draw_s:.2f} s); "
+              f"batch_ms p50 {p50:.3f} p99 {p99:.3f} (first {ms[0]:.3f}); "
+              f"{B * len(steady) / steady.sum() * 1e3:.1f} rows/s")
+    return first, batches[-1]
+
+
+def candidate_index(cfg, model, dev):
+    """The CluSD candidate index of RECSYS_CANDIDATES items: uniform ids
+    of the first two fields (as examples/recsys_clusd_retrieval.py draws
+    them), their candidate_tower vectors, k-means, the cluster-blocked
+    layout and the neighbour graph; an untrained selector."""
+    from repro_torch.core import kmeans as km
+    from repro_torch.core.lstm import LSTMSelector
+    from repro_torch.core.retrieval import CandidateIndexSpec
+
+    N, cap = RECSYS_CLUSTERS, RECSYS_CAP
+    spec = CandidateIndexSpec(n_candidates=RECSYS_CANDIDATES, n_clusters=N,
+                              cap=cap)
+    rng = np.random.default_rng(SEED + 2)
+    raw = torch.from_numpy(np.stack(
+        [rng.integers(0, cfg.table_sizes[i], RECSYS_CANDIDATES)
+         for i in range(2)], 1).astype(np.int32)).to(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        vecs = model.candidate_tower(raw)
+    sync(dev)
+    print(f"  candidate_tower over {RECSYS_CANDIDATES} items: "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    cents, assign = km.kmeans(vecs, N, 10,
+                              generator=torch.Generator().manual_seed(SEED),
+                              device=dev)
+    sync(dev)
+    t1 = time.perf_counter()
+    table, _ = km.build_cluster_table(assign.cpu().numpy(), N, cap,
+                                      vecs.cpu().numpy(), cents.cpu().numpy())
+    t2 = time.perf_counter()
+    table = torch.from_numpy(table).to(dev)
+    valid = table >= 0
+    blocks = torch.zeros((N, cap, vecs.shape[1]), device=dev)
+    blocks[valid] = vecs[table[valid].long()]
+    cand = torch.zeros((N * cap, 2), dtype=torch.int32, device=dev)
+    cand[valid.reshape(-1)] = raw[table[valid].long()]
+    nb_ids, nb_sims = km.neighbor_graph(cents, 64)
+    sel = LSTMSelector(1 + spec.u_bins + 2 * spec.v_bins, 32,
+                       generator=torch.Generator().manual_seed(SEED)).to(dev)
+    sync(dev)
+    fill = valid.sum(1)
+    print(f"  k-means (10 iterations) {t1 - t0:.2f} s; cluster table "
+          f"(host greedy) {t2 - t1:.2f} s; fill min {fill.min().item()} max "
+          f"{fill.max().item()} of {cap}; blocks {tuple(blocks.shape)}; "
+          f"neighbour graph m 64")
+    return {"spec": spec, "raw": raw, "cand": cand, "blocks": blocks,
+            "cents": cents, "nb_ids": nb_ids, "nb_sims": nb_sims, "sel": sel,
+            "valid": valid.reshape(-1).contiguous()}
+
+
+def recsys_retrieve(cfg, model, ci, users, dev):
+    """clusd_candidate_retrieval for each user row, one query at a time,
+    beside brute_force_retrieval. Returns the CluSD (ids, scores)."""
+    from repro_torch.core.retrieval import (brute_force_retrieval,
+                                            clusd_candidate_retrieval)
+    from repro_torch.models import recsys as rs
+
+    n_slots = RECSYS_CLUSTERS * RECSYS_CAP
+    batches = [rs.as_batch({k: v[q:q + 1] for k, v in users.items()}, dev)
+               for q in range(RECSYS_QUERIES)]
+    out, ms, bf_ms, overlap, n_sel = [], [], [], [], []
+    with torch.inference_mode():
+        for b in batches:
+            t0 = time.perf_counter()
+            ids, scores, diag = clusd_candidate_retrieval(
+                cfg, ci["spec"], model, b, ci["cand"], ci["blocks"],
+                ci["cents"], ci["sel"], ci["nb_ids"], ci["nb_sims"],
+                slot_valid=ci["valid"])
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            bf_ids, _ = brute_force_retrieval(cfg, model, b, ci["blocks"],
+                                              k=ci["spec"].k_final)
+            sync(dev)
+            bf_ms.append((time.perf_counter() - t0) * 1e3)
+            ids_np, sc_np = ids.cpu().numpy(), scores.cpu().numpy()
+            if ids_np.shape != (ci["spec"].k_final,) \
+                    or not np.isfinite(sc_np).all() \
+                    or (np.diff(sc_np) > 0).any() or ids_np.min() < 0 \
+                    or ids_np.max() >= n_slots:
+                raise AssertionError("retrieved candidates malformed")
+            out.append((ids_np, sc_np))
+            n_sel.append(int(diag["n_selected"]))
+            overlap.append(len(set(ids_np.tolist())
+                               & set(bf_ids.cpu().numpy().tolist()))
+                           / ci["spec"].k_final)
+    with torch.inference_mode():
+        profile_call(lambda: clusd_candidate_retrieval(
+            cfg, ci["spec"], model, batches[-1], ci["cand"], ci["blocks"],
+            ci["cents"], ci["sel"], ci["nb_ids"], ci["nb_sims"],
+            slot_valid=ci["valid"]), dev, 8, 4)
+    p50, p99, steady = _ms_stats(ms)
+    bp50, bp99, _ = _ms_stats(bf_ms)
+    print(f"  CluSD retrieval, {len(ms)} queries one at a time: batch_ms "
+          f"p50 {p50:.3f} p99 {p99:.3f} (first {ms[0]:.3f}); "
+          f"{len(steady) / steady.sum() * 1e3:.1f} queries/s; n_selected "
+          f"mean {np.mean(n_sel):.2f} ({np.mean(n_sel) * RECSYS_CAP:.0f} of "
+          f"{n_slots} slots scored)")
+    print(f"  brute force: batch_ms p50 {bp50:.3f} p99 {bp99:.3f}; top-"
+          f"{ci['spec'].k_final} overlap with CluSD mean "
+          f"{np.mean(overlap):.3f} (untrained selector and guide; for "
+          f"information)")
+    return out
+
+
+def recsys_parity(cfg, model, ci, served, users, retrieved):
+    """The card against the CPU (plain versions): logits on the first
+    RECSYS_PARITY_ROWS rows of the first 512 batch, retrieval ids at
+    isolated ranks on RECSYS_PARITY_QUERIES queries. Hard gates."""
+    import copy
+
+    from repro_torch.core.retrieval import clusd_candidate_retrieval
+    from repro_torch.models import recsys as rs
+
+    t0 = time.perf_counter()
+    cpu = rs.RecsysModel(cfg, model.params, device="cpu")
+    batch, probs = served
+    n = RECSYS_PARITY_ROWS
+    with torch.inference_mode():
+        g_logit = rs.forward(cfg, model, {k: v[:n] for k, v in
+                                          batch.items()}).cpu()
+        c_logit = cpu({k: v[:n].cpu() for k, v in batch.items()})
+    close = torch.allclose(g_logit, c_logit, rtol=1e-5, atol=1e-5)
+    p_diff = (torch.sigmoid(c_logit) - probs[:n].cpu()).abs().max().item()
+    print(f"  logits on {n} rows, card vs CPU: allclose(rtol 1e-5, atol "
+          f"1e-5) {close}; max |diff| "
+          f"{(g_logit - c_logit).abs().max().item():.3g}; served "
+          f"probabilities vs CPU max |diff| {p_diff:.3g}")
+    if not close:
+        raise AssertionError("recsys logits: card and CPU disagree")
+    moved = {k: v.cpu() if torch.is_tensor(v) else v for k, v in ci.items()}
+    moved["sel"] = copy.deepcopy(ci["sel"]).cpu()
+    bad = compared = 0
+    close, max_diff = True, 0.0
+    with torch.inference_mode():
+        for q in range(RECSYS_PARITY_QUERIES):
+            b = rs.as_batch({k: v[q:q + 1] for k, v in users.items()}, "cpu")
+            c_ids, c_sc, _ = clusd_candidate_retrieval(
+                cfg, moved["spec"], cpu, b, moved["cand"], moved["blocks"],
+                moved["cents"], moved["sel"], moved["nb_ids"],
+                moved["nb_sims"], slot_valid=moved["valid"])
+            g_ids, g_sc = retrieved[q]
+            ok = isolated_ranks(c_sc.numpy()[None], PARITY_GAP)[0]
+            compared += int(ok.sum())
+            bad += int((g_ids[ok] != c_ids.numpy()[ok]).sum())
+            max_diff = max(max_diff, float(np.abs(g_sc - c_sc.numpy()).max()))
+            close &= np.allclose(g_sc, c_sc.numpy(), rtol=1e-5, atol=1e-6)
+    print(f"  retrieval on {RECSYS_PARITY_QUERIES} queries, card vs CPU: "
+          f"ranks compared {compared}; id mismatches {bad}; scores "
+          f"allclose(rtol 1e-5, atol 1e-6) {close}; max |score diff| "
+          f"{max_diff:.3g}; {time.perf_counter() - t0:.2f} s")
+    if bad or not close:
+        raise AssertionError("recsys retrieval: card and CPU disagree")
+
+
+def recsys_phase(dev):
+    """Phase 9. Returns (launches of the recsys path, the embedding_bag
+    inputs for the kernel check)."""
+    from repro_torch import kernels
+    from repro_torch.data import RecsysStream
+
+    cfg, model = recsys_model(dev)
+    users = _no_label(RecsysStream(cfg, seed=SEED + 3).batch(RECSYS_QUERIES))
+    kernels.reset_launches()
+    served, bulk = recsys_serve(cfg, model, dev)
+    ci = candidate_index(cfg, model, dev)
+    retrieved = recsys_retrieve(cfg, model, ci, users, dev)
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  recsys kernel launches: {launches}")
+    recsys_parity(cfg, model, ci, served, users, retrieved)
+    tables, wide = model.tables, model.wide
+    n_user = len(cfg.table_sizes) // 2
+    user_idx = (torch.from_numpy(users["sparse"][:1, :n_user]).to(dev)
+                + tables.offsets[:n_user]).contiguous()
+    serve_idx = (bulk["sparse"] + wide.offsets).contiguous()
+    eb = {"guide": (wide.weight, (ci["cand"] + wide.offsets[:2]).contiguous()),
+          "user_tower": (tables.weight, user_idx),
+          "serve_wide": (wide.weight, serve_idx),
+          "candidate_tower": (tables.weight,
+                              (ci["raw"] + tables.offsets[:2]).contiguous())}
+    return launches, eb
+
+
 def main_path_inputs(eng, qs, dev):
     """The kernels' inputs for the last batch of MAX_BATCH served queries,
     made by the engine's own stage functions as RetrievalEngine runs
@@ -451,7 +753,7 @@ def main_path_inputs(eng, qs, dev):
             "pos": torch.from_numpy(pos).to(dev)}
 
 
-def check_kernels(dev, launches, v2, v1, tail, codebooks, selector):
+def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
     """Each kernel vs its plain version on the main path's inputs."""
     from repro_torch.kernels.adc import (adc_score_blocks,
                                          adc_score_blocks_ref, adc_tables,
@@ -459,6 +761,9 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector):
     from repro_torch.kernels.bin_overlap import bin_overlap, bin_overlap_ref
     from repro_torch.kernels.cluster_score import (cluster_score,
                                                    cluster_score_ref)
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.lstm import lstm_sequence, lstm_sequence_ref
     from repro_torch.kernels.topk import topk, topk_ref
 
@@ -645,6 +950,51 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector):
                             f"P > 1 in {int((P > 1).sum())} slots"],
                  "library_max_abs_err": "plain on the card (atomics) vs "
                  f"CPU: Q {(gQ.cpu() - cQ).abs().max().item():.3g}"})
+    # embedding_bag: the recsys path's four bags, each bitwise the plain
+    # version; the row's times are the guide's, the per-query bag over
+    # every candidate slot. Bytes: the DISTINCT table rows read (the
+    # heavy-tailed ids hit in L2), the indices and the output. `ms` is
+    # the launch alone; `wrapper_ms` adds the wrapper's index-range check
+    # and its host sync.
+    notes, t = [], None
+    for key in ("guide", "user_tower", "serve_wide", "candidate_tower"):
+        table, idx = eb[key]
+        out = embedding_bag(table, idx)
+        ref = embedding_bag_ref(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"embedding_bag on the {key} input is not "
+                                 "bitwise the plain version")
+        B, hot = idx.shape
+        d = table.shape[1]
+        rows_read = torch.unique(idx).numel()
+        b_ms, b_by = bound(4 * rows_read * d + 4 * idx.numel() + 4 * B * d,
+                           B * hot * d)
+        lib = torch.nn.functional.embedding_bag(idx, table, mode="sum")
+        out = torch.empty_like(ref)
+        tt = {"ms": cuda_ms(
+                  lambda: eb_kernel.embedding_bag_cuda(table, idx, out), 20),
+              "wrapper_ms": cuda_ms(lambda: embedding_bag(table, idx), 20),
+              "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, idx), 5),
+              "library_ms": cuda_ms(
+                  lambda: torch.nn.functional.embedding_bag(
+                      idx, table, mode="sum"), 20),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "library_max_abs_err": (lib - ref).abs().max().item()}
+        notes.append((key, (B, hot, d), rows_read, tt))
+        if t is None:
+            t, err = tt, (out - ref).abs().max().item()
+    rows.append({"name": "embedding_bag", "route": "cuda",
+                 "source": "src/repro_torch/csrc/embedding_bag.cu",
+                 "replaces": "src/repro/kernels/embedding_bag/kernel.py:28",
+                 "launches": launches["embedding_bag"], "max_abs_err": err,
+                 **{k: v for k, v in t.items() if k != "wrapper_ms"},
+                 "shapes": [f"{key} (B, hot, d) {shape} {n} rows: ms "
+                            f"{tt['ms']:.4f} wrapper {tt['wrapper_ms']:.4f} "
+                            f"plain {tt['plain_ms']:.4f} library "
+                            f"{tt['library_ms']:.4f} bound "
+                            f"{tt['bound_ms']:.4f}"
+                            for key, shape, n, tt in notes]})
     for r in rows:
         print(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
@@ -694,6 +1044,7 @@ PATH_KERNELS = {
     "v2": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
            "bin_overlap"),
     "v1": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+    "recsys": ("embedding_bag", "topk", "bin_overlap", "lstm_sequence"),
 }
 
 
@@ -726,9 +1077,8 @@ def main():
     with phase("kernel build (nvcc, sm_90a)"):
         for name, log in build.build_all().items():
             print(f"--- {name}.cu: {log['seconds']:.2f} s -> {log['so']}")
-            print("\n".join(ln for ln in log["ptxas"].splitlines()
-                            if "Compiling entry" in ln or "Used" in ln
-                            or "spill" in ln))
+            for ln in ptxas_summary(log["ptxas"]):
+                print(f"  {ln}")
 
     cfg = dataclasses.replace(clusd_msmarco.full(), n_docs=N_DOCS)
     print(f"config: dim {cfg.dim} N {cfg.n_clusters} cap {cfg.cluster_cap} "
@@ -778,24 +1128,26 @@ def main():
         with phase(f"v1 serving: {N_QUERIES} queries + 1 profiled batch"):
             paths["v1"], eng_v1 = serve_path("v1", dirs["v1"], qs, N_QUERIES,
                                              dev)
+        with phase("reloads on the v1 engine"):
+            reload_phase(eng_v1, dirs["v1"], qs, dev)
+            eng_v1.close()
+        with phase(f"recsys: wide_deep {RECSYS_SIZE}"):
+            paths["recsys"], eb = recsys_phase(dev)
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
-        print(f"  launches over the four paths: {launches}")
+        print(f"  launches over the five paths: {launches}")
         missing = {p: [k for k in PATH_KERNELS[p] if paths[p][k] <= 0]
                    for p in PATH_KERNELS}
         if any(missing.values()):
             raise AssertionError(f"kernels of a main path never launched: "
                                  f"{missing}; launches {paths}")
-        with phase("reloads on the v1 engine"):
-            reload_phase(eng_v1, dirs["v1"], qs, dev)
-            eng_v1.close()
         with phase("kernels vs plain versions on main-path inputs"):
             v2_in = main_path_inputs(eng_v2, qs, dev)
             v1_in = main_path_inputs(eng_v1, qs, dev)
             codebooks = torch.from_numpy(eng_v2.store.codebooks).to(dev)
             rows = check_kernels(dev, launches, v2_in, v1_in, tail,
-                                 codebooks, eng_v2.index.selector)
-            del v1_in, v2_in, tail
+                                 codebooks, eng_v2.index.selector, eb)
+            del v1_in, v2_in, tail, eb
         # v2's ADC scores are bitwise the plain version's, so rtol alone;
         # v1's dot products are summed in another order on the card
         for name, atol in (("v2", 0.0), ("v1", 1e-6)):

@@ -1,9 +1,33 @@
-"""The CluSD system config (a copy of repro.configs.base.CluSDConfig:
-same fields, same defaults, same derived properties)."""
+"""The system configs: copies of repro.configs.base.CluSDConfig and
+RecsysConfig, with the same fields, defaults and derived values."""
 
 import dataclasses
 import math
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    family: str = "recsys"
+    kind: str = "dlrm"                      # dlrm | deepfm | wide_deep | din
+    n_dense: int = 0
+    n_sparse: int = 26
+    embed_dim: int = 128
+    table_sizes: Tuple[int, ...] = ()       # rows per sparse table
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()               # deepfm/wide_deep/din deep branch
+    attn_mlp: Tuple[int, ...] = ()          # din local activation unit
+    seq_len: int = 0                        # din behavior sequence
+    interaction: str = "dot"                # dot | fm | concat | target-attn
+    multi_hot: int = 1                      # lookups per sparse feature
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+    retrieval_local_topk: bool = False      # shard-local guide top-k
+
+    def total_rows(self) -> int:
+        return sum(self.table_sizes)
 
 
 @dataclasses.dataclass(frozen=True)

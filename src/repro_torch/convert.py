@@ -5,6 +5,7 @@ compute on the same index, selector and quantizer.
   index_from_numpy(arrays)       -> repro_torch CluSDIndex
   selector_from_numpy(params)    -> LSTMSelector
   pq_from_numpy(codebooks, codes, rotation, nsub) -> PQ
+  recsys_params_from_numpy(cfg, params) -> recsys params (fused tables)
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ from repro_torch.core.lstm import LSTMSelector
 from repro_torch.core.quant import PQ
 from repro_torch.core.sparse import SparseIndex
 from repro_torch.device import resolve_device
+from repro_torch.models import recsys as rs
 
 _INDEX_DTYPES = {
     "centroids": np.float32,
@@ -83,3 +85,33 @@ def index_from_numpy(arrays, *, device=None):
         else selector_from_numpy(params, device=dev),
         quantizer=None if pq is None else pq_from_numpy(**pq, device=dev),
         bin_ids=t["bin_ids"])
+
+
+def recsys_params_from_numpy(cfg, params, *, device=None):
+    """A JAX recsys params tree as numpy ({"tables": {"t0": (rows, d), ...},
+    "wide": {...}, "wide_bias", MLP leaves}) -> the port's params: each
+    table group concatenated in field order into one FusedTable, the
+    other leaves as float32 tensors. Shapes are checked against
+    repro_torch.models.recsys.param_template(cfg)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in rs.param_template(cfg).items():
+        if name not in params:
+            raise KeyError(f"recsys params missing {name!r}")
+        if isinstance(leaf, dict):
+            arrs = [np.asarray(params[name][f"t{i}"], np.float32)
+                    for i in range(len(leaf))]
+            for i, a in enumerate(arrs):
+                if a.shape != leaf[f"t{i}"].shape:
+                    raise ValueError(f"{name}/t{i}: shape {a.shape}, "
+                                     f"expected {leaf[f't{i}'].shape}")
+            out[name] = rs.FusedTable(
+                _tensor(np.concatenate(arrs), np.float32, dev),
+                [a.shape[0] for a in arrs])
+        else:
+            a = np.asarray(params[name], np.float32)
+            if a.shape != tuple(leaf.shape):
+                raise ValueError(f"{name}: shape {a.shape}, expected "
+                                 f"{tuple(leaf.shape)}")
+            out[name] = _tensor(a, np.float32, dev)
+    return out

@@ -43,6 +43,10 @@ class CluSDIndex:
     selector: Any = None         # LSTMSelector, or None (stage-1 order)
     quantizer: Any = None        # optional PQ (core/quant.py)
     bin_ids: Any = None          # (k_sparse,) rank -> bin id
+    # the device stores `retrieve` and `score_selected` built: kind ->
+    # (source, cluster_docs, store); see _device_store
+    _stores: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def n_docs(self):
@@ -186,25 +190,45 @@ def select_clusters(cfg, index, q_dense, sparse_ids, sparse_scores, *,
     return {**s1, **s2}
 
 
+def _device_store(index, embeddings=None):
+    """The device store that `retrieve` (embeddings None: PQStore when the
+    index carries a quantizer, else InMemoryStore) and `score_selected`
+    (InMemoryStore over `embeddings`) score through. Each builds a block
+    table (6.4 GB at the full widths), so it is built once per index and
+    reused while the index keeps the same embeddings or quantizer and
+    cluster table (the JAX stores are views and build nothing)."""
+    from repro_torch.engine import stores as stores_lib
+    if embeddings is None and index.quantizer is not None:
+        kind, src = "pq", index.quantizer
+    else:
+        kind = "memory"
+        src = embeddings if embeddings is not None else index.embeddings
+    hit = index._stores.get(kind)
+    if hit is not None and hit[0] is src and hit[1] is index.cluster_docs:
+        return hit[2]
+    store = stores_lib.PQStore(src, index.cluster_docs) if kind == "pq" \
+        else stores_lib.InMemoryStore(src, index.cluster_docs)
+    index._stores[kind] = (src, index.cluster_docs, store)
+    return store
+
+
 def score_selected(index, q_dense, sel_ids, sel_mask, embeddings=None):
     """Step-3 dense scoring of explicit selections through an
     InMemoryStore over `embeddings` (default: the index's). Returns
     (doc_ids (B, S*cap) int32, scores with -inf at invalid, valid)."""
     from repro_torch.engine import pipeline as pipe_lib
-    from repro_torch.engine import stores as stores_lib
     emb = embeddings if embeddings is not None else index.embeddings
-    store = stores_lib.InMemoryStore(emb, index.cluster_docs)
-    return pipe_lib.score_selected(store, q_dense, sel_ids, sel_mask)
+    return pipe_lib.score_selected(_device_store(index, emb), q_dense,
+                                   sel_ids, sel_mask)
 
 
 def retrieve(cfg, index, q_dense, q_terms, q_weights, *, selector="lstm",
              stage1="overlap", theta=None, selector_params=None, k=None):
     """The full CluSD pipeline over the index's default device store
-    (PQStore when it carries a quantizer, else InMemoryStore). Returns
-    (ids, scores, diag) as engine.pipeline.retrieve."""
+    (PQStore when it carries a quantizer, else InMemoryStore), built once
+    per index. Returns (ids, scores, diag) as engine.pipeline.retrieve."""
     from repro_torch.engine import pipeline as pipe_lib
-    from repro_torch.engine import stores as stores_lib
     return pipe_lib.retrieve(
-        cfg, index, stores_lib.store_for_index(index), q_dense, q_terms,
-        q_weights, selector=selector, stage1=stage1, theta=theta,
+        cfg, index, _device_store(index), q_dense, q_terms, q_weights,
+        selector=selector, stage1=stage1, theta=theta,
         selector_params=selector_params, k=k)

@@ -597,9 +597,13 @@ class RetrievalEngine:
 
     # -- serving ------------------------------------------------------------
 
-    def retrieve(self, q_dense, q_terms, q_weights):
+    def retrieve(self, q_dense, q_terms, q_weights, *, k=None):
         """Serve a query batch of any size. Returns (ids, scores) on the
-        engine's device, with the caller's batch dimension preserved."""
+        engine's device, with the caller's batch dimension preserved.
+        `k` may be None or the engine's own k, as in the JAX engine."""
+        if k is not None and k != self.k:
+            raise ValueError("per-call k would defeat bucketed compilation; "
+                             "construct the engine with the serving k")
         q_dense, q_terms, q_weights = (_host(q_dense), _host(q_terms),
                                        _host(q_weights))
         n = int(q_dense.shape[0])

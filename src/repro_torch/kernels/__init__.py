@@ -14,7 +14,8 @@ it launches its kernel, and nowhere else.
 """
 
 LAUNCHES = {"adc_tables": 0, "adc_score_blocks": 0, "bin_overlap": 0,
-            "cluster_score": 0, "lstm_sequence": 0, "topk": 0}
+            "cluster_score": 0, "embedding_bag": 0, "lstm_sequence": 0,
+            "topk": 0}
 
 
 def reset_launches():

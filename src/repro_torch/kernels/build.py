@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("adc", "bin_overlap", "cluster_score", "lstm", "topk")
+KERNEL_SOURCES = ("adc", "bin_overlap", "cluster_score", "embedding_bag",
+                  "lstm", "topk")
 
 _lock = threading.Lock()
 _libs = {}          # name -> ctypes.CDLL

@@ -1,0 +1,45 @@
+"""Public embedding-bag op: out[b] = sum over h of table[idx[b, h]]. CPU
+tensors take the plain version (ref.py); CUDA tensors launch the kernel
+of csrc/embedding_bag.cu after the checks below, or raise: a failed
+build or launch is an error, never a switch to ref."""
+
+import torch
+
+from repro_torch.kernels import on_cuda, record_launch, require
+from repro_torch.kernels.embedding_bag import kernel
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+
+def _check_range(idx, V):
+    """Every index in [0, V): the kernel reads table rows unchecked, and a
+    wrong field offset in a fused table would read another field's rows."""
+    if idx.numel():
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()  # one host sync
+        if lo < 0 or hi >= V:
+            raise IndexError(f"embedding_bag: indices span [{lo}, {hi}], "
+                             f"outside the table's [0, {V})")
+
+
+def embedding_bag(table, idx):
+    """table: (V, d) float32 or bfloat16; idx: (B, hot) int32 (any
+    integer type on the CPU). Returns the sum-pooled (B, d) bags in the
+    table's dtype, each summed in ascending h in float32."""
+    if table.dim() != 2 or idx.dim() != 2:
+        raise ValueError(f"table must be (V, d) and idx (B, hot), got "
+                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
+    _check_range(idx, table.shape[0])
+    if not on_cuda(table, idx):
+        return embedding_bag_ref(table, idx)
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"table must be float32 or bfloat16, got "
+                        f"{table.dtype}")
+    require(table, "table", table.dtype, 2)
+    require(idx, "idx", torch.int32, 2)
+    B, d = idx.shape[0], table.shape[1]
+    out = torch.empty((B, d), dtype=table.dtype, device=table.device)
+    if B == 0 or d == 0:
+        return out
+    with torch.cuda.device(table.device):
+        kernel.embedding_bag_cuda(table, idx, out)
+    record_launch("embedding_bag")
+    return out

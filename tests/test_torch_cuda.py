@@ -311,3 +311,34 @@ def test_device_store_engines_on_the_card_match_the_cpu(card):
         np.testing.assert_array_equal(g_ids[ok], c_ids[ok], err_msg=name)
         np.testing.assert_allclose(g_sc, c_sc, rtol=1e-5, atol=1e-6,
                                    err_msg=name)
+
+
+def test_sparse_scores_on_the_card_are_bitwise_the_cpu(card):
+    """Docs reached by many query terms, some twice by one term (a doc
+    holding a term twice sits twice in its posting list): the card adds
+    each doc's contributions in the CPU's index order, with no two adds
+    to one doc in a scatter layer, so the scores are equal bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.sparse import SparseIndex, sparse_retrieve
+
+    rng = np.random.default_rng(11)
+    D, vocab = 20000, 64
+    doc_terms = rng.integers(0, vocab, (D, 24)).astype(np.int32)
+    doc_weights = rng.lognormal(0.0, 1.0, (D, 24)).astype(np.float32)
+    q_terms = torch.from_numpy(rng.integers(0, vocab, (64, 16)).astype(
+        np.int32))
+    q_weights = torch.from_numpy(rng.lognormal(0.0, 1.0, (64, 16)).astype(
+        np.float32))
+    c_index = SparseIndex.build(doc_terms, doc_weights, vocab, 10000,
+                                device="cpu")
+    g_index = c_index.to(card)
+    assert g_index.occurrence_ranks()[1] > 1
+    _, _, c = sparse_retrieve(c_index, q_terms, q_weights, 100)
+    _, _, g = sparse_retrieve(g_index, q_terms.to(card), q_weights.to(card),
+                              100)
+    # how many terms of its query reach each doc
+    hits = (torch.from_numpy(doc_terms)[None, :, :, None]
+            == q_terms[:, None, None, :]).any(2).sum(-1)
+    assert (hits >= 3).sum() > 1000
+    assert torch.equal(g.cpu().view(torch.int32), c.view(torch.int32))

@@ -235,6 +235,44 @@ def test_clusd_retrieve_with_theta_and_selector_params_matches_jax(smoke):
                      selector="rnn")
 
 
+def test_clusd_retrieve_builds_its_device_store_once(smoke, monkeypatch):
+    """clusd.retrieve and clusd.score_selected build the index's device
+    store (a block table) at their first call and reuse it while the
+    index keeps the same embeddings or quantizer; results do not change."""
+    from repro_torch.engine import stores as tstores
+    cfg, index, corpus, pq, qs = smoke
+    built = []
+
+    def counting(cls):
+        class Counting(cls):
+            def __init__(self, *a, **kw):
+                built.append(cls.__name__)
+                super().__init__(*a, **kw)
+        return Counting
+
+    for name in ("InMemoryStore", "PQStore"):
+        monkeypatch.setattr(tstores, name, counting(getattr(tstores, name)))
+    q = tuple(as_tensor(x) for x in (qs.q_dense, qs.q_terms, qs.q_weights))
+    for quantizer, kind in ((None, "InMemoryStore"), (pq, "PQStore")):
+        built.clear()
+        t_index = _t_index(index, quantizer)
+        with torch.no_grad():
+            first = tcl.retrieve(torch_cfg(cfg), t_index, *q)
+            second = tcl.retrieve(torch_cfg(cfg), t_index, *q)
+        assert built == [kind]
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
+    sel = torch.zeros((2, 3), dtype=torch.int32)
+    mask = torch.ones((2, 3), dtype=torch.bool)
+    built.clear()
+    for _ in range(2):
+        tcl.score_selected(t_index, q[0][:2], sel, mask)
+    assert built == ["InMemoryStore"]
+    t_index.embeddings = t_index.embeddings.clone()    # new embeddings
+    tcl.score_selected(t_index, q[0][:2], sel, mask)
+    assert built == ["InMemoryStore"] * 2
+
+
 def test_score_selected_and_full_dense_topk_match_jax(smoke):
     cfg, index, corpus, pq, qs = smoke
     t_index = _t_index(index, pq)

@@ -186,6 +186,29 @@ def test_engine_rejects_a_float_store(built):
         RetrievalEngine(torch_cfg(cfg), t_index, use_adc=True, device="cpu")
 
 
+def test_retrieve_takes_the_engine_k_as_jax_does(built):
+    """retrieve(k=) accepts None or the engine's own k and raises the JAX
+    engine's ValueError for any other value."""
+    cfg, index, _, _, _, _, qs = built
+    arrays = dict(index_arrays(index), embeddings=np.asarray(index.embeddings))
+    t_index = convert.index_from_numpy(arrays, device="cpu")
+    q3 = (qs.q_dense[:4], qs.q_terms[:4], qs.q_weights[:4])
+    with RetrievalEngine(torch_cfg(cfg), t_index, k=20, device="cpu") as eng, \
+            JaxEngine(cfg, index, k=20) as jeng:
+        ids, scores = eng.retrieve(*q3)
+        ids_k, scores_k = eng.retrieve(*q3, k=20)
+        assert ids.shape == (4, 20)
+        assert torch.equal(ids, ids_k) and torch.equal(scores, scores_k)
+        for bad in (10, 21):
+            with pytest.raises(ValueError) as t_err:
+                eng.retrieve(*q3, k=bad)
+            with pytest.raises(ValueError) as j_err:
+                jeng.retrieve(*q3, k=bad)
+            assert str(t_err.value) == str(j_err.value)
+            assert "construct the engine with the serving k" in \
+                str(t_err.value)
+
+
 def test_build_index_serves_end_to_end_on_cpu(tmp_path):
     """The port's own build side (k-means, cluster table, sparse index,
     PQ) written by its write_index and served through its IndexReader,

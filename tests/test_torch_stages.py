@@ -136,3 +136,41 @@ def test_stage2_probs_and_selection(state):
                                   np.asarray(js["sel_ids"])[clean])
     np.testing.assert_array_equal(ts["sel_mask"].numpy()[clean],
                                   np.asarray(js["sel_mask"])[clean])
+
+
+def test_sparse_scores_of_docs_reached_by_many_terms_are_bitwise_jax():
+    """Every doc is reached by 4 query terms and twice by one of them (it
+    holds term 0 twice, so term 0's list holds it twice), and the query
+    repeats a term: the port adds a doc's contributions in the JAX
+    segment_sum's index order, so its scores are the JAX scores bit for
+    bit, where summing them in another order gives other bits."""
+    rng = np.random.default_rng(11)
+    D, vocab = 300, 6
+    doc_terms = np.tile(np.array([0, 1, 2, 3, 0, 5], np.int32), (D, 1))
+    doc_weights = rng.lognormal(0.0, 1.0, (D, 6)).astype(np.float32)
+    q_terms = np.array([[0, 1, 2, 3, 3, 4], [3, 2, 1, 0, -1, 0]], np.int32)
+    q_weights = rng.lognormal(0.0, 1.0, (2, 6)).astype(np.float32)
+    j_index = jsparse.SparseIndex.build(doc_terms, doc_weights, vocab, 2 * D)
+    t_index = tsparse.SparseIndex.build(doc_terms, doc_weights, vocab, 2 * D,
+                                        device="cpu")
+    assert t_index.occurrence_ranks()[1] == 2
+    _, _, want = jsparse.sparse_retrieve(j_index, q_terms, q_weights, 10)
+    _, _, got = tsparse.sparse_retrieve(t_index, _t(q_terms), _t(q_weights),
+                                        10)
+    want = np.asarray(want)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    # the same addends in reverse order differ in the last bits somewhere
+    pd, pw = (np.asarray(a) for a in (j_index.postings_docs,
+                                      j_index.postings_weights))
+    rev = np.zeros((2, D + 1), np.float32)
+    for b in range(2):
+        for t in reversed(range(q_terms.shape[1])):
+            if q_terms[b, t] < 0:
+                continue
+            for p in reversed(range(pd.shape[1])):
+                d = pd[q_terms[b, t], p]
+                if d >= 0:
+                    rev[b, d] += np.float32(pw[q_terms[b, t], p]
+                                            * q_weights[b, t])
+    assert not np.array_equal(rev[:, :D], want)
+    np.testing.assert_allclose(rev[:, :D], want, rtol=1e-6)
