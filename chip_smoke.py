@@ -112,7 +112,8 @@ def phase(name):
 
 
 def cuda_ms(fn, reps, warmup=2):
-    """Mean milliseconds of fn() on the card, by CUDA events."""
+    """Mean milliseconds of fn() on the card, by CUDA events around eager
+    calls (the host's Python overhead included where it is the longer)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -124,6 +125,30 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Mean milliseconds of fn() on the card, replayed from one CUDA graph
+    of `reps` calls: the device's time for the work, without the host's
+    Python overhead between launches. fn must not sync with the host."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def bound(nbytes, flops):
@@ -324,8 +349,9 @@ def tail_inputs(eng, qs, dev):
     """The topk and bin_overlap kernels' inputs for the last batch of
     MAX_BATCH queries, made by the stage functions the device-store
     engine runs: the sparse score matrix (a (B, D) view of a (B, D + 1)
-    buffer) and its top-k, the Stage-I overlap inputs, and the fused
-    (B, n_docs) buffer (a view of a (B, n_docs + 1) buffer)."""
+    buffer) and its top-k, the Stage-I overlap inputs and query-centroid
+    similarities (B, N), and the fused (B, n_docs) buffer (a view of a
+    (B, n_docs + 1) buffer)."""
     from repro_torch.core import clusd as clusd_lib
     from repro_torch.core import fusion as fusion_lib
     from repro_torch.core import sparse as sparse_lib
@@ -347,9 +373,11 @@ def tail_inputs(eng, qs, dev):
             index.n_docs, cfg.alpha, method=cfg.fusion, rrf_k=cfg.rrf_k)
         c_of = index.doc_cluster[sid.long()].int()
         norm = fusion_lib.minmax_norm(ss).float().contiguous()
+        qc_sim = qd @ index.centroids.T
     sync(dev)
     return {"fused": fused[:, :index.n_docs], "k_final": eng.k,
             "sparse": full, "k_sparse": cfg.k_sparse, "c_of": c_of,
+            "qc_sim": qc_sim, "n_stage1": cfg.n_candidates,
             "bin_ids": index.bin_ids.int().contiguous(), "norm": norm,
             "n_clusters": index.n_clusters, "v": cfg.v_bins}
 
@@ -697,10 +725,13 @@ def recsys_parity(cfg, model, ci, served, users, retrieved):
 
 
 def recsys_phase(dev):
-    """Phase 9. Returns (launches of the recsys path, the embedding_bag
-    inputs for the kernel check)."""
+    """Phase 9. Returns (launches of the recsys path, the kernel check's
+    recsys inputs: the embedding_bag bags and the first query's guide
+    row for topk)."""
     from repro_torch import kernels
+    from repro_torch.core.retrieval import guide_scores
     from repro_torch.data import RecsysStream
+    from repro_torch.models import recsys as rs
 
     cfg, model = recsys_model(dev)
     users = _no_label(RecsysStream(cfg, seed=SEED + 3).batch(RECSYS_QUERIES))
@@ -717,12 +748,22 @@ def recsys_phase(dev):
     user_idx = (torch.from_numpy(users["sparse"][:1, :n_user]).to(dev)
                 + tables.offsets[:n_user]).contiguous()
     serve_idx = (bulk["sparse"] + wide.offsets).contiguous()
-    eb = {"guide": (wide.weight, (ci["cand"] + wide.offsets[:2]).contiguous()),
-          "user_tower": (tables.weight, user_idx),
-          "serve_wide": (wide.weight, serve_idx),
-          "candidate_tower": (tables.weight,
-                              (ci["raw"] + tables.offsets[:2]).contiguous())}
-    return launches, eb
+    bags = {"guide": (wide.weight,
+                      (ci["cand"] + wide.offsets[:2]).contiguous()),
+            "user_tower": (tables.weight, user_idx),
+            "serve_wide": (wide.weight, serve_idx),
+            "candidate_tower": (tables.weight,
+                                (ci["raw"] + tables.offsets[:2]).contiguous())}
+    # the guide row the first query ranks, as clusd_candidate_retrieval
+    # makes it: the wide bag over every slot, pad slots at -inf
+    with torch.inference_mode():
+        b = rs.as_batch({k: v[:1] for k, v in users.items()}, dev)
+        blocks = ci["blocks"]
+        g = guide_scores(cfg, model, rs.user_tower(cfg, model, b),
+                         blocks.reshape(-1, blocks.shape[2]), ci["cand"])
+        guide_row = torch.where(ci["valid"], g, -torch.inf)[None]
+    return launches, {"bags": bags, "guide_row": guide_row,
+                      "k_guide": ci["spec"].k_guide}
 
 
 def main_path_inputs(eng, qs, dev):
@@ -777,8 +818,9 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
     ref = adc_tables_ref(q, books)
     torch.cuda.synchronize()
     err = (lut - ref).abs().max().item()
-    if not torch.allclose(lut, ref, rtol=1e-5, atol=1e-5):
-        raise AssertionError(f"adc_tables disagrees with plain: {err}")
+    if not torch.equal(lut.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"adc_tables is not bitwise the plain version: "
+                             f"{err}")
     qs = q.reshape(B, nsub, dsub)
     lib = torch.einsum("bsd,skd->bsk", qs, books)
     lib_err = (lib - ref).abs().max().item()
@@ -788,12 +830,13 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                  "source": "src/repro_torch/csrc/adc.cu",
                  "replaces": "src/repro/kernels/adc/kernel.py:38",
                  "launches": launches["adc_tables"], "max_abs_err": err,
-                 "ms": cuda_ms(lambda: adc_tables(q, books), 50),
+                 "ms": graph_ms(lambda: adc_tables(q, books), 50),
                  "plain_ms": cuda_ms(lambda: adc_tables_ref(q, books), 10),
                  "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": cuda_ms(lambda: torch.einsum(
+                 "library_ms": graph_ms(lambda: torch.einsum(
                      "bsd,skd->bsk", qs, books), 50),
-                 "shapes": [(B, dim), (nsub, K, dsub)],
+                 "shapes": [(B, dim), (nsub, K, dsub), "eager op ms "
+                            f"{cuda_ms(lambda: adc_tables(q, books), 50):.4f}"],
                  "library_max_abs_err": lib_err})
 
     # adc_score_blocks: the batch's LUT, unique code blocks and positions
@@ -815,7 +858,7 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                  "replaces": "src/repro/kernels/adc/kernel.py:79",
                  "launches": launches["adc_score_blocks"],
                  "max_abs_err": (out - ref).abs().max().item(),
-                 "ms": cuda_ms(lambda: adc_score_blocks(lut, codes, sel), 20),
+                 "ms": graph_ms(lambda: adc_score_blocks(lut, codes, sel)),
                  "plain_ms": cuda_ms(
                      lambda: adc_score_blocks_ref(lut, codes, sel), 3),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -850,11 +893,11 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                  "source": "src/repro_torch/csrc/cluster_score.cu",
                  "replaces": "src/repro/kernels/cluster_score/kernel.py:30",
                  "launches": launches["cluster_score"], "max_abs_err": err,
-                 "ms": cuda_ms(lambda: cluster_score(q, blocks, sel), 20),
+                 "ms": graph_ms(lambda: cluster_score(q, blocks, sel)),
                  "plain_ms": cuda_ms(
                      lambda: cluster_score_ref(q, blocks, sel), 3, warmup=1),
                  "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": cuda_ms(library, 3, warmup=1),
+                 "library_ms": graph_ms(library, 3),
                  "shapes": [(B, dim), (U, cap, dim), (B, S),
                             f"{n_read} blocks read"],
                  "library_max_abs_err": lib_err})
@@ -876,25 +919,30 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
         lstm.bias_ih_l0.copy_(w["b"])
         lstm.bias_hh_l0.zero_()
         lib_err = (lstm(x)[0] - ref).abs().max().item()
-        lib_ms = cuda_ms(lambda: lstm(x), 50)
+        lib_ms = graph_ms(lambda: lstm(x), 50)
     b_ms, b_by = bound(4 * (x.numel() + F * G + H * G + G + B * n * H),
                        2 * B * n * G * (F + H))
     rows.append({"name": "lstm_sequence", "route": "cuda",
                  "source": "src/repro_torch/csrc/lstm.cu",
                  "replaces": "src/repro/kernels/lstm/kernel.py:46",
                  "launches": launches["lstm_sequence"], "max_abs_err": err,
-                 "ms": cuda_ms(lambda: lstm_sequence(
+                 "ms": graph_ms(lambda: lstm_sequence(
                      x, w["wx"], w["wh"], w["b"]), 50),
                  "plain_ms": cuda_ms(lambda: lstm_sequence_ref(
                      x, w["wx"], w["wh"], w["b"]), 10),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                  "shapes": [(B, n, F), (F, G), (H, G), (G,)],
                  "library_max_abs_err": lib_err})
-    # topk: the fuse top-k over the last batch's fused buffer and the
-    # sparse top-k over its score matrix, both row-strided views
+    # topk on the main path's rows, each bitwise the plain version: the
+    # fuse top-k over the last batch's fused buffer and the sparse top-k
+    # over its score matrix (row-strided views), Stage I's query-centroid
+    # similarities (sort_by_dist), and the recsys guide row (-inf pads).
+    # The row's times are the fused rows'.
     errs, notes = [], []
-    for key, kk in (("fused", tail["k_final"]), ("sparse", tail["k_sparse"])):
-        x = tail[key]
+    for key, x, kk in (("fused", tail["fused"], tail["k_final"]),
+                       ("sparse", tail["sparse"], tail["k_sparse"]),
+                       ("stage1", tail["qc_sim"], tail["n_stage1"]),
+                       ("guide", eb["guide_row"], eb["k_guide"])):
         v, i = topk(x, kk)
         rv, ri = topk_ref(x, kk)
         torch.cuda.synchronize()
@@ -902,19 +950,22 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                 and torch.equal(v.view(torch.int32), rv.view(torch.int32))):
             raise AssertionError(f"topk on the {key} rows is not bitwise "
                                  f"the plain version")
-        errs.append((v - rv).abs().max().item())
+        errs.append((v - rv).abs().nan_to_num().max().item())
+        del v, i, rv, ri
         B, D = x.shape
         b_ms, b_by = bound(4 * B * D + 12 * B * kk, B * D)
-        t = {"ms": cuda_ms(lambda: topk(x, kk), 10),
+        t = {"ms": graph_ms(lambda: topk(x, kk)),
              "plain_ms": cuda_ms(lambda: topk_ref(x, kk), 3),
-             "library_ms": cuda_ms(lambda: torch.topk(x, kk), 10),
-             "bound_ms": b_ms, "bound_by": b_by}
+             "library_ms": graph_ms(lambda: torch.topk(x, kk), 5),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "eager_ms": cuda_ms(lambda: topk(x, kk), 10)}
         notes.append((key, (B, D), x.stride(0), kk, t))
     _, (B, D), stride, kk, t = notes[0]
     rows.append({"name": "topk", "route": "cuda",
                  "source": "src/repro_torch/csrc/topk.cu",
                  "replaces": "src/repro/kernels/topk/kernel.py:36",
-                 "launches": launches["topk"], "max_abs_err": max(errs), **t,
+                 "launches": launches["topk"], "max_abs_err": max(errs),
+                 **{k: v for k, v in t.items() if k != "eager_ms"},
                  "shapes": [f"{key} ({shape[0]}, {shape[1]}) row stride "
                             f"{st} k {kk_}: " + ", ".join(
                                 f"{a} {b:.4f}" if isinstance(b, float)
@@ -941,8 +992,8 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                  "replaces": "src/repro/kernels/bin_overlap/kernel.py:39",
                  "launches": launches["bin_overlap"],
                  "max_abs_err": (Q.cpu() - cQ).abs().max().item(),
-                 "ms": cuda_ms(lambda: bin_overlap(
-                     c_of, bins, norm, n_clusters=N, v=nv), 20),
+                 "ms": graph_ms(lambda: bin_overlap(
+                     c_of, bins, norm, n_clusters=N, v=nv)),
                  "plain_ms": cuda_ms(lambda: bin_overlap_ref(
                      c_of, bins, norm, n_clusters=N, v=nv), 10),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -958,7 +1009,7 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
     # and its host sync.
     notes, t = [], None
     for key in ("guide", "user_tower", "serve_wide", "candidate_tower"):
-        table, idx = eb[key]
+        table, idx = eb["bags"][key]
         out = embedding_bag(table, idx)
         ref = embedding_bag_ref(table, idx)
         torch.cuda.synchronize()
@@ -972,13 +1023,13 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                            B * hot * d)
         lib = torch.nn.functional.embedding_bag(idx, table, mode="sum")
         out = torch.empty_like(ref)
-        tt = {"ms": cuda_ms(
-                  lambda: eb_kernel.embedding_bag_cuda(table, idx, out), 20),
+        tt = {"ms": graph_ms(
+                  lambda: eb_kernel.embedding_bag_cuda(table, idx, out)),
               "wrapper_ms": cuda_ms(lambda: embedding_bag(table, idx), 20),
               "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, idx), 5),
-              "library_ms": cuda_ms(
+              "library_ms": graph_ms(
                   lambda: torch.nn.functional.embedding_bag(
-                      idx, table, mode="sum"), 20),
+                      idx, table, mode="sum")),
               "bound_ms": b_ms, "bound_by": b_by,
               "library_max_abs_err": (lib - ref).abs().max().item()}
         notes.append((key, (B, hot, d), rows_read, tt))

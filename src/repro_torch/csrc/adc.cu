@@ -4,12 +4,19 @@
 //
 // adc_tables replaces adc_tables_pallas (src/repro/kernels/adc/kernel.py,
 // _tables_kernel): lut[b, j, k] = codebooks[j, k, :] . q_rot[b, j*dsub:
-// (j+1)*dsub]. Grid (B, nsub), one thread per code k. Bound on the H100:
-// bytes — it writes B*nsub*K floats (25 MB at B=256, nsub=96) and does
-// 2*dsub flops per float written. Threads of a block write consecutive k,
-// so the stores coalesce; each thread's dsub-long dot is summed in order
-// with separate multiply and add (no FMA), which is exactly what the
-// plain version (ref.py) does.
+// (j+1)*dsub]. Bound on the H100: bytes — it writes B*nsub*K floats (25
+// MB at B=256, nsub=96, K=256) and does 2*dsub flops per float written.
+// Grid (nsub, ceil(B / TB)): a block takes subspace j for a tile of TB
+// queries, so codebook j is read once per tile (6.3 MB from L2 at B=256,
+// TB=32, not once per query) and a few hundred blocks fill the card.
+// The tile's sub-vectors sit in shared memory (read as broadcasts);
+// thread k holds codebook row k in registers and writes out[b, j, k] for
+// each query of the tile, so a warp stores 128 contiguous bytes. dsub 4,
+// 8 and 16 (dim / nsub of the smoke and full configs) are compiled as
+// constants (the dot unrolled, four queries in flight); other lengths
+// read the L1-cached codebook. Each dot is
+// q[0]*c[0], then + q[d]*c[d] for ascending d, with separate multiply and
+// add (no FMA): bitwise the plain version (ref.py).
 //
 // adc_score_blocks replaces adc_score_blocks_pallas (same file,
 // _score_kernel): score[b, s, c] = sum_{j ascending} lut[b, j,
@@ -31,22 +38,67 @@
 
 namespace {
 
+constexpr int kTablesTile = 32;   // queries per block
+
+// kDsub > 0: the sub-vector length at compile time, codebook row k in
+// registers and the dot unrolled; kDsub == 0: any dsub, read from the
+// L1-cached codebook.
+template <int kDsub>
 __global__ void adc_tables_kernel(const float* __restrict__ q,
                                   const float* __restrict__ books,
                                   float* __restrict__ out,
-                                  int nsub, int K, int dsub) {
-  const int b = blockIdx.x;
-  const int j = blockIdx.y;
-  const float* qs = q + (size_t)b * nsub * dsub + (size_t)j * dsub;
-  float* o = out + ((size_t)b * nsub + j) * K;
+                                  int B, int nsub, int K, int dsub_rt) {
+  const int dsub = kDsub > 0 ? kDsub : dsub_rt;
+  extern __shared__ float qs[];                  // kTablesTile * dsub
+  const int j = blockIdx.x;
+  const int b0 = blockIdx.y * kTablesTile;
+  const int tb = min(kTablesTile, B - b0);
+  const size_t dim = (size_t)nsub * dsub;
+  for (int i = threadIdx.x; i < tb * dsub; i += blockDim.x) {
+    const int bb = i / dsub;
+    qs[i] = q[(b0 + bb) * dim + (size_t)j * dsub + (i - bb * dsub)];
+  }
+  __syncthreads();
+  const size_t ostride = (size_t)nsub * K;       // out[b + 1] - out[b]
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const float* c = books + ((size_t)j * K + k) * dsub;
-    float acc = 0.0f;
-    for (int d = 0; d < dsub; ++d) {
-      acc = __fadd_rn(acc, __fmul_rn(qs[d], c[d]));
+    float* o = out + (size_t)b0 * ostride + (size_t)j * K + k;
+    if (kDsub > 0) {
+      float cr[kDsub > 0 ? kDsub : 1];
+#pragma unroll
+      for (int d = 0; d < kDsub; ++d) cr[d] = c[d];
+#pragma unroll 4
+      for (int bb = 0; bb < tb; ++bb) {
+        const float* qb = qs + bb * kDsub;
+        float acc = __fmul_rn(qb[0], cr[0]);
+#pragma unroll
+        for (int d = 1; d < kDsub; ++d)
+          acc = __fadd_rn(acc, __fmul_rn(qb[d], cr[d]));
+        o[bb * ostride] = acc;
+      }
+    } else {
+      for (int bb = 0; bb < tb; ++bb) {
+        const float* qb = qs + bb * dsub;
+        float acc = __fmul_rn(qb[0], c[0]);
+        for (int d = 1; d < dsub; ++d) {
+          acc = __fadd_rn(acc, __fmul_rn(qb[d], c[d]));
+        }
+        o[bb * ostride] = acc;
+      }
     }
-    o[k] = acc;
   }
+}
+
+template <int kDsub>
+cudaError_t launch_tables(const float* q, const float* books, float* out,
+                          int B, int nsub, int K, int dsub,
+                          cudaStream_t stream) {
+  const int threads = K < 256 ? ((K + 31) / 32) * 32 : 256;
+  const size_t smem = (size_t)kTablesTile * dsub * sizeof(float);
+  dim3 grid(nsub, (B + kTablesTile - 1) / kTablesTile);
+  adc_tables_kernel<kDsub><<<grid, threads, smem, stream>>>(
+      q, books, out, B, nsub, K, dsub);
+  return cudaGetLastError();
 }
 
 __global__ void adc_score_kernel(const float* __restrict__ lut,
@@ -125,11 +177,15 @@ extern "C" {
 int adc_tables_launch(const float* q, const float* books, float* out,
                       int B, int nsub, int K, int dsub, void* stream) {
   if (B == 0 || nsub == 0 || K == 0) return 0;
-  const int threads = K < 256 ? ((K + 31) / 32) * 32 : 256;
-  dim3 grid(B, nsub);
-  adc_tables_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      q, books, out, nsub, K, dsub);
-  return (int)cudaGetLastError();
+  if (dsub < 1 || (size_t)kTablesTile * dsub * sizeof(float) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dsub) {
+    case 4: return (int)launch_tables<4>(q, books, out, B, nsub, K, 4, s);
+    case 8: return (int)launch_tables<8>(q, books, out, B, nsub, K, 8, s);
+    case 16: return (int)launch_tables<16>(q, books, out, B, nsub, K, 16, s);
+    default: return (int)launch_tables<0>(q, books, out, B, nsub, K, dsub, s);
+  }
 }
 
 size_t adc_score_smem_bytes(int cap, int nsub, int K) {

@@ -1,6 +1,13 @@
 """Public row-wise top-k op. CPU tensors take the plain version (ref.py);
-CUDA tensors launch the kernel of csrc/topk.cu after the checks below,
-or raise: a failed build or launch is an error, never a switch to ref."""
+CUDA tensors launch the kernels of csrc/topk.cu after the checks below,
+or raise: a failed build or launch is an error, never a switch to ref.
+
+A CUDA call cuts each row into C chunks (`kernel.plan`): C == 1 is one
+device kernel; C > 1 is two (select per chunk, merge per row) with a
+(2, B * C * kstride) int32 scratch from torch.empty between them. The
+launch count (`LAUNCHES["topk"]`) is one per call either way."""
+
+import functools
 
 import torch
 
@@ -10,6 +17,13 @@ from repro_torch.kernels.topk.ref import topk_ref
 
 MAX_K = 2048            # csrc/topk.cu kMaxK
 MAX_D = (1 << 31) - 1   # int32 positions inside the kernel
+
+
+@functools.lru_cache(maxsize=256)
+def chunking(B, D, k, device_index):
+    """(C, L, kstride) for (B, D) rows on the card `device_index`."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return kernel.plan(B, D, k, sms)
 
 
 def topk(x, k):
@@ -44,6 +58,10 @@ def topk(x, k):
     if B == 0 or k == 0:
         return vals, idx
     with torch.cuda.device(x.device):
-        kernel.topk_cuda(x, k, vals, idx)
+        chunks = chunking(B, D, k, x.device.index)
+        C, _, kstride = chunks
+        scratch = (torch.empty(2 * B * C * kstride, dtype=torch.int32,
+                               device=x.device) if C > 1 else None)
+        kernel.topk_cuda(x, k, vals, idx, scratch, chunks)
     record_launch("topk")
     return vals, idx

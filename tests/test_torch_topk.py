@@ -6,6 +6,9 @@ topk_ref is held bitwise (values and ids) to `jax.lax.top_k` and to
 massive exact ties, all-equal rows, -inf rows, k == D, k == 0, -0.0
 beside +0.0 (lax.top_k ranks -0.0 below +0.0) and a row-strided view
 (the Pallas kernel's ids at -inf entries excepted, see its test).
+The chunked CUDA kernel's exactness argument (the top k of a row lie in
+the union of its chunks' top k, ties resolved by index) is pinned on
+topk_ref over hypothesis-drawn rows.
 bin_overlap_ref is held to the JAX package's segment_sum form
 (`core/bins.overlap_features`): P exact, Q bitwise, because both add a
 slot's scores in rank order. The Pallas bin_overlap kernel sums through
@@ -19,6 +22,13 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import as_tensor
+
+try:
+    import hypothesis.strategies as st
+    from hypothesis import given, settings
+except ImportError:
+    from _hypothesis_stub import given, settings
+    from _hypothesis_stub import strategies as st
 
 from repro.core import bins as jbins
 from repro.kernels.bin_overlap.kernel import bin_overlap_pallas
@@ -107,6 +117,39 @@ def test_topk_ref_bitwise_vs_topk_pallas_interpret():
         assert finite.mean() > 0.5, case
         np.testing.assert_array_equal(ti.numpy()[finite], pi[finite],
                                       err_msg=case)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(0, 2**31 - 1))
+def test_topk_ref_of_chunk_topks_is_the_row_topk(seed):
+    """What the chunked kernel relies on: cut a row into C chunks of L
+    (L rounded up to 4, the last chunk shorter), take topk_ref of each
+    chunk at k' = min(k, its length), map the indices to the row's, and
+    topk_ref of the concatenated lists, whose ties keep (chunk, index)
+    order, is topk_ref of the whole row, bit for bit. Rows of few values
+    (heavy ties), +-0.0 and -inf, and several chunk counts."""
+    rng = np.random.default_rng(seed)
+    B, D = int(rng.integers(1, 4)), int(rng.integers(1, 700))
+    k = int(rng.integers(1, D + 1))
+    palette = np.asarray([0.0, -0.0, -np.inf, 1.0, -1.0, 0.5],
+                         np.float32)[:int(rng.integers(2, 7))]
+    x = rng.choice(palette, (B, D))
+    noisy = rng.random((B, D)) < rng.random()
+    x[noisy] = rng.standard_normal(int(noisy.sum())).astype(np.float32)
+    xt = as_tensor(x)
+    wv, wi = topk_ref(xt, k)
+    for C in sorted({1, 2, 3, 5, 8, int(rng.integers(1, D + 1))}):
+        L = (-(-D // C) + 3) // 4 * 4
+        vs, ix = [], []
+        for start in range(0, D, L):
+            chunk = xt[:, start:start + L]
+            v, i = topk_ref(chunk, min(k, chunk.shape[1]))
+            vs.append(v)
+            ix.append(i + start)
+        cv, pos = topk_ref(torch.cat(vs, 1), k)
+        ci = torch.cat(ix, 1).gather(1, pos)
+        assert torch.equal(ci, wi), (seed, C)
+        assert torch.equal(cv.view(torch.int32), wv.view(torch.int32))
 
 
 def _overlap_inputs(B=5, k=64, N=12, v=4, seed=0):
