@@ -46,7 +46,9 @@ Phases, each printed with its seconds:
  10. each kernel against its plain version on the inputs the engines'
      own stage functions (and the recsys phase) make, timed with CUDA
      events beside one PyTorch call of the same function where there is
-     one, and its bound;
+     one, and its bound (adc_score_blocks on the v2 and the PQStore
+     batch's inputs with its gather floor beside, lstm_sequence and
+     nn.LSTM on the v2 batch's features and a recsys query's);
  11. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each directory must agree.
 
@@ -346,14 +348,16 @@ def serve_device(name, cfg, index, qs, n, dev):
 
 
 def tail_inputs(eng, qs, dev):
-    """The topk and bin_overlap kernels' inputs for the last batch of
-    MAX_BATCH queries, made by the stage functions the device-store
-    engine runs: the sparse score matrix (a (B, D) view of a (B, D + 1)
-    buffer) and its top-k, the Stage-I overlap inputs and query-centroid
-    similarities (B, N), and the fused (B, n_docs) buffer (a view of a
-    (B, n_docs + 1) buffer)."""
+    """The topk, bin_overlap and adc_score_blocks kernels' inputs for the
+    last batch of MAX_BATCH queries, made by the stage functions the
+    device-store engine runs: the sparse score matrix (a (B, D) view of a
+    (B, D + 1) buffer) and its top-k, the Stage-I overlap inputs and
+    query-centroid similarities (B, N), the fused (B, n_docs) buffer (a
+    view of a (B, n_docs + 1) buffer), and the ADC tail's LUT, code table
+    and cluster ids."""
     from repro_torch.core import clusd as clusd_lib
     from repro_torch.core import fusion as fusion_lib
+    from repro_torch.core import quant as quant_lib
     from repro_torch.core import sparse as sparse_lib
     from repro_torch.engine import pipeline as pipe_lib
 
@@ -374,8 +378,14 @@ def tail_inputs(eng, qs, dev):
         c_of = index.doc_cluster[sid.long()].int()
         norm = fusion_lib.minmax_norm(ss).float().contiguous()
         qc_sim = qd @ index.centroids.T
+        # what PQStore.score_blocks hands adc_score_blocks: the batch's LUT,
+        # the whole (N, cap, nsub) code table, the selected cluster ids
+        pq_adc = (quant_lib.adc_tables(eng.store.pq, qd),
+                  eng.store.code_blocks,
+                  sel["sel_ids"].int().contiguous())
     sync(dev)
     return {"fused": fused[:, :index.n_docs], "k_final": eng.k,
+            "pq_adc": pq_adc,
             "sparse": full, "k_sparse": cfg.k_sparse, "c_of": c_of,
             "qc_sim": qc_sim, "n_stage1": cfg.n_candidates,
             "bin_ids": index.bin_ids.int().contiguous(), "norm": norm,
@@ -385,7 +395,7 @@ def tail_inputs(eng, qs, dev):
 def profile_batch(eng, q3, dev):
     """torch.profiler over one steady batch on a warm engine: device busy
     share of the batch's wall time and the device time by kernel."""
-    profile_call(lambda: eng.retrieve(*q3), dev, 10, 6,
+    profile_call(lambda: eng.retrieve(*q3), dev, 10, 4,
                  lambda: eng.tracer.traces[-1].spans)
 
 
@@ -412,11 +422,16 @@ def profile_call(fn, dev, n_dev, n_host, spans=None):
         else:
             cpu_rows.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in dev_rows)
+    shares = {name: sum(r[0] for r in dev_rows if name in r[2])
+              for name in ("lstm", "adc_tables", "adc_score")}
     extra = "" if spans is None else " spans (ms) " + json.dumps(
         {sp.name: round(sp.dur_ms, 3) for sp in spans()})
     print(f"  profiled wall {wall_ms:.3f} ms; device busy {busy:.3f} ms; "
           f"idle share {1 - busy / wall_ms:.3f}; device launches "
           f"{sum(r[1] for r in dev_rows)};{extra}")
+    print("  kernel shares (ms): " + ", ".join(
+        f"{name} {ms:.4f} ({ms / busy:.3f})" for name, ms in shares.items()
+        if ms > 0))
     print("  device time by kernel / copy:")
     for ms, count, key in sorted(dev_rows, reverse=True)[:n_dev]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
@@ -726,10 +741,12 @@ def recsys_parity(cfg, model, ci, served, users, retrieved):
 
 def recsys_phase(dev):
     """Phase 9. Returns (launches of the recsys path, the kernel check's
-    recsys inputs: the embedding_bag bags and the first query's guide
-    row for topk)."""
+    recsys inputs: the embedding_bag bags, the first query's guide row
+    for topk, and its Stage-I features with the selector for
+    lstm_sequence)."""
     from repro_torch import kernels
-    from repro_torch.core.retrieval import guide_scores
+    from repro_torch.core.retrieval import (clusd_candidate_retrieval,
+                                            guide_scores)
     from repro_torch.data import RecsysStream
     from repro_torch.models import recsys as rs
 
@@ -762,8 +779,19 @@ def recsys_phase(dev):
         g = guide_scores(cfg, model, rs.user_tower(cfg, model, b),
                          blocks.reshape(-1, blocks.shape[2]), ci["cand"])
         guide_row = torch.where(ci["valid"], g, -torch.inf)[None]
+        # the (1, n, F) Stage-I features the selector's lstm_sequence gets
+        got = []
+        hook = ci["sel"].register_forward_pre_hook(
+            lambda mod, args: got.append(args[0]))
+        clusd_candidate_retrieval(cfg, ci["spec"], model, b, ci["cand"],
+                                  blocks, ci["cents"], ci["sel"],
+                                  ci["nb_ids"], ci["nb_sims"],
+                                  slot_valid=ci["valid"])
+        hook.remove()
+    feats = got[0].float().contiguous().clone()   # a normal tensor again
     return launches, {"bags": bags, "guide_row": guide_row,
-                      "k_guide": ci["spec"].k_guide}
+                      "k_guide": ci["spec"].k_guide,
+                      "lstm": (feats, ci["sel"])}
 
 
 def main_path_inputs(eng, qs, dev):
@@ -839,31 +867,56 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                             f"{cuda_ms(lambda: adc_tables(q, books), 50):.4f}"],
                  "library_max_abs_err": lib_err})
 
-    # adc_score_blocks: the batch's LUT, unique code blocks and positions
-    lut, codes, sel = v2["lut"], v2["blocks"], v2["pos"]
-    U, cap, _ = codes.shape
-    S = sel.shape[1]
-    out = adc_score_blocks(lut, codes, sel)
-    ref = adc_score_blocks_ref(lut, codes, sel)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("adc_score_blocks is not bitwise the plain "
-                             f"version: {(out - ref).abs().max().item()}")
-    # bytes: the LUTs, the code blocks that `sel` reaches, `sel`, the scores
-    n_read = torch.unique(sel).numel()
-    b_ms, b_by = bound(4 * B * nsub * K + n_read * cap * nsub + 4 * B * S
-                       + 4 * B * S * cap, B * S * cap * nsub)
+    # adc_score_blocks, each input bitwise the plain version: the v2
+    # batch's LUT, unique code blocks and positions, and the PQStore
+    # batch's LUT, whole (N, cap, nsub) code table and cluster ids. The
+    # row's times are v2's. Bytes: the LUTs, the code blocks that `sel`
+    # reaches, `sel`, the scores. The gather floor: B*S*cap*nsub LUT
+    # lookups at 32 per SM per clock (no bank conflicts) at the card's
+    # maximum SM clock.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0]) * 1e6
+    notes, t = [], None
+    for key, (lut, codes, sel) in (
+            ("v2", (v2["lut"], v2["blocks"], v2["pos"])),
+            ("pq", tail["pq_adc"])):
+        U, cap, nsub = codes.shape
+        (B, S), K = sel.shape, lut.shape[2]
+        out = adc_score_blocks(lut, codes, sel)
+        ref = adc_score_blocks_ref(lut, codes, sel)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"adc_score_blocks on the {key} input is "
+                                 "not bitwise the plain version: "
+                                 f"{(out - ref).abs().max().item()}")
+        n_read = torch.unique(sel).numel()
+        b_ms, b_by = bound(4 * B * nsub * K + n_read * cap * nsub + 4 * B * S
+                           + 4 * B * S * cap, B * S * cap * nsub)
+        tt = {"ms": graph_ms(lambda: adc_score_blocks(lut, codes, sel)),
+              "plain_ms": cuda_ms(
+                  lambda: adc_score_blocks_ref(lut, codes, sel), 3),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "gather_floor_ms": B * S * cap * nsub / (32 * sms * clock_hz)
+              * 1e3}
+        notes.append((key, (U, cap, nsub), (B, S), n_read, tt))
+        if t is None:
+            t, err = tt, (out - ref).abs().max().item()
+        del out, ref
     rows.append({"name": "adc_score_blocks", "route": "cuda",
                  "source": "src/repro_torch/csrc/adc.cu",
                  "replaces": "src/repro/kernels/adc/kernel.py:79",
-                 "launches": launches["adc_score_blocks"],
-                 "max_abs_err": (out - ref).abs().max().item(),
-                 "ms": graph_ms(lambda: adc_score_blocks(lut, codes, sel)),
-                 "plain_ms": cuda_ms(
-                     lambda: adc_score_blocks_ref(lut, codes, sel), 3),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "shapes": [tuple(lut.shape), (U, cap, nsub), (B, S),
-                            f"{n_read} blocks read"]})
+                 "launches": launches["adc_score_blocks"], "max_abs_err": err,
+                 **{k: v for k, v in t.items() if k != "gather_floor_ms"},
+                 "library_ms": None,
+                 "shapes": [f"{key} codes {shape} sel {bs} {n} blocks read: "
+                            f"ms {tt['ms']:.4f} plain {tt['plain_ms']:.4f} "
+                            f"bound {tt['bound_ms']:.4f} ({tt['bound_by']}) "
+                            f"gather floor {tt['gather_floor_ms']:.4f} at "
+                            f"{clock_hz / 1e6:.0f} MHz"
+                            for key, shape, bs, n, tt in notes]})
 
     # cluster_score: the v1 batch's queries, unique float blocks, positions
     q, blocks, sel = v1["q"], v1["blocks"], v1["pos"]
@@ -902,37 +955,53 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                             f"{n_read} blocks read"],
                  "library_max_abs_err": lib_err})
 
-    # lstm_sequence: the v2 batch's Stage-I features through the selector
-    x = v2["feats"]
-    w = {k: p.detach() for k, p in selector.named_parameters()}
-    (B, n, F), (H, G) = x.shape, w["wh"].shape
-    out = lstm_sequence(x, w["wx"], w["wh"], w["b"])
-    ref = lstm_sequence_ref(x, w["wx"], w["wh"], w["b"])
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"lstm_sequence disagrees with plain: {err}")
-    lstm = torch.nn.LSTM(F, H, batch_first=True).to(dev)
-    with torch.no_grad():
-        lstm.weight_ih_l0.copy_(w["wx"].T)
-        lstm.weight_hh_l0.copy_(w["wh"].T)
-        lstm.bias_ih_l0.copy_(w["b"])
-        lstm.bias_hh_l0.zero_()
-        lib_err = (lstm(x)[0] - ref).abs().max().item()
-        lib_ms = graph_ms(lambda: lstm(x), 50)
-    b_ms, b_by = bound(4 * (x.numel() + F * G + H * G + G + B * n * H),
-                       2 * B * n * G * (F + H))
+    # lstm_sequence, each input within atol 1e-5 of the plain version,
+    # with nn.LSTM (cuDNN, TF32 off) on the same weights by the same
+    # method: the v2 batch's (256, n, F) Stage-I features through its
+    # selector, and the recsys query's (1, n, F) through the candidate
+    # index's. The row's times are v2's.
+    notes, t = [], None
+    for key, (x, mod) in (("v2", (v2["feats"], selector)),
+                          ("recsys", eb["lstm"])):
+        w = {k: p.detach() for k, p in mod.named_parameters()}
+        (B, n, F), (H, G) = x.shape, w["wh"].shape
+        out = lstm_sequence(x, w["wx"], w["wh"], w["b"])
+        ref = lstm_sequence_ref(x, w["wx"], w["wh"], w["b"])
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        if not e <= 1e-5:
+            raise AssertionError(f"lstm_sequence on the {key} input "
+                                 f"disagrees with plain: {e}")
+        lstm = torch.nn.LSTM(F, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(w["wx"].T)
+            lstm.weight_hh_l0.copy_(w["wh"].T)
+            lstm.bias_ih_l0.copy_(w["b"])
+            lstm.bias_hh_l0.zero_()
+            lib_err = (lstm(x)[0] - ref).abs().max().item()
+            lib_ms = graph_ms(lambda: lstm(x), 50)
+        b_ms, b_by = bound(4 * (x.numel() + F * G + H * G + G + B * n * H),
+                           2 * B * n * G * (F + H))
+        tt = {"ms": graph_ms(lambda: lstm_sequence(
+                  x, w["wx"], w["wh"], w["b"]), 50),
+              "plain_ms": cuda_ms(lambda: lstm_sequence_ref(
+                  x, w["wx"], w["wh"], w["b"]), 10),
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        notes.append((key, (B, n, F, H), e, lib_err, tt))
+        if t is None:
+            t, err, first_lib_err = tt, e, lib_err
     rows.append({"name": "lstm_sequence", "route": "cuda",
                  "source": "src/repro_torch/csrc/lstm.cu",
                  "replaces": "src/repro/kernels/lstm/kernel.py:46",
                  "launches": launches["lstm_sequence"], "max_abs_err": err,
-                 "ms": graph_ms(lambda: lstm_sequence(
-                     x, w["wx"], w["wh"], w["b"]), 50),
-                 "plain_ms": cuda_ms(lambda: lstm_sequence_ref(
-                     x, w["wx"], w["wh"], w["b"]), 10),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                 "shapes": [(B, n, F), (F, G), (H, G), (G,)],
-                 "library_max_abs_err": lib_err})
+                 **t,
+                 "shapes": [f"{key} (B, n, F, H) {shape}: ms {tt['ms']:.4f} "
+                            f"plain {tt['plain_ms']:.4f} nn.LSTM "
+                            f"{tt['library_ms']:.4f} bound "
+                            f"{tt['bound_ms']:.4f}; max_abs_err {e:.3g}, "
+                            f"nn.LSTM's {le:.3g}"
+                            for key, shape, e, le, tt in notes],
+                 "library_max_abs_err": first_lib_err})
     # topk on the main path's rows, each bitwise the plain version: the
     # fuse top-k over the last batch's fused buffer and the sparse top-k
     # over its score matrix (row-strided views), Stage I's query-centroid

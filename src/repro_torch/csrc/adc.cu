@@ -24,14 +24,22 @@
 // one-hot MXU product because a gather does not lower there; here the
 // gather is native. One block per query: the query's (nsub, K) LUT is
 // staged once in shared memory (96 KB at nsub=96, so dynamic shared
-// memory above the 48 KB default) and serves all S selected slots. Each
-// slot's (cap, nsub) uint8 code block is read from global memory with
-// coalesced 4-byte loads and staged transposed, [j][c], so that thread c
-// reads code j of its slot from consecutive bytes. Thread c adds
-// lut[j][code] for ascending j into one fp32 register with no FMA: the
-// result is bitwise the plain version's. Bound on the H100: bytes — the
-// unique code blocks (up to B*S*cap*nsub bytes) plus the LUTs and the
-// (B, S, cap) output; the shared-memory gathers are the next limit.
+// memory above the 48 KB default) and serves all S selected slots, up to
+// 512 / cap of them at once (2 at cap 256), and two such blocks share an
+// SM, so one block's LUT copy overlaps the other's gathers. A (cap, nsub)
+// code block is row-major, so thread c reads its own code row straight
+// into registers: 16-byte loads where nsub % 16 == 0 and the base is
+// aligned (6 uint4 at nsub 96, all issued before the first lookup), else
+// bytes; nothing is staged or transposed through shared memory.
+// Thread c adds lut[j][code] for ascending j into one fp32 register with
+// __fadd_rn (no FMA): the result is bitwise the plain version's. Bounds
+// on the H100: the bytes (the unique code blocks that sel reaches, the
+// LUTs, the (B, S, cap) output) and the shared-memory gathers, B*S*cap*
+// nsub lookups at 32 per SM per clock without bank conflicts. Uniform
+// random codes put about 3.5 lanes of a warp on one bank, and then the
+// gathers bind (PERF.md): a copy of the codes staged through shared
+// memory (cp.async), and more warps per SM, were tried and were not
+// faster.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,14 +109,30 @@ cudaError_t launch_tables(const float* q, const float* books, float* out,
   return cudaGetLastError();
 }
 
-__global__ void adc_score_kernel(const float* __restrict__ lut,
-                                 const uint8_t* __restrict__ codes,
-                                 const int32_t* __restrict__ sel,
-                                 float* __restrict__ out,
-                                 int S, int U, int cap, int nsub, int K) {
-  extern __shared__ float smem[];
-  float* lut_s = smem;                                   // nsub * K floats
-  uint8_t* code_s = reinterpret_cast<uint8_t*>(smem + (size_t)nsub * K);
+constexpr int kScoreThreads = 512;   // a block's threads: slots x rows
+
+// Four subspaces j..j+3 of one code row: the word's bytes are their codes,
+// lut_j is row j of the staged (nsub, 256) LUT. Added in ascending j.
+__device__ __forceinline__ float add4(float acc, const float* lut_j,
+                                      uint32_t w) {
+  acc = __fadd_rn(acc, lut_j[w & 0xffu]);
+  acc = __fadd_rn(acc, lut_j[256 + ((w >> 8) & 0xffu)]);
+  acc = __fadd_rn(acc, lut_j[512 + ((w >> 16) & 0xffu)]);
+  acc = __fadd_rn(acc, lut_j[768 + (w >> 24)]);
+  return acc;
+}
+
+// Thread c reads its own code row straight into registers. kVec16 (nsub %
+// 16 == 0, 16-byte aligned codes, K == 256): uint4 loads, 128 subspaces at
+// a time, all of those loads issued before the first lookup. Otherwise
+// one byte at a time, any nsub, K and base.
+template <bool kVec16>
+__global__ void __launch_bounds__(kScoreThreads, 2)
+adc_score_kernel(const float* __restrict__ lut,
+                 const uint8_t* __restrict__ codes,
+                 const int32_t* __restrict__ sel, float* __restrict__ out,
+                 int S, int U, int cap, int nsub, int K, int row_threads) {
+  extern __shared__ float lut_s[];                       // nsub * K floats
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -122,50 +146,65 @@ __global__ void adc_score_kernel(const float* __restrict__ lut,
   } else {
     for (int i = tid; i < n_lut; i += nt) lut_s[i] = lut_b[i];
   }
+  __syncthreads();
 
-  const int n_code = cap * nsub;
-  for (int s = 0; s < S; ++s) {
+  const int groups = nt / row_threads;                   // slots at once
+  const int g = tid / row_threads;
+  const int c0 = tid - g * row_threads;
+  for (int s = g; s < S; s += groups) {
     const int u = sel[(size_t)b * S + s];
-    const bool ok = (u >= 0) && (u < U);   // uniform across the block
-    __syncthreads();   // LUT staged / previous slot's code reads done
-    if (ok) {
-      const uint8_t* blk = codes + (size_t)u * n_code;
-      if ((n_code & 3) == 0 &&
-          (reinterpret_cast<uintptr_t>(codes) & 3) == 0) {
-        const uint32_t* w = reinterpret_cast<const uint32_t*>(blk);
-        for (int i4 = tid; i4 < n_code / 4; i4 += nt) {
-          const uint32_t v = w[i4];
+    const bool ok = (u >= 0) && (u < U);   // uniform across the slot group
+    float* o = out + ((size_t)b * S + s) * cap;
+    for (int c = c0; c < cap; c += row_threads) {
+      if (!ok) {
+        o[c] = __int_as_float(0x7fc00000);   // NaN: slot index out of range
+        continue;
+      }
+      const uint8_t* row = codes + ((size_t)u * cap + c) * nsub;
+      float acc = 0.0f;
+      if constexpr (kVec16) {
+        const uint4* r4 = reinterpret_cast<const uint4*>(row);
+        for (int j0 = 0; j0 < nsub; j0 += 128) {
+          uint4 v[8];
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const int i = 4 * i4 + t;
-            const int c = i / nsub;
-            const int j = i - c * nsub;
-            code_s[j * cap + c] = (uint8_t)((v >> (8 * t)) & 0xffu);
+          for (int q = 0; q < 8; ++q)
+            if (j0 + 16 * q < nsub) v[q] = __ldg(r4 + j0 / 16 + q);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (j0 + 16 * q < nsub) {
+              const float* l = lut_s + (j0 + 16 * q) * 256;
+              acc = add4(acc, l, v[q].x);
+              acc = add4(acc, l + 1024, v[q].y);
+              acc = add4(acc, l + 2048, v[q].z);
+              acc = add4(acc, l + 3072, v[q].w);
+            }
           }
         }
       } else {
-        for (int i = tid; i < n_code; i += nt) {
-          const int c = i / nsub;
-          const int j = i - c * nsub;
-          code_s[j * cap + c] = blk[i];
-        }
-      }
-    }
-    __syncthreads();
-    float* o = out + ((size_t)b * S + s) * cap;
-    for (int c = tid; c < cap; c += nt) {
-      float acc;
-      if (ok) {
-        acc = 0.0f;
-        for (int j = 0; j < nsub; ++j) {
-          acc = __fadd_rn(acc, lut_s[j * K + code_s[j * cap + c]]);
-        }
-      } else {
-        acc = __int_as_float(0x7fc00000);   // NaN: slot index out of range
+        for (int j = 0; j < nsub; ++j)
+          acc = __fadd_rn(acc, lut_s[j * K + __ldg(row + j)]);
       }
       o[c] = acc;
     }
   }
+}
+
+template <bool kVec16>
+cudaError_t launch_score(const float* lut, const uint8_t* codes,
+                         const int32_t* sel, float* out, int B, int S, int U,
+                         int cap, int nsub, int K, cudaStream_t stream) {
+  const size_t smem = (size_t)nsub * K * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      adc_score_kernel<kVec16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  int row_threads = ((cap + 31) / 32) * 32;
+  if (row_threads > kScoreThreads) row_threads = kScoreThreads;
+  int groups = kScoreThreads / row_threads;
+  if (groups > S) groups = S;
+  adc_score_kernel<kVec16><<<B, groups * row_threads, smem, stream>>>(
+      lut, codes, sel, out, S, U, cap, nsub, K, row_threads);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -189,25 +228,23 @@ int adc_tables_launch(const float* q, const float* books, float* out,
 }
 
 size_t adc_score_smem_bytes(int cap, int nsub, int K) {
-  return (size_t)nsub * K * sizeof(float) + (size_t)cap * nsub;
+  (void)cap;   // the code rows are read into registers, not staged
+  return (size_t)nsub * K * sizeof(float);
 }
 
 // lut: (B, nsub, K) f32; codes: (U, cap, nsub) u8; sel: (B, S) i32 with
-// 0 <= sel < U; out: (B, S, cap) f32.
+// 0 <= sel < U (a slot out of range scores NaN); out: (B, S, cap) f32.
 int adc_score_blocks_launch(const float* lut, const uint8_t* codes,
                             const int32_t* sel, float* out, int B, int S,
                             int U, int cap, int nsub, int K, void* stream) {
   if (B == 0 || S == 0 || cap == 0) return 0;
-  const size_t smem = adc_score_smem_bytes(cap, nsub, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      adc_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = ((cap + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  adc_score_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      lut, codes, sel, out, S, U, cap, nsub, K);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
+  if (K == 256 && nsub % 16 == 0 && (base & 15) == 0)
+    return (int)launch_score<true>(lut, codes, sel, out, B, S, U, cap, nsub,
+                                   K, s);
+  return (int)launch_score<false>(lut, codes, sel, out, B, S, U, cap, nsub, K,
+                                  s);
 }
 
 }  // extern "C"

@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's topk and adc_tables kernels against an older version of
-their sources, on one NVIDIA GPU.
+"""Time the port's topk, adc_tables, adc_score_blocks and lstm_sequence
+kernels against an older version of their sources, on one NVIDIA GPU.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/old
     python3 tools/compare_kernels.py --old build/old [--profile]
 
-Builds `<old>/src/repro_torch/csrc/{topk,adc}.cu` with nvcc (the port's
-flags) into build/compare/, next to this checkout's kernels (built as
-the port builds them), and times both on inputs shaped like the main
+Builds `<old>/src/repro_torch/csrc/{topk,adc,lstm}.cu` with nvcc (the
+port's flags) into build/compare/, next to this checkout's kernels (built
+as the port builds them), and times both on inputs shaped like the main
 path's, made on the card from a seed:
 
   adc_tables: q (256, 768), codebooks (96, 256, 8) (PQ nsub 96, dsub 8);
+  adc_score_blocks: the LUT (256, 96, 256) over the v2 batch's shape, 5173
+  unique (256, 96) code blocks each reached by some of the (256, 32)
+  positions, and over the PQStore batch's, the whole (8192, 256, 96) code
+  table indexed by (256, 32) cluster ids; uniform random codes (and, to
+  show what binds, codes that put a warp's lanes on 32 banks, and every
+  slot on one block, whose codes then stay in L2);
+  lstm_sequence: the v2 batch's (256, 32, 21) Stage-I features and the
+  recsys query's (1, 32, 21), H 32 (randn, weights scaled by 1/sqrt(fan_in)),
+  and the same batches over n 1 and 64 steps (the step's latency);
   topk: the fuse rows (256, 2^20) at row stride 2^20 + 1 with about 9000
   nonzeros each, k 1000; the sparse rows (same view, 16,000 nonzeros),
   k 1000; Stage I (256, 8192) randn, k 32; the Stage-II budget (256, 32)
@@ -20,11 +29,14 @@ path's, made on the card from a seed:
 Each shape is timed by CUDA events over `--reps` launches after warm-up,
 in turns old, new, new, old (both by their launch functions with the
 outputs and scratch allocated once; `new_ms` is the public op, Python
-included); both results are checked bitwise against
-the plain version. `torch.topk` / `torch.einsum` are timed beside them,
+included); adc_score_blocks and lstm_sequence are timed by replaying a
+CUDA graph of `--reps` launches (their launches are shorter than the
+host's), in the same turns. adc_tables, adc_score_blocks and topk are
+checked bitwise against the plain version, lstm_sequence within atol
+1e-5. `torch.topk` / `torch.einsum` / `nn.LSTM` are timed beside them,
 and the bound (bytes over 3.35 TB/s, the H100 SXM's HBM rate).
-`--profile` adds each topk device kernel's time by torch.profiler, the
-old kernel's and the new one's (phase A, phase B). Prints one
+`--profile` adds each kernel's device time by torch.profiler, the old
+kernel's and the new one's (for topk phase A and phase B). Prints one
 line per shape, the nvidia-smi line and one JSON object last; exits
 non-zero without a card.
 """
@@ -60,6 +72,29 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean ms of fn() replayed from one CUDA graph of `reps` calls (the
+    device's time, no host between launches)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def build(jobs):
     """jobs: {name: (source, extra flags)} -> {name: ctypes.CDLL}; one nvcc
     per job, all at once."""
@@ -86,16 +121,30 @@ def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def old_topk(lib):
-    lib.topk_launch.argtypes = [_P, _LL, _I, _I, _I, _P, _P, _P]
+def old_topk(lib, sms):
+    """The older topk.cu's launch through the chunked kernel's interface:
+    its own plan, scratch of 2 * B * C * kstride words."""
+    lib.topk_launch.argtypes = [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                _P]
     lib.topk_launch.restype = _I
+    lib.topk_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.topk_plan.restype = _I
 
-    def run(x, k, vals, idx):
-        rc = lib.topk_launch(x.data_ptr(), x.stride(0), x.shape[0],
-                             x.shape[1], k, vals.data_ptr(), idx.data_ptr(),
-                             stream())
-        assert rc == 0, rc
-    return run
+    def prepare(x, k):
+        B, D = x.shape
+        out = (_I * 3)()
+        assert lib.topk_plan(B, D, k, sms, out) == 0
+        C, L, kstride = (int(v) for v in out)
+        scr = torch.empty(max(1, 2 * B * C * kstride), dtype=torch.int32,
+                          device=x.device)
+
+        def run(vals, idx):
+            rc = lib.topk_launch(x.data_ptr(), x.stride(0), B, D, k, C, L,
+                                 kstride, vals.data_ptr(), idx.data_ptr(),
+                                 scr.data_ptr() if C > 1 else None, stream())
+            assert rc == 0, rc
+        return run
+    return prepare
 
 
 def adc_launcher(lib):
@@ -109,6 +158,169 @@ def adc_launcher(lib):
                                    stream())
         assert rc == 0, rc
     return run
+
+
+def score_launcher(lib):
+    lib.adc_score_blocks_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                            _I, _I, _P]
+    lib.adc_score_blocks_launch.restype = _I
+
+    def run(lut, codes, sel, out):
+        B, nsub, K = lut.shape
+        U, cap, _ = codes.shape
+        rc = lib.adc_score_blocks_launch(
+            lut.data_ptr(), codes.data_ptr(), sel.data_ptr(), out.data_ptr(),
+            B, sel.shape[1], U, cap, nsub, K, stream())
+        assert rc == 0, rc
+    return run
+
+
+def lstm_launcher(lib):
+    lib.lstm_sequence_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _P]
+    lib.lstm_sequence_launch.restype = _I
+
+    def run(x, wx, wh, b, out):
+        B, n, F = x.shape
+        rc = lib.lstm_sequence_launch(
+            x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+            out.data_ptr(), B, n, F, wh.shape[0], stream())
+        assert rc == 0, rc
+    return run
+
+
+def turns(old, new, timer):
+    """old, new, new, old by `timer`: ([old ms x2], [new ms x2])."""
+    t = [timer(old), timer(new), timer(new), timer(old)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def compare_adc_score(lib, g, args):
+    """adc_score_blocks old against new on the v2 and PQStore shapes."""
+    from repro_torch.kernels.adc import adc_score_blocks, adc_score_blocks_ref
+    from repro_torch.kernels.adc import kernel as adc_kernel
+
+    run_old = score_launcher(lib)
+    B, S, cap, nsub = 256, 32, 256, 96
+    lut = torch.randn(B, nsub, 256, device="cuda", generator=g)
+    rows, bad = {}, []
+    for name, U in (("v2", 5173), ("pq", 8192)):
+        codes = torch.randint(0, 256, (U, cap, nsub), dtype=torch.uint8,
+                              device="cuda", generator=g)
+        if name == "v2":   # every unique block is reached, as dedup makes it
+            sel = (torch.randperm(B * S, device="cuda", generator=g) % U)
+        else:
+            sel = torch.randint(0, U, (B * S,), device="cuda", generator=g)
+        sel = sel.reshape(B, S).int().contiguous()
+        ref = adc_score_blocks_ref(lut, codes, sel)
+        out_old, out_new = torch.empty_like(ref), torch.empty_like(ref)
+        run_old(lut, codes, sel, out_old)
+        new = adc_score_blocks(lut, codes, sel)
+        torch.cuda.synchronize()
+        same = [torch.equal(t.view(torch.int32), ref.view(torch.int32))
+                for t in (new, out_old)]
+        if not all(same):
+            bad.append(f"adc_score_blocks {name}")
+        old_ms, new_ms = turns(
+            lambda: run_old(lut, codes, sel, out_old),
+            lambda: adc_kernel.adc_score_blocks_cuda(lut, codes, sel,
+                                                     out_new),
+            lambda fn: graph_ms(fn, args.reps))
+        n_read = torch.unique(sel).numel()
+        nbytes = 4 * lut.numel() + n_read * cap * nsub + 4 * sel.numel() \
+            + 4 * ref.numel()
+        row = {"shape": {"lut": list(lut.shape), "codes": [U, cap, nsub],
+                         "sel": [B, S], "blocks_read": n_read},
+               "old_ms": old_ms, "new_launch_ms": new_ms,
+               "new_ms": graph_ms(lambda: adc_score_blocks(lut, codes, sel),
+                                  args.reps),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bitwise_new": same[0], "bitwise_old": same[1]}
+        # what binds: the same launch on codes that put the 32 lanes of a
+        # warp on 32 banks (row c's code j is c % 32 + 32 * (j % 8)), on
+        # one block for every slot (the codes stay in L2), and on both
+        lanes = torch.arange(cap, device="cuda")[:, None] % 32
+        free = (lanes + 32 * (torch.arange(nsub, device="cuda") % 8))
+        free = free.to(torch.uint8).expand(U, cap, nsub).contiguous()
+        one = torch.zeros_like(sel)
+        row["floors_ms"] = {
+            name: graph_ms(lambda: adc_kernel.adc_score_blocks_cuda(
+                lut, c_, s_, out_new), args.reps)
+            for name, c_, s_ in (("conflict_free", free, sel),
+                                 ("one_block", codes, one),
+                                 ("conflict_free_one_block", free, one))}
+        del free
+        if args.profile:
+            row["device_ms"] = kernel_ms(
+                lambda: adc_kernel.adc_score_blocks_cuda(lut, codes, sel,
+                                                         out_new),
+                "adc_score")
+            row["old_device_ms"] = kernel_ms(
+                lambda: run_old(lut, codes, sel, out_old), "adc_score")
+        rows[name] = row
+        print(f"adc_score_blocks {name}: {row}", flush=True)
+        del codes, ref, out_old, out_new, new
+    return rows, bad
+
+
+def compare_lstm(lib, g, args):
+    """lstm_sequence old against new, and nn.LSTM, on the (256, 32, 21)
+    and (1, 32, 21) features."""
+    from repro_torch.kernels.lstm import kernel as lstm_kernel
+    from repro_torch.kernels.lstm import lstm_sequence, lstm_sequence_ref
+
+    run_old = lstm_launcher(lib)
+    F, H = 21, 32
+    wx = torch.randn(F, 4 * H, device="cuda", generator=g) / F ** 0.5
+    wh = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
+    b = 0.1 * torch.randn(4 * H, device="cuda", generator=g)
+    lstm = torch.nn.LSTM(F, H, batch_first=True).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.T)
+        lstm.weight_hh_l0.copy_(wh.T)
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    rows, bad = {}, []
+    for B in (256, 1):
+        x = torch.randn(B, 32, F, device="cuda", generator=g)
+        ref = lstm_sequence_ref(x, wx, wh, b)
+        out_old, out_new = torch.empty_like(ref), torch.empty_like(ref)
+        run_old(x, wx, wh, b, out_old)
+        new = lstm_sequence(x, wx, wh, b)
+        torch.cuda.synchronize()
+        errs = [(t - ref).abs().max().item() for t in (new, out_old)]
+        if not max(errs) <= 1e-5:
+            bad.append(f"lstm_sequence B {B}")
+        reps = args.reps * 5
+        old_ms, new_ms = turns(
+            lambda: run_old(x, wx, wh, b, out_old),
+            lambda: lstm_kernel.lstm_sequence_cuda(x, wx, wh, b, out_new),
+            lambda fn: graph_ms(fn, reps))
+        with torch.no_grad():
+            lib_ms = graph_ms(lambda: lstm(x), reps)
+        # the step's latency: the same launch over n 1 and n 64 steps
+        steps_ms = {}
+        for n in (1, 64):
+            xn = torch.randn(B, n, F, device="cuda", generator=g)
+            on = torch.empty(B, n, H, device="cuda")
+            steps_ms[n] = graph_ms(lambda: lstm_kernel.lstm_sequence_cuda(
+                xn, wx, wh, b, on), reps)
+        row = {"shape": list(x.shape), "H": H, "old_ms": old_ms,
+               "new_launch_ms": new_ms,
+               "new_ms": graph_ms(lambda: lstm_sequence(x, wx, wh, b), reps),
+               "nn_lstm_ms": lib_ms, "max_abs_err_new": errs[0],
+               "max_abs_err_old": errs[1],
+               "n1_ms": steps_ms[1], "n64_ms": steps_ms[64],
+               "per_step_ms": (sum(new_ms) / 2 - steps_ms[1]) / 31}
+        if args.profile:
+            row["device_ms"] = kernel_ms(
+                lambda: lstm_kernel.lstm_sequence_cuda(x, wx, wh, b, out_new),
+                "lstm")
+            row["old_device_ms"] = kernel_ms(
+                lambda: run_old(x, wx, wh, b, out_old), "lstm")
+        rows[f"B{B}"] = row
+        print(f"lstm_sequence {tuple(x.shape)}: {row}", flush=True)
+    return rows, bad
 
 
 def kernel_ms(fn, match, reps=10):
@@ -158,7 +370,7 @@ def main():
                     help="root of an older checkout (its src/repro_torch/csrc)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="device time of each topk kernel by torch.profiler")
+                    help="device time of each kernel by torch.profiler")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "compare",
                                                   "compare_kernels.json"))
     args = ap.parse_args()
@@ -178,9 +390,10 @@ def main():
     old_csrc = os.path.join(os.path.abspath(args.old), "src", "repro_torch",
                             "csrc")
     jobs = {"old_topk": (os.path.join(old_csrc, "topk.cu"), []),
-            "old_adc": (os.path.join(old_csrc, "adc.cu"), [])}
+            "old_adc": (os.path.join(old_csrc, "adc.cu"), []),
+            "old_lstm": (os.path.join(old_csrc, "lstm.cu"), [])}
     libs = build(jobs)
-    kbuild.build_all(("adc", "topk"))
+    kbuild.build_all(("adc", "lstm", "topk"))
     result = {"device": smi, "adc_tables": {}, "topk": {}}
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -220,16 +433,21 @@ def main():
     if not ok:
         raise AssertionError("adc_tables is not bitwise the plain version")
 
+    result["adc_score_blocks"], bad = compare_adc_score(libs["old_adc"], g,
+                                                        args)
+    result["lstm_sequence"], bad_l = compare_lstm(libs["old_lstm"], g, args)
+    bad += bad_l
+
     # topk
-    run_old = old_topk(libs["old_topk"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bad = []
+    prepare_old = old_topk(libs["old_topk"], sms)
     for name, (x, k) in topk_inputs(g).items():
         B, D = x.shape
         vals = torch.empty(B, k, device="cuda")
         idx = torch.empty(B, k, dtype=torch.long, device="cuda")
         rv = topk_ref(x, k)
-        run_old(x, k, vals, idx)
+        old = prepare_old(x, k)
+        old(vals, idx)
         new = topk(x, k)
         torch.cuda.synchronize()
         ok_new, ok_old = bitwise(new, rv), bitwise((vals, idx), rv)
@@ -242,10 +460,10 @@ def main():
 
         def launch():
             tk.topk_cuda(x, k, vals, idx, scr, plan)
-        t_old1 = cuda_ms(lambda: run_old(x, k, vals, idx), reps)
+        t_old1 = cuda_ms(lambda: old(vals, idx), reps)
         t_new1 = cuda_ms(launch, reps)
         t_new2 = cuda_ms(launch, reps)
-        t_old2 = cuda_ms(lambda: run_old(x, k, vals, idx), reps)
+        t_old2 = cuda_ms(lambda: old(vals, idx), reps)
         lib_ms = cuda_ms(lambda: torch.topk(x, k), max(3, reps // 4))
         row = {"shape": [B, D], "row_stride": x.stride(0), "k": k,
                "plan": plan, "old_ms": [t_old1, t_old2],
@@ -256,8 +474,8 @@ def main():
                "bitwise_new": ok_new, "bitwise_old": ok_old}
         if args.profile:
             row["device_ms"] = kernel_ms(lambda: topk(x, k), "topk")
-            row["old_device_ms"] = kernel_ms(
-                lambda: run_old(x, k, vals, idx), "topk")
+            row["old_device_ms"] = kernel_ms(lambda: old(vals, idx),
+                                             "topk")
         result["topk"][name] = row
         print(f"topk {name}: {row}", flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
@@ -266,7 +484,7 @@ def main():
     print(smi)
     print(json.dumps(result))
     if bad:
-        print(f"not bitwise the plain version: {bad}", file=sys.stderr)
+        print(f"disagree with the plain version: {bad}", file=sys.stderr)
         return 1
     return 0
 
