@@ -48,7 +48,9 @@ Phases, each printed with its seconds:
      events beside one PyTorch call of the same function where there is
      one, and its bound (adc_score_blocks on the v2 and the PQStore
      batch's inputs with its gather floor beside, lstm_sequence and
-     nn.LSTM on the v2 batch's features and a recsys query's);
+     nn.LSTM on the v2 batch's features and a recsys query's,
+     bin_overlap on the Stage-I batch's results and a recsys query's,
+     embedding_bag on the four recsys bags with its sector floor);
  11. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each directory must agree.
 
@@ -158,6 +160,18 @@ def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def table_sectors(table, idx):
+    """The distinct 32-byte sectors of `table`'s memory that the rows idx
+    picks span: what its reads move at least, where a row is narrower
+    than a sector."""
+    row_bytes = table.shape[1] * table.element_size()
+    base = table.data_ptr() % 32
+    u = torch.unique(idx).long()
+    start = (base + u * row_bytes) // 32
+    end = (base + (u + 1) * row_bytes - 1) // 32
+    return int((end - start + 1).sum() - (start[1:] == end[:-1]).sum())
 
 
 def ptxas_summary(text):
@@ -423,7 +437,8 @@ def profile_call(fn, dev, n_dev, n_host, spans=None):
             cpu_rows.append((ev.self_cpu_time_total / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in dev_rows)
     shares = {name: sum(r[0] for r in dev_rows if name in r[2])
-              for name in ("lstm", "adc_tables", "adc_score")}
+              for name in ("lstm", "adc_tables", "adc_score", "bin_overlap",
+                           "bag_kernel", "bag_warp_kernel")}
     extra = "" if spans is None else " spans (ms) " + json.dumps(
         {sp.name: round(sp.dur_ms, 3) for sp in spans()})
     print(f"  profiled wall {wall_ms:.3f} ms; device busy {busy:.3f} ms; "
@@ -742,12 +757,13 @@ def recsys_parity(cfg, model, ci, served, users, retrieved):
 def recsys_phase(dev):
     """Phase 9. Returns (launches of the recsys path, the kernel check's
     recsys inputs: the embedding_bag bags, the first query's guide row
-    for topk, and its Stage-I features with the selector for
-    lstm_sequence)."""
+    for topk, its bin_overlap inputs, and its Stage-I features with the
+    selector for lstm_sequence)."""
     from repro_torch import kernels
     from repro_torch.core.retrieval import (clusd_candidate_retrieval,
                                             guide_scores)
     from repro_torch.data import RecsysStream
+    from repro_torch.kernels.bin_overlap import ops as bo_ops
     from repro_torch.models import recsys as rs
 
     cfg, model = recsys_model(dev)
@@ -780,17 +796,27 @@ def recsys_phase(dev):
                          blocks.reshape(-1, blocks.shape[2]), ci["cand"])
         guide_row = torch.where(ci["valid"], g, -torch.inf)[None]
         # the (1, n, F) Stage-I features the selector's lstm_sequence gets
-        got = []
+        # and the (1, k_guide) results bin_overlap gets
+        got, overlap = [], []
         hook = ci["sel"].register_forward_pre_hook(
             lambda mod, args: got.append(args[0]))
-        clusd_candidate_retrieval(cfg, ci["spec"], model, b, ci["cand"],
-                                  blocks, ci["cents"], ci["sel"],
-                                  ci["nb_ids"], ci["nb_sims"],
-                                  slot_valid=ci["valid"])
-        hook.remove()
+        real = bo_ops.bin_overlap
+        bo_ops.bin_overlap = lambda *a, **kw: (overlap.append((a, kw)),
+                                               real(*a, **kw))[1]
+        try:
+            clusd_candidate_retrieval(cfg, ci["spec"], model, b, ci["cand"],
+                                      blocks, ci["cents"], ci["sel"],
+                                      ci["nb_ids"], ci["nb_sims"],
+                                      slot_valid=ci["valid"])
+        finally:
+            bo_ops.bin_overlap = real
+            hook.remove()
     feats = got[0].float().contiguous().clone()   # a normal tensor again
+    (c_of, bins, gn), kw = overlap[0]
     return launches, {"bags": bags, "guide_row": guide_row,
                       "k_guide": ci["spec"].k_guide,
+                      "overlap": (c_of.clone(), bins.clone(), gn.clone(),
+                                  kw["n_clusters"], kw["v"]),
                       "lstm": (feats, ci["sel"])}
 
 
@@ -1041,41 +1067,59 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                                 else f"{a} {b}" for a, b in tt.items())
                             for key, shape, st, kk_, tt in notes]})
 
-    # bin_overlap: Stage I's P/Q over the last batch's sparse top-k. The
-    # plain version on the card adds with atomics; the kernel is held
-    # bitwise to the plain version's sequential order on the CPU.
-    c_of, bins, norm = tail["c_of"], tail["bin_ids"], tail["norm"]
-    N, nv = tail["n_clusters"], tail["v"]
-    P, Q = bin_overlap(c_of, bins, norm, n_clusters=N, v=nv)
-    cP, cQ = bin_overlap_ref(c_of.cpu(), bins.cpu(), norm.cpu(),
-                             n_clusters=N, v=nv)
-    gP, gQ = bin_overlap_ref(c_of, bins, norm, n_clusters=N, v=nv)
-    torch.cuda.synchronize()
-    if not (torch.equal(P.cpu(), cP)
-            and torch.equal(Q.cpu().view(torch.int32), cQ.view(torch.int32))):
-        raise AssertionError("bin_overlap is not bitwise the plain version")
-    B, k = c_of.shape
-    b_ms, b_by = bound(8 * B * N * nv + 8 * B * k + 4 * bins.numel(), B * k)
+    # bin_overlap, each input bitwise the plain version on the CPU (on the
+    # card the plain version adds with atomics): Stage I's P/Q over the
+    # last batch's sparse top-k, and the recsys query's over its guide
+    # top-k. The row's times are Stage I's; `wrapper_ms` is the eager op.
+    notes, t = [], None
+    for key, (c_of, bins, norm, N, nv) in (
+            ("stage1", (tail["c_of"], tail["bin_ids"], tail["norm"],
+                        tail["n_clusters"], tail["v"])),
+            ("recsys", eb["overlap"])):
+        P, Q = bin_overlap(c_of, bins, norm, n_clusters=N, v=nv)
+        cP, cQ = bin_overlap_ref(c_of.cpu(), bins.cpu(), norm.cpu(),
+                                 n_clusters=N, v=nv)
+        gP, gQ = bin_overlap_ref(c_of, bins, norm, n_clusters=N, v=nv)
+        torch.cuda.synchronize()
+        if not (torch.equal(P.cpu(), cP) and torch.equal(
+                Q.cpu().view(torch.int32), cQ.view(torch.int32))):
+            raise AssertionError(f"bin_overlap on the {key} input is not "
+                                 "bitwise the plain version")
+        B, k = c_of.shape
+        b_ms, b_by = bound(8 * B * N * nv + 8 * B * k + 4 * bins.numel(),
+                           B * k)
+        reps = 20 if B > 1 else 100
+        tt = {"ms": graph_ms(lambda: bin_overlap(
+                  c_of, bins, norm, n_clusters=N, v=nv), reps),
+              "wrapper_ms": cuda_ms(lambda: bin_overlap(
+                  c_of, bins, norm, n_clusters=N, v=nv), reps),
+              "plain_ms": cuda_ms(lambda: bin_overlap_ref(
+                  c_of, bins, norm, n_clusters=N, v=nv), 10),
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        notes.append((key, (B, k), tuple(bins.shape), N, nv,
+                      int((P > 1).sum()),
+                      (gQ.cpu() - cQ).abs().max().item(), tt))
+        if t is None:
+            t, err = tt, (Q.cpu() - cQ).abs().max().item()
+        del P, Q, gP, gQ
     rows.append({"name": "bin_overlap", "route": "cuda",
                  "source": "src/repro_torch/csrc/bin_overlap.cu",
                  "replaces": "src/repro/kernels/bin_overlap/kernel.py:39",
-                 "launches": launches["bin_overlap"],
-                 "max_abs_err": (Q.cpu() - cQ).abs().max().item(),
-                 "ms": graph_ms(lambda: bin_overlap(
-                     c_of, bins, norm, n_clusters=N, v=nv)),
-                 "plain_ms": cuda_ms(lambda: bin_overlap_ref(
-                     c_of, bins, norm, n_clusters=N, v=nv), 10),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "shapes": [(B, k), tuple(bins.shape), f"N {N} v {nv}",
-                            f"P > 1 in {int((P > 1).sum())} slots"],
-                 "library_max_abs_err": "plain on the card (atomics) vs "
-                 f"CPU: Q {(gQ.cpu() - cQ).abs().max().item():.3g}"})
+                 "launches": launches["bin_overlap"], "max_abs_err": err,
+                 **{k: v for k, v in t.items() if k != "wrapper_ms"},
+                 "shapes": [f"{key} c_of {bk} bins {bs} N {N_} v {v_}: ms "
+                            f"{tt['ms']:.4f} wrapper {tt['wrapper_ms']:.4f} "
+                            f"plain {tt['plain_ms']:.4f} bound "
+                            f"{tt['bound_ms']:.4f}; P > 1 in {p1} slots; "
+                            f"plain on the card (atomics) vs CPU: Q {e:.3g}"
+                            for key, bk, bs, N_, v_, p1, e, tt in notes]})
     # embedding_bag: the recsys path's four bags, each bitwise the plain
     # version; the row's times are the guide's, the per-query bag over
     # every candidate slot. Bytes: the DISTINCT table rows read (the
-    # heavy-tailed ids hit in L2), the indices and the output. `ms` is
-    # the launch alone; `wrapper_ms` adds the wrapper's index-range check
-    # and its host sync.
+    # heavy-tailed ids hit in L2), the indices and the output; the
+    # sector floor counts the table reads as the distinct 32-byte sectors
+    # those rows span. `ms` is the launch alone; `wrapper_ms` the public
+    # op, with its stream sync and error-word read.
     notes, t = [], None
     for key in ("guide", "user_tower", "serve_wide", "candidate_tower"):
         table, idx = eb["bags"][key]
@@ -1088,8 +1132,8 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
         B, hot = idx.shape
         d = table.shape[1]
         rows_read = torch.unique(idx).numel()
-        b_ms, b_by = bound(4 * rows_read * d + 4 * idx.numel() + 4 * B * d,
-                           B * hot * d)
+        io = 4 * idx.numel() + 4 * B * d
+        b_ms, b_by = bound(4 * rows_read * d + io, B * hot * d)
         lib = torch.nn.functional.embedding_bag(idx, table, mode="sum")
         out = torch.empty_like(ref)
         tt = {"ms": graph_ms(
@@ -1100,6 +1144,8 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                   lambda: torch.nn.functional.embedding_bag(
                       idx, table, mode="sum")),
               "bound_ms": b_ms, "bound_by": b_by,
+              "sector_floor_ms": (32 * table_sectors(table, idx) + io)
+              / HBM_BYTES_PER_S * 1e3,
               "library_max_abs_err": (lib - ref).abs().max().item()}
         notes.append((key, (B, hot, d), rows_read, tt))
         if t is None:
@@ -1108,12 +1154,14 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
                  "source": "src/repro_torch/csrc/embedding_bag.cu",
                  "replaces": "src/repro/kernels/embedding_bag/kernel.py:28",
                  "launches": launches["embedding_bag"], "max_abs_err": err,
-                 **{k: v for k, v in t.items() if k != "wrapper_ms"},
+                 **{k: v for k, v in t.items()
+                    if k not in ("wrapper_ms", "sector_floor_ms")},
                  "shapes": [f"{key} (B, hot, d) {shape} {n} rows: ms "
                             f"{tt['ms']:.4f} wrapper {tt['wrapper_ms']:.4f} "
                             f"plain {tt['plain_ms']:.4f} library "
                             f"{tt['library_ms']:.4f} bound "
-                            f"{tt['bound_ms']:.4f}"
+                            f"{tt['bound_ms']:.4f} sector floor "
+                            f"{tt['sector_floor_ms']:.4f}"
                             for key, shape, n, tt in notes]})
     for r in rows:
         print(f"  {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "

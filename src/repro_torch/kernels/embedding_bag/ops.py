@@ -1,7 +1,11 @@
 """Public embedding-bag op: out[b] = sum over h of table[idx[b, h]]. CPU
 tensors take the plain version (ref.py); CUDA tensors launch the kernel
 of csrc/embedding_bag.cu after the checks below, or raise: a failed
-build or launch is an error, never a switch to ref."""
+build or launch is an error, never a switch to ref. An index outside
+[0, V) raises IndexError on either device before the op returns: on
+the CPU by a check before the lookup (torch indexing would wrap -1
+round), on the card from the kernel's error word once the stream has
+finished (no extra pass over the indices)."""
 
 import torch
 
@@ -11,8 +15,9 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 
 def _check_range(idx, V):
-    """Every index in [0, V): the kernel reads table rows unchecked, and a
-    wrong field offset in a fused table would read another field's rows."""
+    """Every index in [0, V) on the CPU: torch indexing wraps -1 round to
+    the last row, and a wrong field offset in a fused table would read
+    another field's rows."""
     if idx.numel():
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()  # one host sync
         if lo < 0 or hi >= V:
@@ -27,8 +32,8 @@ def embedding_bag(table, idx):
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"table must be (V, d) and idx (B, hot), got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
-    _check_range(idx, table.shape[0])
     if not on_cuda(table, idx):
+        _check_range(idx, table.shape[0])
         return embedding_bag_ref(table, idx)
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"table must be float32 or bfloat16, got "
@@ -39,7 +44,15 @@ def embedding_bag(table, idx):
     out = torch.empty((B, d), dtype=table.dtype, device=table.device)
     if B == 0 or d == 0:
         return out
+    if table.shape[0] == 0 and idx.shape[1]:
+        raise IndexError("embedding_bag: every index is outside the "
+                         "table's [0, 0)")
     with torch.cuda.device(table.device):
         kernel.embedding_bag_cuda(table, idx, out)
-    record_launch("embedding_bag")
+        record_launch("embedding_bag")
+        torch.cuda.current_stream(table.device).synchronize()
+        bad = kernel.take_error(table.device)
+    if bad is not None:
+        raise IndexError(f"embedding_bag: index {bad} is outside the "
+                         f"table's [0, {table.shape[0]})")
     return out

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's topk, adc_tables, adc_score_blocks and lstm_sequence
-kernels against an older version of their sources, on one NVIDIA GPU.
+"""Time the port's topk, adc_tables, adc_score_blocks, lstm_sequence,
+bin_overlap and embedding_bag kernels against an older version of their
+sources, on one NVIDIA GPU.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/old
-    python3 tools/compare_kernels.py --old build/old [--profile]
+    python3 tools/compare_kernels.py --old build/old [--profile] \
+        [--kernels bin_overlap,embedding_bag]
 
-Builds `<old>/src/repro_torch/csrc/{topk,adc,lstm}.cu` with nvcc (the
-port's flags) into build/compare/, next to this checkout's kernels (built
-as the port builds them), and times both on inputs shaped like the main
-path's, made on the card from a seed:
+Builds `<old>/src/repro_torch/csrc/<name>.cu` for the kernels asked for
+(all by default) with nvcc (the port's flags) into build/compare/, next
+to this checkout's kernels (built as the port builds them), and times
+both on inputs shaped like the main path's, made on the card from a
+seed:
 
   adc_tables: q (256, 768), codebooks (96, 256, 8) (PQ nsub 96, dsub 8);
   adc_score_blocks: the LUT (256, 96, 256) over the v2 batch's shape, 5173
@@ -24,7 +27,18 @@ path's, made on the card from a seed:
   nonzeros each, k 1000; the sparse rows (same view, 16,000 nonzeros),
   k 1000; Stage I (256, 8192) randn, k 32; the Stage-II budget (256, 32)
   with -inf, k 32; the recsys guide (1, 2^20) with 5 % -inf pads, k 1024;
-  the recsys fuse and brute force (1, 2^20), k 100.
+  the recsys fuse and brute force (1, 2^20), k 100;
+  bin_overlap: Stage I's (256, 1000) results over N 8192 clusters and
+  the recsys query's (1, 1024) over N 4096, v 7 rank bins, clusters
+  drawn from a Zipf-like law (runs of equal slots);
+  embedding_bag: wide-deep full()'s fused tables (22,372,352 padded rows
+  of d 32, and of d 1 for the wide branch) with the recsys path's four
+  bags: the guide (2^20, 2, 1) and the candidate tower (2^20, 2, 32)
+  over uniform ids of the two 10M-row fields, the bulk wide bag
+  (262,144, 40, 1) and the small one (512, 40, 1) over RecsysStream's
+  Zipf ids, the user tower (1, 20, 32); and B from 1 to 32,768 across
+  the warp-per-bag threshold (2048 bags) at hot 40 / d 1, hot 20 / d 32
+  and hot 2 / d 1, uniform ids.
 
 Each shape is timed by CUDA events over `--reps` launches after warm-up,
 in turns old, new, new, old (both by their launch functions with the
@@ -33,8 +47,16 @@ included); adc_score_blocks and lstm_sequence are timed by replaying a
 CUDA graph of `--reps` launches (their launches are shorter than the
 host's), in the same turns. adc_tables, adc_score_blocks and topk are
 checked bitwise against the plain version, lstm_sequence within atol
-1e-5. `torch.topk` / `torch.einsum` / `nn.LSTM` are timed beside them,
-and the bound (bytes over 3.35 TB/s, the H100 SXM's HBM rate).
+1e-5. bin_overlap and embedding_bag are timed by CUDA-graph replay in
+the same turns and held bitwise to their plain versions (bin_overlap's
+on the CPU); `new_ms` is the public op's eager time with CUDA events
+(embedding_bag's includes its stream sync and error-word read, and
+`old_wrapper_ms` the old wrapper's aminmax range check and host sync
+before its launch). `torch.topk` / `torch.einsum` / `nn.LSTM` /
+`F.embedding_bag` are timed beside them, and the bound (bytes over 3.35
+TB/s, the H100 SXM's HBM rate; embedding_bag adds the sector floor, its
+table reads counted as the distinct 32-byte sectors the ids touch, and
+bin_overlap the write floor, PyTorch's fill of its two outputs).
 `--profile` adds each kernel's device time by torch.profiler, the old
 kernel's and the new one's (for topk phase A and phase B). Prints one
 line per shape, the nvidia-smi line and one JSON object last; exits
@@ -53,6 +75,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import table_sectors  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -323,6 +348,189 @@ def compare_lstm(lib, g, args):
     return rows, bad
 
 
+def overlap_launcher(lib):
+    lib.bin_overlap_launch.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _I,
+                                       _I, _P]
+    lib.bin_overlap_launch.restype = _I
+
+    def run(c_of, bins, scores, P, Q, N, v):
+        B, k = c_of.shape
+        rc = lib.bin_overlap_launch(
+            c_of.data_ptr(), bins.data_ptr(), 0 if bins.dim() == 1 else k,
+            scores.data_ptr(), P.data_ptr(), Q.data_ptr(), B, k, N, v,
+            stream())
+        assert rc == 0, rc
+    return run
+
+
+def compare_bin_overlap(lib, g, args):
+    """bin_overlap old against new on Stage I's (256, 1000) at N 8192 and
+    the recsys query's (1, 1024) at N 4096, v 7."""
+    from repro_torch.kernels.bin_overlap import bin_overlap, bin_overlap_ref
+    from repro_torch.kernels.bin_overlap import kernel as bo_kernel
+
+    run_old = overlap_launcher(lib)
+    v, rows, bad = 7, {}, []
+    edges = torch.tensor([10, 25, 50, 100, 200, 500, 1000], device="cuda")
+    for name, (B, k, N) in (("stage1", (256, 1000, 8192)),
+                            ("recsys", (1, 1024, 4096))):
+        # cluster ids from a heavy-tailed law: some clusters hold many of
+        # a query's results, as the sparse top-k's do
+        u = torch.rand(B, k, device="cuda", generator=g)
+        c_of = ((u ** 3) * N).int().clamp(max=N - 1).contiguous()
+        bins = torch.bucketize(torch.arange(k, device="cuda"), edges,
+                               right=True).int().clamp(max=v - 1)
+        scores = torch.rand(B, k, device="cuda", generator=g)
+        rP, rQ = bin_overlap_ref(c_of.cpu(), bins.cpu(), scores.cpu(),
+                                 n_clusters=N, v=v)
+        P, Q = torch.empty(B, N, v, device="cuda"), torch.empty(
+            B, N, v, device="cuda")
+        oP, oQ = torch.empty_like(P), torch.empty_like(Q)
+        run_old(c_of, bins, scores, oP, oQ, N, v)
+        nP, nQ = bin_overlap(c_of, bins, scores, n_clusters=N, v=v)
+        torch.cuda.synchronize()
+        same = [torch.equal(a.cpu(), rP) and torch.equal(
+                    b.cpu().view(torch.int32), rQ.view(torch.int32))
+                for a, b in ((nP, nQ), (oP, oQ))]
+        if not all(same):
+            bad.append(f"bin_overlap {name}")
+        reps = args.reps if B > 1 else args.reps * 5
+        old_ms, new_ms = turns(
+            lambda: run_old(c_of, bins, scores, oP, oQ, N, v),
+            lambda: bo_kernel.bin_overlap_cuda(c_of, bins, scores, P, Q, N,
+                                               v),
+            lambda fn: graph_ms(fn, reps))
+        nbytes = 8 * B * N * v + 8 * B * k + 4 * bins.numel()
+        row = {"shape": {"c_of": [B, k], "N": N, "v": v},
+               "old_ms": old_ms, "new_launch_ms": new_ms,
+               "new_graph_ms": graph_ms(lambda: bin_overlap(
+                   c_of, bins, scores, n_clusters=N, v=v), reps),
+               "new_ms": cuda_ms(lambda: bin_overlap(
+                   c_of, bins, scores, n_clusters=N, v=v), reps),
+               "plain_ms": cuda_ms(lambda: bin_overlap_ref(
+                   c_of, bins, scores, n_clusters=N, v=v), 5),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               # what the writes alone take: one fill of P and one of Q
+               "write_floor_ms": graph_ms(lambda: (P.fill_(0.0),
+                                                   Q.fill_(0.0)), reps),
+               "bitwise_new": same[0], "bitwise_old": same[1]}
+        if args.profile:
+            row["device_ms"] = kernel_ms(
+                lambda: bo_kernel.bin_overlap_cuda(c_of, bins, scores, P, Q,
+                                                   N, v), "overlap")
+            row["old_device_ms"] = kernel_ms(
+                lambda: run_old(c_of, bins, scores, oP, oQ, N, v), "overlap")
+        rows[name] = row
+        print(f"bin_overlap {name}: {row}", flush=True)
+    return rows, bad
+
+
+def old_bag_launcher(lib):
+    """The older embedding_bag.cu's launch: no range check, no error word."""
+    lib.embedding_bag_launch.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _P]
+    lib.embedding_bag_launch.restype = _I
+
+    def run(table, idx, out):
+        B, hot = idx.shape
+        rc = lib.embedding_bag_launch(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, hot,
+            table.shape[1], 0, stream())
+        assert rc == 0, rc
+    return run
+
+
+def bag_inputs(g):
+    """wide-deep full()'s fused tables (random) and the recsys path's four
+    bags over them: {name: (table, idx)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import RecsysStream
+    from repro_torch.models.recsys import _padded_rows
+
+    cfg = get_config("wide-deep", "full")
+    rows = [_padded_rows(r) for r in cfg.table_sizes]
+    offsets = torch.tensor([0] + rows[:-1], device="cuda").cumsum(0).int()
+    deep = torch.randn(sum(rows), cfg.embed_dim, device="cuda", generator=g)
+    wide = torch.randn(sum(rows), 1, device="cuda", generator=g)
+    n = 1 << 20
+    cand = torch.stack([torch.randint(0, cfg.table_sizes[i], (n,),
+                                      device="cuda", generator=g)
+                        for i in range(2)], 1).int() + offsets[:2]
+    stream = RecsysStream(cfg, seed=1)
+    n_user = len(cfg.table_sizes) // 2
+    ids = {B: torch.from_numpy(stream.batch(B)["sparse"]).cuda() + offsets
+           for B in (512, 262144)}
+    return {"guide": (wide, cand.contiguous()),
+            "user_tower": (deep, ids[512][:1, :n_user].contiguous()),
+            "serve_wide": (wide, ids[262144].contiguous()),
+            "serve_wide_512": (wide, ids[512].contiguous()),
+            "candidate_tower": (deep, cand.contiguous())}
+
+
+def compare_embedding_bag(lib, g, args):
+    """embedding_bag old against new on the recsys path's bags."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.embedding_bag.ops import _check_range
+
+    run_old = old_bag_launcher(lib)
+    rows, bad = {}, []
+    inputs = bag_inputs(g)
+    # B across the warp-per-bag threshold (2048 bags), uniform ids over
+    # the same tables: hot 40 at d 1, hot 20 at d 32, hot 2 at d 1
+    wide, deep = inputs["guide"][0], inputs["user_tower"][0]
+    for hot, table in ((40, wide), (20, deep), (2, wide)):
+        for B in (1, 512, 2048, 2049, 8192, 32768):
+            inputs[f"sweep_hot{hot}_d{table.shape[1]}_B{B}"] = (
+                table, torch.randint(0, table.shape[0], (B, hot),
+                                     device="cuda", generator=g,
+                                     dtype=torch.int32))
+    for name, (table, idx) in inputs.items():
+        B, hot = idx.shape
+        d = table.shape[1]
+        ref = embedding_bag_ref(table, idx)
+        out_old, out_new = torch.empty_like(ref), torch.empty_like(ref)
+        run_old(table, idx, out_old)
+        new = embedding_bag(table, idx)
+        torch.cuda.synchronize()
+        same = [torch.equal(t.view(torch.int32), ref.view(torch.int32))
+                for t in (new, out_old)]
+        if not all(same):
+            bad.append(f"embedding_bag {name}")
+        reps = args.reps if B > 512 else args.reps * 5
+
+        def old_wrapper():
+            _check_range(idx, table.shape[0])
+            run_old(table, idx, out_old)
+        old_ms, new_ms = turns(
+            lambda: run_old(table, idx, out_old),
+            lambda: eb_kernel.embedding_bag_cuda(table, idx, out_new),
+            lambda fn: graph_ms(fn, reps))
+        n_rows = torch.unique(idx).numel()
+        io = 4 * idx.numel() + 4 * B * d
+        row = {"shape": [B, hot, d], "rows_read": n_rows,
+               "old_ms": old_ms, "new_launch_ms": new_ms,
+               "old_wrapper_ms": cuda_ms(old_wrapper, reps),
+               "new_ms": cuda_ms(lambda: embedding_bag(table, idx), reps),
+               "library_ms": graph_ms(lambda: torch.nn.functional.
+                                      embedding_bag(idx, table, mode="sum"),
+                                      reps),
+               "bound_ms": (4 * n_rows * d + io) / HBM_BYTES_PER_S * 1e3,
+               "sector_floor_ms": (32 * table_sectors(table, idx) + io)
+               / HBM_BYTES_PER_S * 1e3,
+               "bitwise_new": same[0], "bitwise_old": same[1]}
+        if args.profile:
+            row["device_ms"] = kernel_ms(
+                lambda: eb_kernel.embedding_bag_cuda(table, idx, out_new),
+                "bag")
+            row["old_device_ms"] = kernel_ms(
+                lambda: run_old(table, idx, out_old), "bag")
+        rows[name] = row
+        print(f"embedding_bag {name}: {row}", flush=True)
+        del ref, out_old, out_new, new
+    return rows, bad
+
+
 def kernel_ms(fn, match, reps=10):
     """{kernel name: mean device ms per call} by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -364,44 +572,15 @@ def bitwise(a, b):
             and torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)))
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--old", required=True,
-                    help="root of an older checkout (its src/repro_torch/csrc)")
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--profile", action="store_true",
-                    help="device time of each kernel by torch.profiler")
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "compare",
-                                                  "compare_kernels.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("compare_kernels: no CUDA device", file=sys.stderr)
-        return 2
-    from repro_torch.kernels import build as kbuild
+def compare_adc_tables(lib, g, args):
+    """adc_tables old against new on q (256, 768), codebooks (96, 256, 8)."""
     from repro_torch.kernels.adc import adc_tables, adc_tables_ref
     from repro_torch.kernels.adc import kernel as adc_kernel
-    from repro_torch.kernels.topk import kernel as tk
-    from repro_torch.kernels.topk import topk, topk_ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    old_csrc = os.path.join(os.path.abspath(args.old), "src", "repro_torch",
-                            "csrc")
-    jobs = {"old_topk": (os.path.join(old_csrc, "topk.cu"), []),
-            "old_adc": (os.path.join(old_csrc, "adc.cu"), []),
-            "old_lstm": (os.path.join(old_csrc, "lstm.cu"), [])}
-    libs = build(jobs)
-    kbuild.build_all(("adc", "lstm", "topk"))
-    result = {"device": smi, "adc_tables": {}, "topk": {}}
-    g = torch.Generator(device="cuda").manual_seed(0)
-
-    # adc_tables
     q = torch.randn(256, 768, device="cuda", generator=g)
     books = torch.randn(96, 256, 8, device="cuda", generator=g)
     ref = adc_tables_ref(q, books)
-    old_run = adc_launcher(libs["old_adc"])
+    old_run = adc_launcher(lib)
     out_old = torch.empty_like(ref)
     old_run(q, books, out_old)
     new = adc_tables(q, books)
@@ -428,19 +607,18 @@ def main():
             lambda: adc_kernel.adc_tables_cuda(q, books, out_new), "adc")
         row["old_device_ms"] = kernel_ms(
             lambda: old_run(q, books, out_old), "adc")
-    result["adc_tables"] = row
     print(f"adc_tables (256, 768) x (96, 256, 8): {row}", flush=True)
-    if not ok:
-        raise AssertionError("adc_tables is not bitwise the plain version")
+    return row, [] if ok else ["adc_tables"]
 
-    result["adc_score_blocks"], bad = compare_adc_score(libs["old_adc"], g,
-                                                        args)
-    result["lstm_sequence"], bad_l = compare_lstm(libs["old_lstm"], g, args)
-    bad += bad_l
 
-    # topk
+def compare_topk(lib, g, args):
+    """topk old against new on topk_inputs' rows."""
+    from repro_torch.kernels.topk import kernel as tk
+    from repro_torch.kernels.topk import topk, topk_ref
+
+    rows, bad = {}, []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    prepare_old = old_topk(libs["old_topk"], sms)
+    prepare_old = old_topk(lib, sms)
     for name, (x, k) in topk_inputs(g).items():
         B, D = x.shape
         vals = torch.empty(B, k, device="cuda")
@@ -476,8 +654,56 @@ def main():
             row["device_ms"] = kernel_ms(lambda: topk(x, k), "topk")
             row["old_device_ms"] = kernel_ms(lambda: old(vals, idx),
                                              "topk")
-        result["topk"][name] = row
+        rows[name] = row
         print(f"topk {name}: {row}", flush=True)
+    return rows, bad
+
+
+# kernel -> the csrc source that holds it, and its comparison
+KERNELS = {"adc_tables": ("adc", compare_adc_tables),
+           "adc_score_blocks": ("adc", compare_adc_score),
+           "lstm_sequence": ("lstm", compare_lstm),
+           "topk": ("topk", compare_topk),
+           "bin_overlap": ("bin_overlap", compare_bin_overlap),
+           "embedding_bag": ("embedding_bag", compare_embedding_bag)}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", required=True,
+                    help="root of an older checkout (its src/repro_torch/csrc)")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--profile", action="store_true",
+                    help="device time of each kernel by torch.profiler")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ",".join(KERNELS))
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "compare",
+                                                  "compare_kernels.json"))
+    args = ap.parse_args()
+    wanted = args.kernels.split(",")
+    if not set(wanted) <= set(KERNELS):
+        ap.error(f"--kernels: unknown {sorted(set(wanted) - set(KERNELS))}")
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build as kbuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    old_csrc = os.path.join(os.path.abspath(args.old), "src", "repro_torch",
+                            "csrc")
+    sources = sorted({KERNELS[k][0] for k in wanted})
+    libs = build({f"old_{src}": (os.path.join(old_csrc, f"{src}.cu"), [])
+                  for src in sources})
+    kbuild.build_all(sources)
+    result, bad = {"device": smi}, []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name in wanted:
+        src, compare = KERNELS[name]
+        result[name], b = compare(libs[f"old_{src}"], g, args)
+        bad += b
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
