@@ -14,7 +14,8 @@ Phases, each printed with its seconds:
      seed builds one state;
   4. two index directories written by the port's `write_index`: v2 (PQ
      code shards, 8 shards) and v1 (float32 blocks at the full widths,
-     8 shards, 6.4 GB);
+     8 shards, 6.4 GB, with the PQ under pq/), and one DiskClusterStore
+     file of the same float32 blocks (`DiskClusterStore.pack`, 6.4 GB);
   5. device stores: `RetrievalEngine(cfg, index)` with no store serves
      the 1024 queries in batches of 256 from an InMemoryStore (the
      index's float embeddings and their 6.4 GB (N, cap, dim) block
@@ -22,7 +23,12 @@ Phases, each printed with its seconds:
      PQ and its (N, cap, nsub) code table, the ADC kernels), each with
      one profiled batch and the card-vs-CPU parity on 16 queries; the
      PQStore engine's last batch gives the topk and bin_overlap kernels
-     their main-path inputs;
+     their main-path inputs; then one batch through `clusd.retrieve`
+     with each of the "rnn" and "mlp" selectors (seeded params), card
+     against CPU; then DiskStore serving: `RetrievalEngine(cfg, index,
+     store=DiskStore(...))` answers the 1024 queries from the block file
+     through the block cache and the "dot" tail (cluster_score), with one
+     profiled batch and card-vs-CPU parity on 16 queries;
   6. v2 serving: `IndexReader.open(v2, verify="size").engine()` answers
      the 1024 queries, then torch.profiler over one more steady batch;
   7. v1 serving: the same 1024 queries through the v1 directory — the
@@ -31,7 +37,10 @@ Phases, each printed with its seconds:
   8. reloads: `reload_index()` on the v1 engine while a second thread
      keeps serving (0 failed batches, reloads 1, cache cleared, I/O
      counters kept, ids equal to a fresh engine's), then
-     `reload_selector()` (the cache is kept);
+     `reload_selector()` (the cache is kept); then the v1 directory with
+     its quantizer: `RetrievalEngine(*IndexReader.open(v1).load_index())`
+     serves the 1024 queries from the device PQStore (the ADC kernels),
+     with card-vs-CPU parity on 16;
   9. recsys: wide_deep full (configs/wide_deep.py `full()`: 40 fields,
      embed_dim 32, mlp 1024-512-256): its fused tables (22,372,352 padded
      rows, 2.86 GB, and the 89.5 MB wide table) filled on the card from a
@@ -51,13 +60,16 @@ Phases, each printed with its seconds:
      nn.LSTM on the v2 batch's features and a recsys query's,
      bin_overlap on the Stage-I batch's results and a recsys query's,
      embedding_bag on the four recsys bags with its sector floor);
- 11. parity: the same 16 queries served on the card and on the CPU
+ 11. embedding_bag's per-call error word: two threads on their own
+     streams, one with a bad index, 200 bags each (only that one raises,
+     the other's bags are bitwise), and the word's zero fill timed;
+ 12. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each directory must agree.
 
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk and bin_overlap on all five, embedding_bag on recsys), and the
-kernel table sums the five paths. Prints the kernel table as one JSON
+(topk and bin_overlap on all seven, embedding_bag on recsys), and the
+kernel table sums the seven paths. Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
@@ -256,7 +268,10 @@ def build_state(cfg, dev, n_queries):
 
 
 def write_dirs(cfg, index, pq, corpus, tmp):
-    """The v2 and v1 (float32) index directories, by the port's writer."""
+    """The v2 and v1 (float32 blocks, and the PQ under pq/) index
+    directories, by the port's writer, and the DiskClusterStore file of
+    the same blocks. Returns ({"v2", "v1"}: path, the block store)."""
+    from repro_torch.core.disk import DiskClusterStore
     from repro_torch.index import write_index
 
     out = {}
@@ -264,14 +279,23 @@ def write_dirs(cfg, index, pq, corpus, tmp):
                      ("v1", dict(format_version=1, block_dtype="float32"))):
         t0 = time.perf_counter()
         out[name] = os.path.join(tmp, name)
+        index.quantizer = pq if name == "v1" else None   # v1 writes pq/
         man = write_index(out[name], cfg, index, corpus.embeddings,
                           n_shards=N_SHARDS, **kw)
+        index.quantizer = None
         shards = sum(man["files"][s["file"]]["bytes"]
                      for s in man["block_shards"])
         print(f"  {name}: {man['total_bytes']} bytes ({shards} in "
-              f"{len(man['block_shards'])} block shards), "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return out
+              f"{len(man['block_shards'])} block shards; pq/ "
+              f"{man['pq'] is not None}), {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    blocks = DiskClusterStore.pack(os.path.join(tmp, "blocks.bin"),
+                                   corpus.embeddings, index.cluster_docs)
+    print(f"  DiskClusterStore.pack: {os.path.getsize(blocks.path)} bytes "
+          f"({blocks.n_clusters} x {blocks.cap} x {blocks.dim} float32) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return out, blocks
 
 
 def check_results(cfg, ids, scores, n):
@@ -359,6 +383,172 @@ def serve_device(name, cfg, index, qs, n, dev):
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB since the "
               f"engine was made")
     return launches, eng
+
+
+def serve_disk(cfg, index, blocks, qs, n, dev):
+    """serve_engine over RetrievalEngine(cfg, index, store=DiskStore(...)):
+    the paper's on-disk case, one DiskClusterStore file read through the
+    engine's block cache (the v1 phase's capacity) and the "dot" tail.
+    Returns (launches, engine)."""
+    from repro_torch.engine import DiskStore, RetrievalEngine
+
+    eng = RetrievalEngine(cfg, index, store=DiskStore(blocks,
+                                                      index.cluster_docs),
+                          max_batch=MAX_BATCH, trace_sample_rate=1.0,
+                          device=dev)
+    launches = serve_engine("disk", eng, qs, n, dev)
+    st = eng.stats()
+    print(f"  DiskStore after the {n} queries and the profiled batch: "
+          f"batch p50 {st['p50_ms']} ms p99 {st['p99_ms']} ms; "
+          f"io.n_ops {st['io']['n_ops']} io.bytes {st['io']['bytes']}; hit "
+          f"rate {st['cache']['hit_rate']}; launches " + ", ".join(
+              f"{k} {launches[k]}" for k in PATH_KERNELS["disk"]))
+    return launches, eng
+
+
+def serve_v1_pq(path, qs, n, dev):
+    """serve_engine over RetrievalEngine(*IndexReader.open(v1).load_index()):
+    the v1 directory's quantizer (pq/) on the card, served from the device
+    PQStore by the ADC kernels. Returns (launches, engine)."""
+    from repro_torch.engine import RetrievalEngine
+    from repro_torch.index import IndexReader
+
+    t0 = time.perf_counter()
+    eng = RetrievalEngine(*IndexReader.open(path).load_index(device=dev),
+                          max_batch=MAX_BATCH, trace_sample_rate=1.0,
+                          device=dev)
+    sync(dev)
+    print(f"  open + load_index (with the quantizer) + engine: "
+          f"{time.perf_counter() - t0:.2f} s; store "
+          f"{type(eng.store).__name__}, code table "
+          f"{tuple(eng.store.code_blocks.shape)}")
+    return serve_engine("v1_pq", eng, qs, n, dev), eng
+
+
+def selector_batches(cfg, index, qs, dev):
+    """One batch of MAX_BATCH queries through clusd.retrieve with each of
+    the "rnn" and "mlp" selectors (params from a seeded torch.Generator)
+    over the index's PQStore on the card, against the first
+    PARITY_QUERIES of it on the CPU. theta is the card's median
+    probability; rows with a probability within 1e-5 of it are left out
+    of the selection and id checks."""
+    from repro_torch.core import clusd as clusd_lib
+    from repro_torch.core import sparse as sparse_lib
+    from repro_torch.core.features import feature_dim
+    from repro_torch.core.lstm import SELECTORS
+
+    cpu_index = index.to("cpu")
+    n = PARITY_QUERIES
+    q3 = queries(qs, 0, MAX_BATCH)
+    for name in ("rnn", "mlp"):
+        mod = SELECTORS[name](feature_dim(cfg), cfg.lstm_hidden,
+                              generator=torch.Generator().manual_seed(SEED))
+        params = {k: p.detach().numpy() for k, p in mod.named_parameters()}
+        out = {}
+        for key, d, idx, m in (("card", dev, index, MAX_BATCH),
+                               ("cpu", "cpu", cpu_index, n)):
+            args = [torch.from_numpy(np.ascontiguousarray(x[:m])).to(d)
+                    for x in q3]
+            with torch.no_grad():
+                if "theta" not in out:
+                    s1 = clusd_lib.select_clusters(
+                        cfg, idx, args[0], *sparse_lib.sparse_retrieve_topk(
+                            idx.sparse_index, args[1], args[2],
+                            cfg.k_sparse),
+                        selector=name, selector_params=params)
+                    out["theta"] = float(s1["probs"].median())
+                t0 = time.perf_counter()
+                ids, scores, diag = clusd_lib.retrieve(
+                    cfg, idx, *args, selector=name, theta=out["theta"],
+                    selector_params=params)
+                sync(d)
+                out[key] = (
+                    ids[:n].cpu().numpy(), scores[:n].cpu().numpy(),
+                    {k: diag[k][:n].cpu().numpy()
+                     for k in ("probs", "sel_ids", "sel_mask")},
+                    time.perf_counter() - t0)
+        g_ids, g_sc, g_d, g_s = out["card"]
+        c_ids, c_sc, c_d, c_s = out["cpu"]
+        p_err = float(np.abs(g_d["probs"] - c_d["probs"]).max())
+        clear = (np.abs(c_d["probs"] - out["theta"]) >= 1e-5).all(axis=1)
+        sel_same = all(
+            np.array_equal(np.sort(g_d["sel_ids"][i][g_d["sel_mask"][i]]),
+                           np.sort(c_d["sel_ids"][i][c_d["sel_mask"][i]]))
+            for i in np.flatnonzero(clear))
+        ok = isolated_ranks(c_sc, PARITY_GAP) & clear[:, None]
+        bad = int((g_ids[ok] != c_ids[ok]).sum())
+        close = np.allclose(g_sc[clear], c_sc[clear], rtol=1e-5, atol=0.0)
+        print(f"  {name} selector: batch {MAX_BATCH} on the card in "
+              f"{g_s:.3f} s, {n} on the CPU in {c_s:.3f} s; theta "
+              f"{out['theta']:.6f}; selected mean "
+              f"{g_d['sel_mask'].sum(1).mean():.2f}; probs max |diff| "
+              f"{p_err:.3g}; rows clear of theta {int(clear.sum())} of {n}; "
+              f"selections equal {sel_same}; id mismatches {bad} over "
+              f"{int(ok.sum())} ranks; scores allclose(rtol 1e-5) {close}")
+        if p_err > 1e-5 or clear.sum() < n // 2 or not sel_same or bad \
+                or not close:
+            raise AssertionError(f"{name} selector: card and CPU disagree")
+
+
+def bag_threads(dev):
+    """embedding_bag's error word is the call's own: two threads, each on
+    its own stream, bag 200 times at once on the card, one with an index
+    outside [0, V); only that thread raises, every time, and the other's
+    outputs are bitwise the plain version's. Then the cost of the word:
+    its zero fill alone, by CUDA-graph replay and eagerly, beside the
+    op's eager time on the same bag."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    V, B, hot = 100_000, 65536, 8
+    table = torch.randn(V, 1, device=dev, generator=g)
+    good = torch.randint(0, V, (B, hot), device=dev, generator=g,
+                         dtype=torch.int32)
+    bad = good.clone()
+    bad[B // 3, hot // 2] = V
+    ref = embedding_bag_ref(table, good)
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    res = {"bad": [], "good": []}
+
+    def run(key, idx):
+        stream = torch.cuda.Stream(dev)
+        start.wait()
+        with torch.cuda.stream(stream):
+            for _ in range(200):
+                try:
+                    out = embedding_bag(table, idx)
+                    res[key].append(torch.equal(out.view(torch.int32),
+                                                ref.view(torch.int32)))
+                except IndexError as e:
+                    res[key].append(str(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(k, i))
+               for k, i in (("bad", bad), ("good", good))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    raised = sum(isinstance(r, str) and f"index {V} is outside" in r
+                 for r in res["bad"])
+    print(f"  two threads x 200 bags ({B}, {hot}, 1) on their own streams in "
+          f"{time.perf_counter() - t0:.2f} s: bad thread raised {raised} of "
+          f"{len(res['bad'])}; good thread bitwise "
+          f"{sum(r is True for r in res['good'])} of {len(res['good'])}")
+    if any(th.is_alive() for th in threads) or raised != 200 \
+            or res["good"] != [True] * 200:
+        raise AssertionError("embedding_bag error words crossed threads")
+    def fill():
+        return torch.zeros(1, dtype=torch.int64, device=dev)
+
+    user = good[:1, :1].contiguous()
+    print(f"  error word fill: graph replay {graph_ms(fill, 100):.5f} ms, "
+          f"eager {cuda_ms(fill, 200):.5f} ms a call; the op on a (1, 1) "
+          f"bag eager {cuda_ms(lambda: embedding_bag(table, user), 200):.5f}"
+          f" ms, on ({B}, {hot}) "
+          f"{cuda_ms(lambda: embedding_bag(table, good), 50):.5f} ms")
 
 
 def tail_inputs(eng, qs, dev):
@@ -1136,8 +1326,9 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
         b_ms, b_by = bound(4 * rows_read * d + io, B * hot * d)
         lib = torch.nn.functional.embedding_bag(idx, table, mode="sum")
         out = torch.empty_like(ref)
+        word = torch.zeros(1, dtype=torch.int64, device=dev)
         tt = {"ms": graph_ms(
-                  lambda: eb_kernel.embedding_bag_cuda(table, idx, out)),
+                  lambda: eb_kernel.embedding_bag_cuda(table, idx, out, word)),
               "wrapper_ms": cuda_ms(lambda: embedding_bag(table, idx), 20),
               "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, idx), 5),
               "library_ms": graph_ms(
@@ -1204,6 +1395,21 @@ def device_engine(cfg, index):
                                      device=d)
 
 
+def disk_engine(cfg, index, blocks):
+    from repro_torch.engine import DiskStore, RetrievalEngine
+    return lambda d: RetrievalEngine(
+        cfg, index.to(d), store=DiskStore(blocks, index.cluster_docs),
+        max_batch=MAX_BATCH, prefetch=False, device=d)
+
+
+def load_index_engine(path):
+    from repro_torch.engine import RetrievalEngine
+    from repro_torch.index import IndexReader
+    return lambda d: RetrievalEngine(
+        *IndexReader.open(path).load_index(device=d), max_batch=MAX_BATCH,
+        device=d)
+
+
 # the kernels each serving path must launch
 PATH_KERNELS = {
     "memory": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
@@ -1212,6 +1418,9 @@ PATH_KERNELS = {
     "v2": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
            "bin_overlap"),
     "v1": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+    "disk": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+    "v1_pq": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
+              "bin_overlap"),
     "recsys": ("embedding_bag", "topk", "bin_overlap", "lstm_sequence"),
 }
 
@@ -1264,8 +1473,9 @@ def main():
             print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f}"
                   f" GB allocated, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        with phase("index directories (write_index v2, v1 float32)"):
-            dirs = write_dirs(cfg, index, pq, corpus, tmp)
+        with phase("index directories (write_index v2, v1 float32 with "
+                   "pq/) and the DiskClusterStore file"):
+            dirs, blocks = write_dirs(cfg, index, pq, corpus, tmp)
         paths = {}
         # device stores: the ADC tail is bitwise the plain version's, so
         # rtol alone for PQStore; dot products are summed in another order
@@ -1288,6 +1498,21 @@ def main():
             eng.close()
             del eng
             parity("pq", device_engine(cfg, index), qs, dev, 0.0)
+        with phase(f"rnn and mlp selectors: one batch of {MAX_BATCH}, card "
+                   f"vs CPU on {PARITY_QUERIES}"):
+            selector_batches(cfg, index, qs, dev)
+            index._stores.clear()
+        # the DiskStore's "dot" tail scores float blocks summed in another
+        # order on the card, so atol 1e-6 as for v1
+        with phase(f"DiskStore serving: {N_QUERIES} queries + 1 profiled "
+                   f"batch + parity on {PARITY_QUERIES}"):
+            paths["disk"], eng = serve_disk(cfg, index, blocks, qs,
+                                            N_QUERIES, dev)
+            eng.close()
+            del eng
+            parity("disk", disk_engine(cfg, index, blocks), qs, dev, 1e-6)
+            os.remove(blocks.path)
+            del blocks
         del index, pq
         with phase(f"v2 serving: {N_QUERIES} queries + 1 profiled batch"):
             paths["v2"], eng_v2 = serve_path("v2", dirs["v2"], qs, N_QUERIES,
@@ -1299,11 +1524,19 @@ def main():
         with phase("reloads on the v1 engine"):
             reload_phase(eng_v1, dirs["v1"], qs, dev)
             eng_v1.close()
+        # the v1 directory's PQ serves by the ADC kernels, bitwise the
+        # plain versions', so rtol alone
+        with phase(f"v1 with its quantizer: {N_QUERIES} queries + 1 "
+                   f"profiled batch + parity on {PARITY_QUERIES}"):
+            paths["v1_pq"], eng = serve_v1_pq(dirs["v1"], qs, N_QUERIES, dev)
+            eng.close()
+            del eng
+            parity("v1_pq", load_index_engine(dirs["v1"]), qs, dev, 0.0)
         with phase(f"recsys: wide_deep {RECSYS_SIZE}"):
             paths["recsys"], eb = recsys_phase(dev)
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
-        print(f"  launches over the five paths: {launches}")
+        print(f"  launches over the {len(paths)} paths: {launches}")
         missing = {p: [k for k in PATH_KERNELS[p] if paths[p][k] <= 0]
                    for p in PATH_KERNELS}
         if any(missing.values()):
@@ -1316,6 +1549,9 @@ def main():
             rows = check_kernels(dev, launches, v2_in, v1_in, tail,
                                  codebooks, eng_v2.index.selector, eb)
             del v1_in, v2_in, tail, eb
+        with phase("embedding_bag: two threads' error words, the word's "
+                   "fill"):
+            bag_threads(dev)
         # v2's ADC scores are bitwise the plain version's, so rtol alone;
         # v1's dot products are summed in another order on the card
         for name, atol in (("v2", 0.0), ("v1", 1e-6)):

@@ -3,7 +3,7 @@
 compute on the same index, selector and quantizer.
 
   index_from_numpy(arrays)       -> repro_torch CluSDIndex
-  selector_from_numpy(params)    -> LSTMSelector
+  selector_from_numpy(params, selector=) -> LSTM/RNN/MLP selector
   pq_from_numpy(codebooks, codes, rotation, nsub) -> PQ
   recsys_params_from_numpy(cfg, params) -> recsys params (fused tables)
 """
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.clusd import CluSDIndex
-from repro_torch.core.lstm import LSTMSelector
+from repro_torch.core.lstm import SELECTORS
 from repro_torch.core.quant import PQ
 from repro_torch.core.sparse import SparseIndex
 from repro_torch.device import resolve_device
@@ -34,12 +34,16 @@ def _tensor(x, dtype, dev):
     return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(dev)
 
 
-def selector_from_numpy(params, *, device=None):
-    """The JAX LSTM param dict {wx (F,4H), wh (H,4H), b (4H,), head_w (H,1),
-    head_b (1,)} -> LSTMSelector with the same weights."""
+def selector_from_numpy(params, *, selector="lstm", device=None):
+    """A JAX selector param dict -> the port's module of that selector
+    with the same weights: "lstm" {wx (F,4H), wh (H,4H), b (4H,), head_w
+    (H,1), head_b (1,)}, "rnn" {wx (F,H), wh (H,H), b (H,), head_w,
+    head_b} or "mlp" {w1, b1, w2, b2, head_w, head_b}. The rnn and lstm
+    dicts share their key names, so `selector` names the kind; the
+    shapes are checked against it."""
     dev = resolve_device(device)
-    wx = np.asarray(params["wx"], np.float32)
-    sel = LSTMSelector(wx.shape[0], np.asarray(params["wh"]).shape[0])
+    cls = SELECTORS[selector]
+    sel = cls(*(int(d) for d in cls.dims(params)))
     with torch.no_grad():
         for name, p in sel.named_parameters():
             src = np.array(params[name], dtype=np.float32)

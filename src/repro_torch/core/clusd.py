@@ -40,7 +40,7 @@ class CluSDIndex:
     neighbor_sims: torch.Tensor  # (N, m) float32
     embeddings: Any              # (D, dim) or None (on disk / quantized)
     sparse_index: SparseIndex
-    selector: Any = None         # LSTMSelector, or None (stage-1 order)
+    selector: Any = None         # core.lstm SELECTORS module, or None
     quantizer: Any = None        # optional PQ (core/quant.py)
     bin_ids: Any = None          # (k_sparse,) rank -> bin id
     # the device stores `retrieve` and `score_selected` built: kind ->
@@ -141,16 +141,22 @@ def full_dense_topk(embeddings, q_dense, k):
 
 
 def _selector_module(selector, selector_params, index, device):
-    """The Stage-II LSTMSelector: one made from `selector_params` (the JAX
-    package's LSTM param dict, as arrays) when given, else the index's.
-    Only the "lstm" selector is ported."""
-    if selector != "lstm":
-        raise NotImplementedError(f"selector {selector!r} is not ported; "
-                                  f"only 'lstm' is")
+    """The Stage-II selector module ("lstm", "rnn" or "mlp"): one made
+    from `selector_params` (the JAX package's param dict of that
+    selector, as arrays) when given, else the index's, which must be of
+    that kind. None when neither is given (the untrained stage-1 order,
+    whatever the name, as in the JAX package); an unknown name raises
+    KeyError, as the JAX `SELECTORS[selector]` lookup does."""
+    from repro_torch.core.lstm import SELECTORS
     if selector_params is None:
-        return index.selector
+        module = index.selector
+        if module is not None and not isinstance(module, SELECTORS[selector]):
+            raise TypeError(f"selector {selector!r} asked for, but the "
+                            f"index's selector is a {type(module).__name__}")
+        return module
     from repro_torch.convert import selector_from_numpy
-    return selector_from_numpy(selector_params, device=device)
+    return selector_from_numpy(selector_params, selector=selector,
+                               device=device)
 
 
 def stage2_select(cfg, index, cand, feats, *, selector="lstm", theta=None,

@@ -31,10 +31,12 @@
 //
 //   Every index is checked against [0, V) where it is read. An index
 //   outside is never dereferenced (row 0 is read in its place): the
-//   kernel writes it into the device's error word, host memory mapped
-//   into the card's address space, which the wrapper reads after the
-//   stream has finished and resets only after an error. So the range
-//   check costs no extra pass and no extra launch. Carried through the
+//   kernel writes it into the call's error word, an 8-byte device word
+//   that the wrapper zeroes on the call's stream before the launch and
+//   reads back once that stream has finished. Each call has its own
+//   word, so calls on other threads or streams never see its error. The
+//   range check costs no extra pass over the indices (one 8-byte fill
+//   per call). Carried through the
 //   one-pass loop it does cost that loop nvcc's 4-way unrolling (the
 //   row loads go out in pairs), which the warp per bag more than makes
 //   up where latency counts. A tiled variant (indices staged in shared
@@ -54,8 +56,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -64,7 +64,6 @@ constexpr int kThreads = 256;
 // tower's 20 positions in one chunk of 4 slices x 5.
 constexpr int kRounds = 5;
 constexpr long long kWarpPerBagMaxBags = 2048;
-constexpr int kMaxDevices = 64;
 
 // The element a lane reads (V) and its fp32 accumulator.
 __device__ __forceinline__ float zero_acc(float) { return 0.0f; }
@@ -214,56 +213,14 @@ int launch_bags(const void* table, const int32_t* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-std::mutex g_err_lock;
-unsigned long long* g_err_host[kMaxDevices];
-unsigned long long* g_err_dev[kMaxDevices];
-
 }  // namespace
 
 extern "C" {
 
-// The error word of `device` (host memory mapped into the card's address
-// space, allocated at first call): *dev_ptr for the kernel. 0 or a CUDA
-// error code.
-int embedding_bag_error_word(int device, void** dev_ptr) {
-  if (device < 0 || device >= kMaxDevices)
-    return (int)cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> guard(g_err_lock);
-  if (g_err_host[device] == nullptr) {
-    unsigned long long* h = nullptr;
-    cudaError_t e = cudaHostAlloc(
-        reinterpret_cast<void**>(&h), sizeof(*h),
-        cudaHostAllocMapped | cudaHostAllocPortable);
-    if (e != cudaSuccess) return (int)e;
-    *h = 0;
-    void* d = nullptr;
-    e = cudaHostGetDevicePointer(&d, h, 0);
-    if (e != cudaSuccess) {
-      cudaFreeHost(h);
-      return (int)e;
-    }
-    g_err_dev[device] = static_cast<unsigned long long*>(d);
-    g_err_host[device] = h;
-  }
-  *dev_ptr = g_err_dev[device];
-  return 0;
-}
-
-// Read and clear `device`'s error word, once the launches that may write
-// it have finished: 0, or (1 << 32) | the bad index as uint32.
-unsigned long long embedding_bag_take_error(int device) {
-  if (device < 0 || device >= kMaxDevices) return 0;
-  std::lock_guard<std::mutex> guard(g_err_lock);
-  volatile unsigned long long* h = g_err_host[device];
-  if (h == nullptr) return 0;
-  const unsigned long long word = *h;
-  if (word != 0) *h = 0;
-  return word;
-}
-
 // table (V, d) with V = rows, out (B, d): float32 (dtype 0) or bfloat16
-// (dtype 1); idx (B, hot) int32; err from embedding_bag_error_word. All
-// contiguous on one device; B >= 0, hot >= 0, d >= 1, rows >= 0.
+// (dtype 1); idx (B, hot) int32; err the call's zeroed 8-byte error word,
+// left 0 or set to (1 << 32) | the bad index as uint32. All contiguous
+// on one device; B >= 0, hot >= 0, d >= 1, rows >= 0.
 int embedding_bag_launch(const void* table, const int32_t* idx, void* out,
                          long long B, int hot, int d, long long rows,
                          int dtype, void* err, void* stream) {

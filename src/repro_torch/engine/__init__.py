@@ -1,5 +1,6 @@
 """Serving: the select/score/fuse pipeline over a device store
-(InMemoryStore, PQStore) or a host store, and the RetrievalEngine
+(InMemoryStore, PQStore) or a host store (DiskStore, the sharded
+stores), and the RetrievalEngine
 front-end (bucketed batching, LRU block cache, async prefetch, ADC
 scoring of raw PQ codes, "dot" scoring of float blocks, hot index and
 selector reloads, explain records)."""
@@ -10,11 +11,13 @@ from repro_torch.engine.pipeline import (build_fused_scorer, dedup_selected,
                                          fetch_unique_code_blocks)
 from repro_torch.engine.server import (RetrievalEngine, ServeStats,
                                        bucket_size, build_explain_records)
-from repro_torch.engine.stores import (ClusterStore, InMemoryStore, PQStore,
+from repro_torch.engine.stores import (ClusterStore, DiskStore,
+                                       InMemoryStore, PQStore,
                                        ShardedDiskStore, ShardedPQStore,
                                        store_for_index)
 
-__all__ = ["BlockCache", "ClusterStore", "InMemoryStore", "PQStore",
+__all__ = ["BlockCache", "ClusterStore", "DiskStore", "InMemoryStore",
+           "PQStore",
            "RetrievalEngine", "ServeStats",
            "ShardedDiskStore", "ShardedPQStore", "bucket_size",
            "build_explain_records", "build_fused_scorer", "dedup_selected",

@@ -267,8 +267,9 @@ class ServeStats:
 
 class RetrievalEngine:
     """Serving layer over a ClusterStore: a device store (InMemoryStore,
-    PQStore), v1 float block shards (ShardedDiskStore, "dot" tail) or v2
-    PQ code shards (ShardedPQStore, ADC tail)."""
+    PQStore), one on-disk block file (DiskStore, "dot" tail), v1 float
+    block shards (ShardedDiskStore, "dot" tail) or v2 PQ code shards
+    (ShardedPQStore, ADC tail)."""
 
     _PF_CHUNK = 8            # blocks per prefetch fetch (lock granularity)
 
@@ -457,7 +458,9 @@ class RetrievalEngine:
             return          # a device store keeps no I/O or decode counters
         old_io, new_io = old_store.stats, new_store.stats
         new_io.add(old_io.n_ops, old_io.bytes, old_io.wall_ms)
-        new_store.decode_ms += old_store.decode_ms
+        if hasattr(old_store, "decode_ms") and hasattr(new_store,
+                                                       "decode_ms"):
+            new_store.decode_ms += old_store.decode_ms   # not DiskStore
 
     def reload_selector(self, reader=None, *, verify="none"):
         """Hot-swap only the Stage-II selector: adopt a newer generation's
@@ -738,7 +741,9 @@ class RetrievalEngine:
             reg.gauge("io.bytes").set(io.bytes)
             reg.gauge("io.wall_ms").set(round(io.wall_ms, 2))
             reg.gauge("io.model_ms").set(round(io.model_ms(), 2))
-            reg.gauge("serve.decode_ms").set(round(self.store.decode_ms, 2))
+            decode_ms = getattr(self.store, "decode_ms", None)
+            if decode_ms is not None:
+                reg.gauge("serve.decode_ms").set(round(decode_ms, 2))
         if self.reader is not None:
             reg.gauge("serve.generation").set(self.reader.generation)
 
@@ -769,7 +774,9 @@ class RetrievalEngine:
                          "wall_ms": round(io.wall_ms, 2),
                          "model_ms": round(io.model_ms(), 2)}
             out["use_adc"] = self.use_adc
-            out["decode_ms"] = round(self.store.decode_ms, 2)
+            decode_ms = getattr(self.store, "decode_ms", None)
+            if decode_ms is not None:      # a DiskStore decodes nothing
+                out["decode_ms"] = round(decode_ms, 2)
             if self.use_adc:
                 out["adc_ms"] = round(self.adc_ms, 2)
                 out["lut_build_ms"] = round(self.lut_build_ms, 2)
@@ -790,4 +797,5 @@ class RetrievalEngine:
             if self.is_host:
                 io = self.store.stats
                 io.n_ops, io.bytes, io.wall_ms = 0, 0, 0.0
-                self.store.decode_ms = 0.0
+                if hasattr(self.store, "decode_ms"):
+                    self.store.decode_ms = 0.0

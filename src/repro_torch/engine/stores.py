@@ -14,11 +14,15 @@ backend (`is_coded`) also answers `fetch_code_blocks(cluster_ids) ->
 exposes `codebooks`/`rotation`/`nsub`, so the pipeline scores codes via
 ADC lookup tables without decoding floats.
 
-Two host stores speak it, both from repro_torch.index.sharded:
-ShardedDiskStore (format-v1 float block shards; `is_coded=False`, with
-`cap`, `dim` and float32 decode of float32, bfloat16 and int8 records)
-and ShardedPQStore (format-v2 PQ code shards). Both mask an updated
-index's tombstoned slots at fetch time.
+Three host stores speak it: DiskStore (one DiskClusterStore file of
+float32 blocks, the paper's on-disk case) and, from
+repro_torch.index.sharded, ShardedDiskStore (format-v1 float block
+shards; `is_coded=False`, with `cap`, `dim` and float32 decode of
+float32, bfloat16 and int8 records) and ShardedPQStore (format-v2 PQ
+code shards). The sharded stores mask an updated index's tombstoned
+slots at fetch time. Each counts its reads in `stats` (IOStats: one op
+per run of adjacent cluster ids) under a lock, so the engine's prefetch
+thread can share it with the serving thread.
 
 Two device stores keep the whole corpus on the device (`is_host=False`):
 InMemoryStore (float embeddings) and PQStore (PQ codes). Each builds its
@@ -30,11 +34,15 @@ the adc_tables + adc_score_blocks kernels, and nothing materialises the
 (B, S, cap, dim) gather. They also keep the JAX stores' `score_docs`.
 """
 
+import threading
 from typing import Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant as quant_lib
+from repro_torch.core.disk import DiskClusterStore, IOStats
+from repro_torch.index.builder import _np
 from repro_torch.index.sharded import (  # noqa: F401
     ShardedDiskStore, ShardedPQStore,
 )
@@ -153,6 +161,60 @@ class PQStore:
         lut = quant_lib.adc_tables(self.pq, q_dense)
         return adc_ops.adc_score_blocks(lut, self.code_blocks,
                                         sel_ids.int().contiguous())
+
+
+class DiskStore:
+    """On-disk cluster blocks (wraps core.disk.DiskClusterStore).
+
+    fetch_blocks takes a 1-D host sequence of cluster ids and reads one
+    block per id (a run of adjacent ids in one op), counting I/O ops and
+    bytes into `stats` under a lock, so a background prefetcher can share
+    the store with the serving thread. Blocks come back as float32 host
+    arrays; the engine scores them on its device (kernel cluster_score
+    on the card)."""
+
+    is_host = True
+    is_coded = False
+
+    def __init__(self, block_store: DiskClusterStore, cluster_docs,
+                 stats: IOStats = None):
+        self.blocks = block_store
+        self.cluster_docs_np = _np(cluster_docs)
+        self.cluster_docs = torch.from_numpy(np.array(self.cluster_docs_np))
+        self.stats = stats if stats is not None else IOStats()
+        self._lock = threading.Lock()
+
+    @classmethod
+    def create(cls, path, embeddings, cluster_docs, **kw):
+        """Pack `embeddings` into a new block file at `path` and serve it."""
+        return cls(DiskClusterStore.pack(path, embeddings, cluster_docs),
+                   cluster_docs, **kw)
+
+    @property
+    def block_bytes(self):
+        return self.blocks.block_bytes
+
+    @property
+    def cap(self):
+        return self.blocks.cap
+
+    @property
+    def dim(self):
+        return self.blocks.dim
+
+    def fetch_blocks(self, cluster_ids):
+        """-> (vecs (n, cap, dim) float32, docs (n, cap) int32, valid),
+        all numpy."""
+        cluster_ids = np.asarray(cluster_ids, np.int64).reshape(-1)
+        docs = self.cluster_docs_np[cluster_ids]
+        if len(cluster_ids) == 0:
+            return (np.zeros((0, self.cap, self.dim), np.float32), docs,
+                    docs >= 0)
+        local = IOStats()
+        vecs = self.blocks.fetch_clusters(cluster_ids, local).numpy()
+        with self._lock:
+            self.stats.add(local.n_ops, local.bytes, local.wall_ms)
+        return vecs, docs, docs >= 0
 
 
 def store_for_index(index):

@@ -18,10 +18,14 @@ cluster blocks.
     ids, scores = engine.retrieve(q_dense, q_terms, q_weights)
     engine.reload_index()                     # adopt a newer generation
 
-The quantizer of a v1 index (pq/ codes) is not loaded: the port serves v1
-from its float blocks and v2 straight from its code shards (whose host
-decode, `fetch_blocks`, gives float32 whatever the manifest's
-block_dtype).
+`load_index()` also loads the index's quantizer, by default for v1 (its
+pq/ codebooks and per-doc codes) and not for v2, as the JAX reader does:
+`RetrievalEngine(*reader.load_index())` then serves a v1 directory from
+the device PQStore (kernels adc_tables and adc_score_blocks), while
+`engine()` and `open_store()` serve both formats through the sharded
+stores (v2's host decode, `fetch_blocks`, gives float32 whatever the
+manifest's block_dtype). `quantizer()` rebuilds a v2 index's per-doc
+codes from its code shards, skipping tombstoned slots.
 """
 
 import os
@@ -30,7 +34,7 @@ import numpy as np
 
 from repro_torch.checkpoint import leaf_key, read_checkpoint
 from repro_torch.configs import CluSDConfig
-from repro_torch.convert import index_from_numpy
+from repro_torch.convert import index_from_numpy, pq_from_numpy
 from repro_torch.core.disk import IOStats
 from repro_torch.index import format as fmt
 from repro_torch.index.builder import postings_from_csr
@@ -128,6 +132,43 @@ class IndexReader:
             return None
         return np.load(os.path.join(self.index_dir, rel))
 
+    def _doc_codes(self):
+        """(n_docs, nsub) uint8 per-doc codes rebuilt from the v2 code
+        shards (nsub bytes a doc); a tombstoned slot (a replaced doc's
+        stale copy) is skipped."""
+        g = self.geometry
+        codes = np.zeros((g["n_docs"], g["nsub"]), np.uint8)
+        cd = self.masked_cluster_docs()
+        for s in self.manifest["block_shards"]:
+            lo, hi = s["cluster_lo"], s["cluster_hi"]
+            mm = np.memmap(os.path.join(self.index_dir, s["file"]),
+                           dtype=np.uint8, mode="r",
+                           shape=(hi - lo, g["cap"], g["nsub"]))
+            local_cd = cd[lo:hi]
+            mask = local_cd >= 0
+            codes[local_cd[mask]] = mm[mask]
+        return codes
+
+    def _quantizer_arrays(self):
+        """pq_from_numpy's keyword arguments (numpy), or None when the
+        manifest has no PQ. v1 stores its per-doc codes under pq/; v2's
+        are rebuilt from the code shards."""
+        meta = self.manifest["pq"]
+        if meta is None:
+            return None
+        codes = self._doc_codes().astype(np.int32) if self.is_pq \
+            else self._pq_array("codes")
+        return {"codebooks": self._pq_array("codebooks"), "codes": codes,
+                "rotation": self._pq_array("rotation"),
+                "nsub": meta["nsub"]}
+
+    def quantizer(self, device=None):
+        """The index's PQ (repro_torch.core.quant.PQ) on `device` (None:
+        the CUDA card), or None when the manifest has none."""
+        arrays = self._quantizer_arrays()
+        return None if arrays is None else pq_from_numpy(**arrays,
+                                                         device=device)
+
     # -- engine-level objects ----------------------------------------------
 
     def _sparse_arrays(self):
@@ -139,10 +180,17 @@ class IndexReader:
                                  self.array("sparse_postings_wdata"),
                                  self.array("sparse_postings_indptr"))
 
-    def load_index(self, device=None):
+    def load_index(self, load_quantizer=None, device=None):
         """(cfg, CluSDIndex) with embeddings=None, its tensors on `device`
         (None: the CUDA card); blocks stay on disk (serve through
-        `open_store()` / `engine()`)."""
+        `open_store()` / `engine()`).
+
+        load_quantizer: None (default) loads the PQ for v1 (it sits in
+        pq/*.npy) and not for v2, where rebuilding the per-doc codes reads
+        every code shard; True forces it (device-side ADC over a v2
+        index), False skips it."""
+        if load_quantizer is None:
+            load_quantizer = not self.is_pq
         pd, pw = self._sparse_arrays()
         arrays = {name: self.array(name)
                   for name in ("centroids", "doc_cluster", "neighbor_ids",
@@ -150,7 +198,9 @@ class IndexReader:
         arrays.update(cluster_docs=self.masked_cluster_docs(),
                       sparse_postings_docs=pd, sparse_postings_weights=pw,
                       n_docs=self.geometry["n_docs"],
-                      lstm_params=self.lstm_params())
+                      lstm_params=self.lstm_params(),
+                      quantizer=self._quantizer_arrays() if load_quantizer
+                      else None)
         return self.config(), index_from_numpy(arrays, device=device)
 
     def n_block_shards(self):

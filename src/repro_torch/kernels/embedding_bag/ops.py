@@ -4,8 +4,9 @@ of csrc/embedding_bag.cu after the checks below, or raise: a failed
 build or launch is an error, never a switch to ref. An index outside
 [0, V) raises IndexError on either device before the op returns: on
 the CPU by a check before the lookup (torch indexing would wrap -1
-round), on the card from the kernel's error word once the stream has
-finished (no extra pass over the indices)."""
+round), on the card from the call's own error word once its stream
+has finished (no extra pass over the indices; concurrent calls on
+other threads or streams each keep their own word)."""
 
 import torch
 
@@ -48,10 +49,12 @@ def embedding_bag(table, idx):
         raise IndexError("embedding_bag: every index is outside the "
                          "table's [0, 0)")
     with torch.cuda.device(table.device):
-        kernel.embedding_bag_cuda(table, idx, out)
+        # the call's own error word, zeroed on its stream; .item() waits
+        # for that stream, the op's one host sync
+        err = torch.zeros(1, dtype=torch.int64, device=table.device)
+        kernel.embedding_bag_cuda(table, idx, out, err)
         record_launch("embedding_bag")
-        torch.cuda.current_stream(table.device).synchronize()
-        bad = kernel.take_error(table.device)
+        bad = kernel.bad_index(err.item())
     if bad is not None:
         raise IndexError(f"embedding_bag: index {bad} is outside the "
                          f"table's [0, {table.shape[0]})")

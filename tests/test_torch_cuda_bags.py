@@ -16,6 +16,8 @@ float32 in ascending h and rounds once on store, as the plain version
 does.
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -205,8 +207,8 @@ def test_embedding_bag_bad_index_raises_on_the_card(card, bad):
     stand: the last index of a 2^20-bag call, the first or last index
     of a middle bag, in grids of a bag row's lanes (hot 2, 40) and of a
     warp per bag (hot 100 at d 1, hot 3 at d 4); the next good call
-    still succeeds (the error word is cleared after an error). A table
-    with no rows raises without a launch."""
+    still succeeds (each call has its own error word). A table with no
+    rows raises without a launch."""
     g = _gen(5)
     for V, B, hot, d in ((4_000_000, 1 << 20, 2, 1), (5000, 30000, 40, 1),
                          (5000, 3000, 40, 32), (5000, 700, 100, 1),
@@ -224,3 +226,46 @@ def test_embedding_bag_bad_index_raises_on_the_card(card, bad):
     with pytest.raises(IndexError, match="outside the table"):
         embedding_bag(torch.empty(0, 4, device=card),
                       torch.zeros(3, 2, dtype=torch.int32, device=card))
+
+
+def test_embedding_bag_two_threads_keep_their_own_errors(card):
+    """Two threads, each on its own stream, bag 200 times at once on one
+    card; one thread's indices hold V. Only that thread raises, every
+    time, and the other thread's outputs are bitwise the plain version's
+    (each call reads back its own error word, none is shared)."""
+    g = _gen(6)
+    V, B, hot = 100_000, 65536, 8
+    table = torch.randn(V, 1, device=card, generator=g)
+    good = torch.randint(0, V, (B, hot), device=card, generator=g,
+                         dtype=torch.int32)
+    bad = good.clone()
+    bad[B // 3, hot // 2] = V
+    ref = embedding_bag_ref(table, good)
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    outcome = {"bad": [], "good": []}
+
+    def run(key, idx):
+        stream = torch.cuda.Stream(card)
+        start.wait()
+        with torch.cuda.stream(stream):
+            for _ in range(200):
+                try:
+                    out = embedding_bag(table, idx)
+                    outcome[key].append(
+                        torch.equal(out.view(torch.int32),
+                                    ref.view(torch.int32)))
+                except IndexError as e:
+                    outcome[key].append(str(e))
+
+    threads = [threading.Thread(target=run, args=("bad", bad)),
+               threading.Thread(target=run, args=("good", good))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    assert not any(th.is_alive() for th in threads)
+    assert outcome["good"] == [True] * 200
+    assert len(outcome["bad"]) == 200
+    assert all(isinstance(r, str) and f"index {V} is outside" in r
+               for r in outcome["bad"])

@@ -229,10 +229,25 @@ def test_clusd_retrieve_with_theta_and_selector_params_matches_jax(smoke):
     assert_same_results((t[0].numpy(), t[1].numpy()),
                         (np.asarray(j[0]), np.asarray(j[1])))
     _assert_diag_equal(t[2], j[2])
-    with pytest.raises(NotImplementedError, match="rnn"):
+    # "rnn" over the index's LSTM weights: a TypeError in both packages
+    # (JAX's scan meets a carry of the wrong shape); an unknown name is
+    # the SELECTORS lookup's KeyError in both
+    with pytest.raises(TypeError):
+        jcl.retrieve(cfg, index, qs.q_dense, qs.q_terms, qs.q_weights,
+                     selector="rnn")
+    with pytest.raises(TypeError, match="rnn"):
         tcl.retrieve(torch_cfg(cfg), t_index, as_tensor(qs.q_dense),
                      as_tensor(qs.q_terms), as_tensor(qs.q_weights),
                      selector="rnn")
+    for run in (lambda: jcl.retrieve(cfg, index, qs.q_dense, qs.q_terms,
+                                     qs.q_weights, selector="gru"),
+                lambda: tcl.retrieve(torch_cfg(cfg), t_index,
+                                     as_tensor(qs.q_dense),
+                                     as_tensor(qs.q_terms),
+                                     as_tensor(qs.q_weights),
+                                     selector="gru")):
+        with pytest.raises(KeyError, match="gru"):
+            run()
 
 
 def test_clusd_retrieve_builds_its_device_store_once(smoke, monkeypatch):

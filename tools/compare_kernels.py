@@ -239,6 +239,7 @@ def compare_adc_score(lib, g, args):
         sel = sel.reshape(B, S).int().contiguous()
         ref = adc_score_blocks_ref(lut, codes, sel)
         out_old, out_new = torch.empty_like(ref), torch.empty_like(ref)
+        err = torch.zeros(1, dtype=torch.int64, device="cuda")
         run_old(lut, codes, sel, out_old)
         new = adc_score_blocks(lut, codes, sel)
         torch.cuda.synchronize()
@@ -310,6 +311,7 @@ def compare_lstm(lib, g, args):
         x = torch.randn(B, 32, F, device="cuda", generator=g)
         ref = lstm_sequence_ref(x, wx, wh, b)
         out_old, out_new = torch.empty_like(ref), torch.empty_like(ref)
+        err = torch.zeros(1, dtype=torch.int64, device="cuda")
         run_old(x, wx, wh, b, out_old)
         new = lstm_sequence(x, wx, wh, b)
         torch.cuda.synchronize()
@@ -490,6 +492,7 @@ def compare_embedding_bag(lib, g, args):
         d = table.shape[1]
         ref = embedding_bag_ref(table, idx)
         out_old, out_new = torch.empty_like(ref), torch.empty_like(ref)
+        err = torch.zeros(1, dtype=torch.int64, device="cuda")
         run_old(table, idx, out_old)
         new = embedding_bag(table, idx)
         torch.cuda.synchronize()
@@ -504,7 +507,7 @@ def compare_embedding_bag(lib, g, args):
             run_old(table, idx, out_old)
         old_ms, new_ms = turns(
             lambda: run_old(table, idx, out_old),
-            lambda: eb_kernel.embedding_bag_cuda(table, idx, out_new),
+            lambda: eb_kernel.embedding_bag_cuda(table, idx, out_new, err),
             lambda fn: graph_ms(fn, reps))
         n_rows = torch.unique(idx).numel()
         io = 4 * idx.numel() + 4 * B * d
@@ -521,7 +524,7 @@ def compare_embedding_bag(lib, g, args):
                "bitwise_new": same[0], "bitwise_old": same[1]}
         if args.profile:
             row["device_ms"] = kernel_ms(
-                lambda: eb_kernel.embedding_bag_cuda(table, idx, out_new),
+                lambda: eb_kernel.embedding_bag_cuda(table, idx, out_new, err),
                 "bag")
             row["old_device_ms"] = kernel_ms(
                 lambda: run_old(table, idx, out_old), "bag")
