@@ -59,17 +59,38 @@ Phases, each printed with its seconds:
      batch's inputs with its gather floor beside, lstm_sequence and
      nn.LSTM on the v2 batch's features and a recsys query's,
      bin_overlap on the Stage-I batch's results and a recsys query's,
-     embedding_bag on the four recsys bags with its sector floor);
+     embedding_bag on the four recsys bags with its sector floor, topk
+     also on the neighbor graph's (8192, 8192) similarities, k 128);
  11. embedding_bag's per-call error word: two threads on their own
      streams, one with a bad index, 200 bags each (only that one raises,
      the other's bags are bitwise), and the word's zero fill timed;
- 12. parity: the same 16 queries served on the card and on the CPU
-     (plain versions) through each directory must agree.
+ 12. the update paths (the corpus embeddings were staged to a file
+     after the state build):
+     a. `build_index_offline` over an np.memmap of that file in shards of
+        2^17 rows (one shard on the card at a time), its spans and peak
+        device memory gated below the bound derived in `offline_phase`
+        (beside the in-RAM build_index's peak), every doc in the cluster
+        table once; `write_index` v2 from the memmap training its PQ
+        (`train_pq_stream`, nsub 96), one batch of 256 served from it;
+     b. `repro_torch.launch.update_index.main` in process on the card
+        over the v2 directory: 10000 upserts and 5000 deletes (`synth_delta`,
+        seed 0), 1024 queries before and after a hot reload, a compacted
+        copy's parity; the same delta committed on the CPU to a copy must
+        give the same files (upsert codes may differ only at near-ties);
+     c. a re-clustering delta (seed 1, thresholds 0) on the v1 directory
+        committed on the card while a second thread serves two batches,
+        `reload_index()` to generation 1 (ids equal a fresh engine's, no
+        deleted id served, the neighbor graph equal a CPU one), then
+        `compact_index` in place, a full verify and `reload_index()` to
+        generation 2 (ids equal generation 1's);
+ 13. parity: the same 16 queries served on the card and on the CPU
+     (plain versions) through each (updated) directory must agree.
 
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk and bin_overlap on all seven, embedding_bag on recsys), and the
-kernel table sums the seven paths. Prints the kernel table as one JSON
+(topk and bin_overlap on all ten, embedding_bag on recsys), and the
+kernel table sums the ten paths (the seven serving paths, the offline
+build, the two updates). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
@@ -79,6 +100,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -107,6 +129,12 @@ RECSYS_CANDIDATES = 1_000_000      # in N 4096 clusters x cap 256 slots
 RECSYS_CLUSTERS, RECSYS_CAP = 4096, 256
 RECSYS_QUERIES = 64
 RECSYS_PARITY_ROWS, RECSYS_PARITY_QUERIES = 16, 4
+# update phases: the offline build's shard, the deltas' churn (about 1 %
+# of the 2^20 docs), the PQ writer's read chunk
+OFFLINE_SHARD_DOCS = 1 << 17
+UPDATE_UPSERTS, UPDATE_DELETES = 10000, 5000
+PQ_CHUNK_DOCS = 1 << 14
+BUILD_INDEX_PEAK = 0               # the in-RAM build_index's, set on the card
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 
@@ -240,14 +268,20 @@ def build_state(cfg, dev, n_queries):
     qs = synth_queries(SEED + 1, corpus, n_queries)
     print(f"  synthetic corpus + queries: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     index = build_index(cfg, corpus.embeddings, corpus.doc_terms,
                         corpus.doc_weights, generator=g, device=dev)
     sync(dev)
+    global BUILD_INDEX_PEAK
+    BUILD_INDEX_PEAK = torch.cuda.max_memory_allocated() if on_card else 0
     fill = (index.cluster_docs >= 0).sum(1)
     print(f"  index (kmeans, cluster table, neighbor graph, sparse index): "
           f"{time.perf_counter() - t0:.2f} s; cluster fill min "
           f"{fill.min().item()} max {fill.max().item()}; postings "
-          f"{tuple(index.sparse_index.postings_docs.shape)}")
+          f"{tuple(index.sparse_index.postings_docs.shape)}; peak device "
+          f"memory {BUILD_INDEX_PEAK / 1e9:.3f} GB")
     t0 = time.perf_counter()
     nsub = min(NSUB, cfg.dim)
     pq = train_pq(corpus.embeddings, nsub, sample_docs=1 << 16, generator=g,
@@ -281,7 +315,7 @@ def write_dirs(cfg, index, pq, corpus, tmp):
         out[name] = os.path.join(tmp, name)
         index.quantizer = pq if name == "v1" else None   # v1 writes pq/
         man = write_index(out[name], cfg, index, corpus.embeddings,
-                          n_shards=N_SHARDS, **kw)
+                          n_shards=N_SHARDS, extra=corpus_extra(cfg), **kw)
         index.quantizer = None
         shards = sum(man["files"][s["file"]]["bytes"]
                      for s in man["block_shards"])
@@ -296,6 +330,14 @@ def write_dirs(cfg, index, pq, corpus, tmp):
           f"({blocks.n_clusters} x {blocks.cap} x {blocks.dim} float32) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return out, blocks
+
+
+def corpus_extra(cfg):
+    """The synthetic-corpus recipe a directory carries under `extra`, from
+    which the update CLI regenerates queries."""
+    return {"corpus": {"kind": "synthetic", "seed": SEED,
+                       "n_docs": cfg.n_docs, "dim": cfg.dim,
+                       "vocab": cfg.vocab}}
 
 
 def check_results(cfg, ids, scores, n):
@@ -592,6 +634,7 @@ def tail_inputs(eng, qs, dev):
             "pq_adc": pq_adc,
             "sparse": full, "k_sparse": cfg.k_sparse, "c_of": c_of,
             "qc_sim": qc_sim, "n_stage1": cfg.n_candidates,
+            "n_neighbors": min(cfg.n_neighbors, index.n_clusters - 1),
             "bin_ids": index.bin_ids.int().contiguous(), "norm": norm,
             "n_clusters": index.n_clusters, "v": cfg.v_bins}
 
@@ -1038,7 +1081,8 @@ def main_path_inputs(eng, qs, dev):
             "pos": torch.from_numpy(pos).to(dev)}
 
 
-def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
+def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb,
+                  nb_sims):
     """Each kernel vs its plain version on the main path's inputs."""
     from repro_torch.kernels.adc import (adc_score_blocks,
                                          adc_score_blocks_ref, adc_tables,
@@ -1221,13 +1265,16 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
     # topk on the main path's rows, each bitwise the plain version: the
     # fuse top-k over the last batch's fused buffer and the sparse top-k
     # over its score matrix (row-strided views), Stage I's query-centroid
-    # similarities (sort_by_dist), and the recsys guide row (-inf pads).
-    # The row's times are the fused rows'.
+    # similarities (sort_by_dist), the recsys guide row (-inf pads) and
+    # the update path's neighbor graph (the v2 directory's (N, N) centroid
+    # similarities, self pushed down, k 128). The row's times are the
+    # fused rows'.
     errs, notes = [], []
     for key, x, kk in (("fused", tail["fused"], tail["k_final"]),
                        ("sparse", tail["sparse"], tail["k_sparse"]),
                        ("stage1", tail["qc_sim"], tail["n_stage1"]),
-                       ("guide", eb["guide_row"], eb["k_guide"])):
+                       ("guide", eb["guide_row"], eb["k_guide"]),
+                       ("neighbor", nb_sims, tail["n_neighbors"])):
         v, i = topk(x, kk)
         rv, ri = topk_ref(x, kk)
         torch.cuda.synchronize()
@@ -1364,6 +1411,337 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb):
     return rows
 
 
+def offline_phase(cfg, emb_path, doc_terms, doc_weights, selector, qs, tmp,
+                  dev):
+    """build_index_offline over an np.memmap of the corpus, its peak
+    device memory gated by the bound below, then a v2 write from the
+    memmap whose PQ the writer trains (train_pq_stream) and one served
+    batch. Returns the launch counts of the run."""
+    from repro_torch import kernels
+    from repro_torch.index import IndexReader, build_index_offline, write_index
+    from repro_torch.obs import Tracer
+
+    on_card = torch.device(dev).type == "cuda"
+    D, dim, N = cfg.n_docs, cfg.dim, cfg.n_clusters
+    mm = np.memmap(emb_path, np.float32, "r", shape=(D, dim))
+    init = np.sort(torch.randperm(D, generator=torch.Generator().manual_seed(
+        SEED))[:N].numpy())
+    tracer = Tracer(sample_rate=1.0)
+    kernels.reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    index = build_index_offline(cfg, mm, doc_terms, doc_weights,
+                                shard_docs=OFFLINE_SHARD_DOCS, init_idx=init,
+                                device=dev, tracer=tracer)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+    # What the build holds on the card at once. During k-means: one shard
+    # (2^17 x 768 x 4 = 403 MB), the old and new centroids, and _assign's
+    # chunk of 2^27 // N rows, whose (rows, N) float32 distance expression
+    # keeps three buffers live at once (x2 + c2, 2 X C^T, their
+    # difference: 3 x 537 MB at N 8192); _cluster_sums' (rows, N) float64
+    # one-hot and its products (1.28 GB) come below that. Then the index
+    # it returns (postings, cluster table, neighbor graph) beside
+    # neighbor_graph's three live (N, N) float32 buffers. 64 MB more for
+    # cuBLAS's workspace and the small per-chunk tensors.
+    sp = index.sparse_index
+    out_bytes = sum(t.numel() * t.element_size() for t in (
+        sp.postings_docs, sp.postings_weights, index.cluster_docs,
+        index.doc_cluster, index.neighbor_ids, index.neighbor_sims,
+        index.centroids, index.bin_ids))
+    rows = max(1, (1 << 27) // N)
+    bound = max(OFFLINE_SHARD_DOCS * dim * 4 + 2 * N * dim * 4
+                + 3 * rows * N * 4, out_bytes + 3 * N * N * 4) + (64 << 20)
+    cd = index.cluster_docs.cpu().numpy()
+    members = np.sort(cd[cd >= 0])
+    totals = tracer.span_totals("build_index")
+    print(f"  build_index_offline over the {D} x {dim} memmap "
+          f"({os.path.getsize(emb_path)} bytes), shards of "
+          f"{OFFLINE_SHARD_DOCS}: {build_s:.2f} s; spans (ms) "
+          f"{json.dumps({k: v['ms'] for k, v in totals.items()})}")
+    print(f"  peak device memory {peak / 1e9:.3f} GB against the bound "
+          f"{bound / 1e9:.3f} GB (index {out_bytes / 1e9:.3f} GB); the "
+          f"in-RAM build_index's peak {BUILD_INDEX_PEAK / 1e9:.3f} GB")
+    if on_card and not 0 < peak <= bound:
+        raise AssertionError("the memmap build's device memory exceeds its "
+                             "bound")
+    if not np.array_equal(members, np.arange(D)) or cd.shape != (
+            N, cfg.cluster_cap):
+        raise AssertionError("the offline cluster table does not hold every "
+                             "doc exactly once within cap")
+    fill = (cd >= 0).sum(1)
+    print(f"  cluster table: every doc once, fill min {fill.min()} max "
+          f"{fill.max()} <= cap {cfg.cluster_cap}")
+    index.selector = selector
+    out = os.path.join(tmp, "offline_v2")
+    t0 = time.perf_counter()
+    man = write_index(out, cfg, index, mm, n_shards=N_SHARDS,
+                      format_version=2, pq_nsub=NSUB,
+                      chunk_docs=PQ_CHUNK_DOCS, extra=corpus_extra(cfg),
+                      tracer=tracer)
+    totals = tracer.span_totals("write_index")
+    print(f"  write_index v2 from the memmap, PQ nsub {NSUB} trained by "
+          f"train_pq_stream in {PQ_CHUNK_DOCS}-row reads: "
+          f"{time.perf_counter() - t0:.2f} s, {man['total_bytes']} bytes; "
+          f"spans (ms) {json.dumps({k: v['ms'] for k, v in totals.items()})}")
+    del index, mm
+    with IndexReader.open(out, verify="full").engine(
+            max_batch=MAX_BATCH, device=dev) as eng:
+        ids, scores = eng.retrieve(*queries(qs, 0, MAX_BATCH))
+        sync(dev)
+        st = eng.stats()
+    check_results(cfg, ids, scores, MAX_BATCH)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  served one batch of {MAX_BATCH}: failed batches 0, prefetch "
+          f"errors {st['prefetch_errors']}; launches {launches}")
+    if st["prefetch_errors"]:
+        raise AssertionError("serving the offline build failed")
+    os.remove(emb_path)
+    shutil.rmtree(out)
+    return launches
+
+
+def _manifest(path):
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def compare_generations(card_dir, cpu_dir, delta):
+    """The same delta committed on the card and on the CPU: manifests
+    equal but for wall times and the sha256 of the files below; every
+    file of the new generation byte-equal, but for upsert code rows whose
+    pq_encode argmin is a near-tie (relative gap of the two codes'
+    squared distances under 1e-5) and, after a re-cluster, the neighbor
+    graph (ids at isolated ranks, sims rtol 1e-5, atol 1e-6). Returns
+    the number of near-tie codes."""
+    mans = [_manifest(card_dir), _manifest(cpu_dir)]
+    g = mans[1]["generation"]
+    loose = {s["file"] for s in mans[1]["block_shards"]
+             if s["file"].endswith(f".g{g}.codes.bin")}
+    if mans[1]["update_stats"]["reclustered_shards"]:
+        ids, sims = (mans[1]["arrays"][k]
+                     for k in ("neighbor_ids", "neighbor_sims"))
+        loose |= {ids, sims}
+        check_neighbors(*(np.load(os.path.join(card_dir, r))
+                          for r in (ids, sims)),
+                        *(np.load(os.path.join(cpu_dir, r))
+                          for r in (ids, sims)))
+    for m in mans:
+        m["update_stats"].pop("wall_s")
+        for rel in loose:
+            m["files"][rel].pop("sha256")
+    if mans[0] != mans[1]:
+        raise AssertionError("card and CPU manifests of one delta differ")
+    for rel in mans[1]["files"]:
+        if f".g{g}" in rel and rel not in loose:
+            with open(os.path.join(card_dir, rel), "rb") as f, \
+                    open(os.path.join(cpu_dir, rel), "rb") as h:
+                if f.read() != h.read():
+                    raise AssertionError(f"{rel} differs card vs CPU")
+    books = np.load(os.path.join(cpu_dir, mans[1]["pq"]["arrays"][
+        "codebooks"])).astype(np.float64) if mans[1]["pq"] else None
+    cd = np.load(os.path.join(cpu_dir, mans[1]["arrays"]["cluster_docs"]))
+    row_of = {int(d): i for i, d in enumerate(delta.upsert_ids)}
+    n_ties = 0
+    for s in mans[1]["block_shards"]:
+        if s["file"] not in loose:
+            continue
+        nsub = books.shape[0]
+        a, b = (np.fromfile(os.path.join(d, s["file"]), np.uint8).reshape(
+            -1, cd.shape[1], nsub) for d in (card_dir, cpu_dir))
+        for c, slot, sub in np.argwhere(a != b):
+            d = int(cd[s["cluster_lo"] + c, slot])
+            if d not in row_of:
+                raise AssertionError(f"doc {d}'s code moved, not an upsert")
+            xs = delta.upsert_embeddings[row_of[d]].astype(
+                np.float64).reshape(nsub, -1)[sub]
+            da = ((xs - books[sub, a[c, slot, sub]]) ** 2).sum()
+            db = ((xs - books[sub, b[c, slot, sub]]) ** 2).sum()
+            if abs(da - db) > 1e-5 * max(da, db):
+                raise AssertionError(f"doc {d} subspace {sub}: codes differ "
+                                     f"off a near-tie")
+            n_ties += 1
+    return n_ties
+
+
+def check_neighbors(ids, sims, ref_ids, ref_sims):
+    """A neighbor graph against a reference: ids equal at ranks more than
+    PARITY_GAP from both neighbours' sims, sims rtol 1e-5, atol 1e-6."""
+    ok = isolated_ranks(ref_sims, PARITY_GAP)
+    bad = int((ids[ok] != ref_ids[ok]).sum())
+    close = np.allclose(sims, ref_sims, rtol=1e-5, atol=1e-6)
+    print(f"  neighbor graph: id mismatches {bad} over {int(ok.sum())} of "
+          f"{ok.size} ranks; sims allclose {close}, max |diff| "
+          f"{np.abs(sims - ref_sims).max():.3g}")
+    if bad or not close:
+        raise AssertionError("neighbor graphs disagree")
+
+
+def update_v2_phase(v2_dir, tmp, dev):
+    """The port's update CLI in process on the card (1 % churn, serving
+    before and after a hot reload, a compacted copy's parity), then the
+    same synth_delta committed on the CPU to a copy: the two generations
+    compared by compare_generations. Returns the launch counts of the CLI
+    run."""
+    from repro_torch import kernels
+    from repro_torch.index import IndexReader, write_index_delta
+    from repro_torch.launch import update_index
+
+    cpu_dir = os.path.join(tmp, "v2_cpu")
+    shutil.copytree(v2_dir, cpu_dir)
+    trace = os.path.join(tmp, "update.jsonl")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = update_index.main([
+        "--index-dir", v2_dir, "--upserts", str(UPDATE_UPSERTS),
+        "--deletes", str(UPDATE_DELETES), "--seed", "0",
+        "--serve-queries", str(N_QUERIES), "--batch", str(MAX_BATCH),
+        "--check-parity", "--trace-out", trace, "--device", str(dev)])
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  update_index.main: rc {rc} in {time.perf_counter() - t0:.2f} "
+          f"s; launches {launches}")
+    if rc != 0:
+        raise AssertionError("the update CLI failed")
+    st = _manifest(v2_dir)["update_stats"]
+    spans = {}
+    with open(trace) as f:
+        for ln in f:
+            r = json.loads(ln)
+            if r["trace_name"] in ("write_index_delta", "reload_index",
+                                   "compact_index", "write_index"):
+                key = f"{r['trace_name']}/{r['span']}"
+                spans[key] = round(spans.get(key, 0.0) + r["dur_ms"], 3)
+    print(f"  generation 1: shards rewritten {st['shards_rewritten']} of "
+          f"{N_SHARDS}, reclustered {st['reclustered_shards']}, "
+          f"bytes_rewritten {st['bytes_rewritten']} of "
+          f"{st['shard_bytes_total']} "
+          f"({st['bytes_rewritten'] / st['shard_bytes_total']:.4f}), "
+          f"wall {st['wall_s']} s; span totals (ms) {json.dumps(spans)}")
+    t0 = time.perf_counter()
+    delta, _ = update_index.synth_delta(IndexReader.open(cpu_dir),
+                                        UPDATE_UPSERTS, UPDATE_DELETES,
+                                        seed=0)
+    write_index_delta(cpu_dir, delta, verify="none", device="cpu")
+    print(f"  the same delta on the CPU: {time.perf_counter() - t0:.2f} s")
+    n_ties = compare_generations(v2_dir, cpu_dir, delta)
+    print(f"  card vs CPU generation 1: every staged file equal; upsert "
+          f"codes differing at near-ties {n_ties} of "
+          f"{delta.n_upserts * NSUB}")
+    shutil.rmtree(cpu_dir)
+    return launches
+
+
+def update_v1_phase(v1_dir, qs, dev):
+    """A re-clustering delta committed on the card while a second thread
+    serves the v1 directory, reload_index() to generation 1 (gated
+    against a fresh engine, deleted ids and a CPU neighbor graph), then
+    compact_index in place, a full verify and reload_index() to
+    generation 2. Returns the launch counts of the run."""
+    from repro_torch import kernels
+    from repro_torch.core import kmeans as km
+    from repro_torch.index import (IndexReader, compact_index,
+                                   write_index_delta)
+    from repro_torch.launch.update_index import synth_delta
+
+    q_next = queries(qs, 0, MAX_BATCH)
+    eng = IndexReader.open(v1_dir, verify="size").engine(
+        max_batch=MAX_BATCH, device=dev)
+    t0 = time.perf_counter()
+    delta, info = synth_delta(IndexReader.open(v1_dir), UPDATE_UPSERTS,
+                              UPDATE_DELETES, seed=1)
+    print(f"  synth_delta: {delta.n_upserts} upserts, {delta.n_deletes} "
+          f"deletes, {info['target_shards']} target shard(s) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    kernels.reset_launches()
+    failures, served = [], []
+    started = threading.Event()
+
+    def serve():
+        for i in range(2):
+            try:
+                started.set()
+                eng.retrieve(*queries(qs, i * MAX_BATCH,
+                                      (i + 1) * MAX_BATCH))
+                served.append(i)
+            except Exception as e:      # counted and raised below
+                failures.append(repr(e))
+
+    th = threading.Thread(target=serve)
+    th.start()
+    if not started.wait(600):
+        raise AssertionError("the serving thread did not start")
+    topk0 = kernels.LAUNCHES["topk"]
+    t0 = time.perf_counter()
+    rep = write_index_delta(v1_dir, delta, recluster_overflow=0.0,
+                            recluster_min_overflow=0, device=dev)
+    commit_s = time.perf_counter() - t0
+    graph_topk = kernels.LAUNCHES["topk"] - topk0
+    th.join(900)
+    if th.is_alive():
+        raise AssertionError("the serving thread did not finish")
+    print(f"  write_index_delta (re-cluster) beside {len(served)} batches: "
+          f"{commit_s:.2f} s; generation {rep['generation']}, shards "
+          f"rewritten {rep['shards_rewritten']}, reclustered "
+          f"{rep['reclustered_shards']}, bytes_rewritten "
+          f"{rep['bytes_rewritten']} ({rep['bytes_rewritten_frac']}), "
+          f"topk launches during the commit {graph_topk} (some are the "
+          f"serving thread's); failed batches {len(failures)} {failures}")
+    on_card = torch.device(dev).type == "cuda"
+    if failures or len(served) != 2 or rep["generation"] != 1 \
+            or not rep["reclustered_shards"] or (on_card and graph_topk < 1):
+        raise AssertionError("the re-clustering delta failed its checks")
+    t0 = time.perf_counter()
+    gen = eng.reload_index()
+    ids1, sc1 = eng.retrieve(*q_next)
+    sync(dev)
+    print(f"  reload_index -> generation {gen} + one batch: "
+          f"{time.perf_counter() - t0:.2f} s")
+    ids1, sc1 = ids1.cpu().numpy(), sc1.cpu().numpy()
+    gone = int(np.isin(ids1, delta.delete_ids).sum())
+    with IndexReader.open(v1_dir).engine(max_batch=MAX_BATCH, prefetch=False,
+                                         device=dev) as fresh:
+        f_ids, f_sc = (t.cpu().numpy() for t in fresh.retrieve(*q_next))
+    ok = isolated_ranks(f_sc, PARITY_GAP)
+    bad = int((ids1[ok] != f_ids[ok]).sum())
+    print(f"  generation 1 vs a fresh engine: id mismatches {bad} over "
+          f"{int(ok.sum())} of {ok.size} ranks; deleted ids served {gone}")
+    if gen != 1 or bad or gone or not np.allclose(sc1, f_sc, rtol=1e-5,
+                                                  atol=1e-6):
+        raise AssertionError("generation 1 serves wrongly")
+    man = _manifest(v1_dir)
+    C, nb_ids, nb_sims = (np.load(os.path.join(v1_dir, man["arrays"][k]))
+                          for k in ("centroids", "neighbor_ids",
+                                    "neighbor_sims"))
+    ref_ids, ref_sims = km.neighbor_graph(torch.from_numpy(C),
+                                          nb_ids.shape[1])
+    check_neighbors(nb_ids, nb_sims, ref_ids.numpy(), ref_sims.numpy())
+    t0 = time.perf_counter()
+    cman = compact_index(v1_dir, device=dev)
+    compact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    IndexReader.open(v1_dir, verify="full")
+    verify_s = time.perf_counter() - t0
+    gen2 = eng.reload_index()
+    ids2, sc2 = (t.cpu().numpy() for t in eng.retrieve(*q_next))
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    eng.close()
+    ok = isolated_ranks(sc1, PARITY_GAP)
+    bad = int((ids2[ok] != ids1[ok]).sum())
+    print(f"  compact_index in place: {compact_s:.2f} s, generation "
+          f"{cman['generation']}, {cman['total_bytes']} bytes; verify full "
+          f"{verify_s:.2f} s; reload -> generation {gen2}: id mismatches "
+          f"against generation 1 {bad} over {int(ok.sum())} ranks; "
+          f"launches {launches}")
+    if gen2 != 2 or bad:
+        raise AssertionError("the compacted generation serves wrongly")
+    return launches
+
+
 def parity(name, make_engine, qs, dev, atol):
     """The first PARITY_QUERIES queries served by make_engine(dev) and by
     make_engine("cpu") (plain versions): ids equal at isolated ranks,
@@ -1422,7 +1800,23 @@ PATH_KERNELS = {
     "v1_pq": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
               "bin_overlap"),
     "recsys": ("embedding_bag", "topk", "bin_overlap", "lstm_sequence"),
+    # the neighbor graph's topk and one served v2 batch
+    "offline": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
+                "bin_overlap"),
+    "update_v2": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
+                  "bin_overlap"),
+    # the re-cluster's neighbor graph (topk) and v1 serving
+    "update_v1": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
 }
+
+
+def check_path_launches(paths):
+    """Every kernel of each path that has run launched in its run."""
+    missing = {p: [k for k in PATH_KERNELS[p] if paths[p][k] <= 0]
+               for p in paths}
+    if any(missing.values()):
+        raise AssertionError(f"kernels of a main path never launched: "
+                             f"{missing}; launches {paths}")
 
 
 def main():
@@ -1473,6 +1867,16 @@ def main():
             print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f}"
                   f" GB allocated, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            # the offline phase's np.memmap source, staged while the
+            # corpus is in RAM
+            t0 = time.perf_counter()
+            emb_path = os.path.join(tmp, "embeddings.f32")
+            corpus.embeddings.tofile(emb_path)
+            doc_terms, doc_weights = corpus.doc_terms, corpus.doc_weights
+            selector = index.selector
+            print(f"  staged the embeddings to a file: "
+                  f"{os.path.getsize(emb_path)} bytes in "
+                  f"{time.perf_counter() - t0:.2f} s")
         with phase("index directories (write_index v2, v1 float32 with "
                    "pq/) and the DiskClusterStore file"):
             dirs, blocks = write_dirs(cfg, index, pq, corpus, tmp)
@@ -1537,21 +1941,41 @@ def main():
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
         print(f"  launches over the {len(paths)} paths: {launches}")
-        missing = {p: [k for k in PATH_KERNELS[p] if paths[p][k] <= 0]
-                   for p in PATH_KERNELS}
-        if any(missing.values()):
-            raise AssertionError(f"kernels of a main path never launched: "
-                                 f"{missing}; launches {paths}")
+        check_path_launches(paths)
         with phase("kernels vs plain versions on main-path inputs"):
             v2_in = main_path_inputs(eng_v2, qs, dev)
             v1_in = main_path_inputs(eng_v1, qs, dev)
             codebooks = torch.from_numpy(eng_v2.store.codebooks).to(dev)
+            # neighbor_graph's top-k input, made as it makes it
+            C = eng_v2.index.centroids
+            nb_sims = C @ C.T - 2e9 * torch.eye(C.shape[0], device=dev)
             rows = check_kernels(dev, launches, v2_in, v1_in, tail,
-                                 codebooks, eng_v2.index.selector, eb)
-            del v1_in, v2_in, tail, eb
+                                 codebooks, eng_v2.index.selector, eb,
+                                 nb_sims)
+            del v1_in, v2_in, tail, eb, nb_sims
         with phase("embedding_bag: two threads' error words, the word's "
                    "fill"):
             bag_threads(dev)
+        # the update paths, each driven with the counts zeroed just before
+        # it and read just after; their launches join the kernel table's
+        with phase(f"offline build from an np.memmap (shards of "
+                   f"{OFFLINE_SHARD_DOCS}), a v2 write training its PQ, "
+                   f"one batch"):
+            paths["offline"] = offline_phase(cfg, emb_path, doc_terms,
+                                             doc_weights, selector, qs, tmp,
+                                             dev)
+        with phase(f"v2 update through the port's CLI ({UPDATE_UPSERTS} "
+                   f"upserts, {UPDATE_DELETES} deletes), card vs CPU"):
+            paths["update_v2"] = update_v2_phase(dirs["v2"], tmp, dev)
+        with phase("v1 re-clustering delta under serving, reload, "
+                   "compaction, reload"):
+            paths["update_v1"] = update_v1_phase(dirs["v1"], qs, dev)
+        launches = {k: sum(p[k] for p in paths.values())
+                    for k in paths["v2"]}
+        print(f"  launches over the {len(paths)} paths: {launches}")
+        check_path_launches(paths)
+        for r in rows:
+            r["launches"] = launches[r["name"]]
         # v2's ADC scores are bitwise the plain version's, so rtol alone;
         # v1's dot products are summed in another order on the card
         for name, atol in (("v2", 0.0), ("v1", 1e-6)):

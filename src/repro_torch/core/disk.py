@@ -78,11 +78,13 @@ class DiskClusterStore:
             raise ValueError(f"DiskClusterStore stores float32 blocks, got "
                              f"{self.dtype}")
         if embeddings is not None:
-            from repro_torch.index.builder import _np, _write_float_blocks
+            from repro_torch.index.builder import (DEFAULT_CHUNK_DOCS, _np,
+                                                   _write_float_blocks)
             cd = _np(cluster_docs)
             self.n_clusters, self.cap = cd.shape
             self.dim = int(embeddings.shape[1])
-            _write_float_blocks(path, embeddings, cd, "float32")
+            _write_float_blocks(path, embeddings, cd, "float32",
+                                DEFAULT_CHUNK_DOCS)
         else:
             if n_clusters is None or cap is None or dim is None:
                 raise ValueError(

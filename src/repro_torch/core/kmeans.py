@@ -4,6 +4,9 @@ with capacity-balanced padded member lists: clusters are materialized as
 
 `kmeans` runs Lloyd's on the device with chunked matmul distances and
 deterministic centroid sums, so one seed builds one index on every run;
+`kmeans_shards` is its streaming form for corpora that never sit on the
+device whole (one shard at a time, sums and counts added on the host);
+`lloyd_refine` is the update path's deterministic host refinement;
 `build_cluster_table` is a host-side numpy copy of the JAX package's
 greedy overflow reassignment; `neighbor_graph` is the centroid top-m
 graph under the (sim desc, index asc) rule.
@@ -30,6 +33,7 @@ def _assign(X, C):
         x2 = (Xc * Xc).sum(1, keepdim=True)
         d2 = x2 + c2[None, :] - 2.0 * (Xc @ C.T)
         out[lo:lo + rows] = d2.argmin(1)
+        del d2              # before the next chunk's three (rows, N) buffers
     return out
 
 
@@ -46,6 +50,7 @@ def _cluster_sums(X, assign, n_clusters):
         onehot = torch.zeros(a.shape[0], n_clusters, dtype=torch.float64,
                              device=X.device).scatter_(1, a[:, None], 1.0)
         sums += onehot.T @ X[lo:lo + rows].double()
+        del onehot          # before the next chunk's: one (rows, N) at once
     return sums
 
 
@@ -77,6 +82,110 @@ def kmeans(X, n_clusters, iters=15, *, init=None, generator=None,
             new_c = torch.where(empty[:, None], X[reseed.to(dev)], new_c)
         C = new_c
     return C, _assign(X, C)
+
+
+def _gather_rows(shards, offsets, idx):
+    """Rows of the global indices idx from a list of (D_i, dim) shards."""
+    first = np.asarray(shards[0][:1])
+    out = np.empty((len(idx), first.shape[1]), first.dtype)
+    sid = np.searchsorted(offsets, idx, side="right") - 1
+    for i, (s, g) in enumerate(zip(sid, idx)):
+        out[i] = shards[s][g - offsets[s]]
+    return out
+
+
+def _shard_on(shard, dev):
+    """One shard's rows as a float32 tensor on dev (a host copy first: a
+    read-only np.memmap cannot back a tensor)."""
+    return torch.from_numpy(np.array(shard, np.float32)).to(dev)
+
+
+def kmeans_shards(shards, n_clusters, iters=15, *, init_idx=None,
+                  generator=None, device=None):
+    """Streaming Lloyd's over embedding shards, for corpora that never sit
+    on the device at once. `shards` is a sequence of (D_i, dim) host
+    arrays (RowSlice views of an np.memmap are fine); one shard is on the
+    device at a time, and its per-cluster sums and counts come back to
+    the host and add, in shard order, into float32 host arrays, as the
+    JAX package's `kmeans_shards` adds them.
+
+    init_idx: the N global row indices of the initial centroids (tests
+    hand it JAX's `jax.random.choice` draw); otherwise N distinct rows
+    drawn with `generator`. Empty clusters are reseeded from rows drawn
+    with `generator`. Returns (centroids (N, dim) float32, assignments
+    (D,) int64), on `device`.
+    """
+    dev = resolve_device(device)
+    sizes = [int(s.shape[0]) for s in shards]
+    D = sum(sizes)
+    offsets = np.cumsum([0] + sizes)
+    dim = int(shards[0].shape[1])
+    if init_idx is None:
+        init_idx = torch.randperm(D, generator=generator)[:n_clusters].numpy()
+    init = np.sort(np.asarray(init_idx, np.int64))
+    if len(init) != n_clusters:
+        raise ValueError(f"init_idx holds {len(init)} rows, not {n_clusters}")
+    C = torch.from_numpy(
+        _gather_rows(shards, offsets, init).astype(np.float32)).to(dev)
+    for _ in range(iters):
+        sums = np.zeros((n_clusters, dim), np.float32)
+        counts = np.zeros((n_clusters,), np.float32)
+        for s in shards:
+            Xs = _shard_on(s, dev)
+            a = _assign(Xs, C)
+            sums += _cluster_sums(Xs, a, n_clusters).float().cpu().numpy()
+            counts += torch.bincount(a, minlength=n_clusters).float() \
+                .cpu().numpy()
+            del Xs, a
+        new_c = sums / np.maximum(counts, 1.0)[:, None]
+        empty = counts < 0.5
+        if empty.any():
+            reseed_idx = torch.randint(0, D, (n_clusters,),
+                                       generator=generator).numpy()
+            reseed = _gather_rows(shards, offsets, reseed_idx)
+            new_c = np.where(empty[:, None], reseed, new_c)
+        C = torch.from_numpy(new_c.astype(np.float32)).to(dev)
+    assign = torch.cat([_assign(_shard_on(s, dev), C) for s in shards])
+    return C, assign
+
+
+def lloyd_refine(X, centroids, iters=4):
+    """Deterministic local Lloyd's refinement from a centroid init — no
+    random reseeding, pure host numpy, statement for statement the JAX
+    package's: the re-clustering primitive of the index update path
+    (repro_torch.index.update). Empty clusters keep their previous
+    centroid.
+
+    X: (n, dim) member vectors; centroids: (k, dim) init.
+    Returns (refined centroids (k, dim) f32, assignments (n,) int64).
+    """
+    X = np.asarray(X, np.float32)
+    C = np.asarray(centroids, np.float32).copy()
+    x2 = (X * X).sum(axis=1)[:, None]
+
+    def assign_to(C):
+        d2 = x2 + (C * C).sum(axis=1)[None, :] - 2.0 * X @ C.T
+        return np.argmin(d2, axis=1)
+
+    assign = assign_to(C)
+    for _ in range(int(iters)):
+        for c in range(C.shape[0]):
+            sel = assign == c
+            if sel.any():
+                C[c] = X[sel].mean(axis=0)
+        assign = assign_to(C)
+    return C, assign
+
+
+def gather_rows_chunked(X, idx, chunk_rows=8192):
+    """X[idx] as float32 in reads of at most chunk_rows rows: X only needs
+    row indexing (an np.memmap is never read whole)."""
+    idx = np.asarray(idx, np.int64)
+    out = np.empty((len(idx), int(X.shape[1])), np.float32)
+    for lo in range(0, len(idx), chunk_rows):
+        sel = idx[lo:lo + chunk_rows]
+        out[lo:lo + len(sel)] = np.asarray(X[sel], np.float32)
+    return out
 
 
 def build_cluster_table(assign, n_clusters, cap, X=None, centroids=None,

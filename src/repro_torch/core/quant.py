@@ -4,6 +4,8 @@ nsub subspaces x 256 codes, scored via per-query ADC lookup tables
 
   * `train_pq`: per-subspace k-means on a sample of the corpus, with an
     optional PCA rotation (OPQ-lite);
+  * `train_pq_stream`: the same on a bounded sample of a corpus larger
+    than RAM (an np.memmap), read and encoded in chunks;
   * `pq_encode`: nearest codebook entry per subspace, in row chunks;
   * `decode_code_blocks`: host-side reconstruction of code blocks;
   * `adc_tables`, `adc_score`, `reconstruct`: per-query LUTs, LUT scores
@@ -65,6 +67,40 @@ def train_pq(X, nsub, n_codes=256, iters=10, *, rotate=False,
                          generator=generator, device=dev)
         books[s, :n_k] = c
     return PQ(books, pq_encode(books, X, R), R, nsub)
+
+
+def train_pq_stream(embeddings, nsub, *, n_codes=256, iters=10,
+                    rotate=False, sample_docs=1 << 16, chunk_docs=1 << 14,
+                    sample_idx=None, generator=None, device=None):
+    """PQ for corpora larger than RAM: codebooks trained (`train_pq`) on a
+    bounded sample gathered in `chunk_docs`-row reads, then every
+    document encoded chunk by chunk on `device`. `embeddings` only needs
+    row indexing (np.memmap is fine); no read touches more than
+    chunk_docs rows and the float matrix is never materialized.
+
+    sample_idx: the sample's row indices (sorted here); otherwise
+    min(D, sample_docs) distinct rows drawn with `generator`, which
+    also seeds the codebooks' k-means. Returns a PQ whose codes (int32,
+    on `device`) cover all D docs.
+    """
+    dev = resolve_device(device)
+    D, dim = int(embeddings.shape[0]), int(embeddings.shape[1])
+    if sample_idx is None:
+        sample_idx = torch.randperm(D, generator=generator)[
+            :min(D, sample_docs)].numpy()
+    idx = np.sort(np.asarray(sample_idx, np.int64))
+    sample = np.empty((len(idx), dim), np.float32)
+    for lo in range(0, len(idx), chunk_docs):
+        sel = idx[lo:lo + chunk_docs]
+        sample[lo:lo + len(sel)] = np.asarray(embeddings[sel], np.float32)
+    pq = train_pq(sample, nsub, n_codes, iters, rotate=rotate,
+                  generator=generator, device=dev)
+    codes = torch.empty((D, nsub), dtype=torch.int32, device=dev)
+    for lo in range(0, D, chunk_docs):
+        chunk = np.array(embeddings[lo:lo + chunk_docs], np.float32)
+        codes[lo:lo + len(chunk)] = pq_encode(pq.codebooks, chunk,
+                                              pq.rotation)
+    return PQ(pq.codebooks, codes, pq.rotation, nsub)
 
 
 def pq_encode(codebooks, X, rotation=None, chunk_rows=1 << 15):

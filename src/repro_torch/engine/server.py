@@ -275,8 +275,9 @@ class RetrievalEngine:
 
     def __init__(self, cfg, index, store=None, *, max_batch=256,
                  cache_capacity=512, prefetch=True, prefetch_depth=None,
-                 k=None, reader=None, use_adc=None, trace_sample_rate=0.0,
-                 fusion=None, explain=None, device=None):
+                 k=None, reader=None, use_adc=None, metrics=None,
+                 tracer=None, trace_sample_rate=None, fusion=None,
+                 explain=None, device=None):
         if fusion is not None and fusion not in FUSION_METHODS:
             raise ValueError(f"fusion must be one of {FUSION_METHODS}, "
                              f"got {fusion!r}")
@@ -296,8 +297,14 @@ class RetrievalEngine:
         # demands a code-backed store; False serves decoded float blocks
         self._explicit_use_adc = use_adc
         self.use_adc = self._resolve_use_adc(self.store)
-        self.metrics = MetricsRegistry()
-        self.tracer = Tracer(sample_rate=trace_sample_rate)
+        # the registry backs stats(); the tracer records per-batch spans
+        # when its sample rate is above 0 (a caller's, shared, or a new one)
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if tracer is None:
+            tracer = Tracer(sample_rate=trace_sample_rate or 0.0)
+        elif trace_sample_rate is not None:
+            tracer.sample_rate = float(trace_sample_rate)
+        self.tracer = tracer
         # sampled explain telemetry (repro_torch.obs.ExplainLogger); None
         # costs one attribute check per batch
         self.explain = explain

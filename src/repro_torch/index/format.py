@@ -35,6 +35,7 @@ Integrity levels (IndexReader.open(verify=...)):
 import hashlib
 import json
 import os
+import shutil
 
 import numpy as np
 
@@ -131,6 +132,18 @@ def manifest_generation(manifest):
     return int(manifest.get("generation", 0))
 
 
+def archive_manifest(index_dir, manifest):
+    """Keep the CURRENT manifest as manifests/manifest.g<g>.json, so its
+    generation stays readable after a newer one replaces manifest.json."""
+    hist = os.path.join(index_dir, MANIFEST_HISTORY_DIR)
+    os.makedirs(hist, exist_ok=True)
+    path = os.path.join(hist,
+                        f"manifest.g{manifest_generation(manifest)}.json")
+    with open(path, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    return path
+
+
 def commit_manifest(index_dir, manifest):
     """Atomically replace manifest.json (write to a temp file, fsync,
     os.replace): a racing reader sees the old or the new generation."""
@@ -141,6 +154,20 @@ def commit_manifest(index_dir, manifest):
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, final)
+
+
+def commit_generation(index_dir, stage, staged, old_manifest, new_manifest):
+    """The one tail of every generation commit: move the staged files
+    (relpaths `staged` under `stage`) into place under their
+    generation-suffixed names, archive the current manifest, atomically
+    flip manifest.json, and drop the stage directory."""
+    for rel in staged:
+        dst = os.path.join(index_dir, rel)
+        os.makedirs(os.path.dirname(dst) or index_dir, exist_ok=True)
+        os.replace(os.path.join(stage, rel), dst)
+    archive_manifest(index_dir, old_manifest)
+    commit_manifest(index_dir, new_manifest)
+    shutil.rmtree(stage, ignore_errors=True)
 
 
 def load_manifest(index_dir, supported=SUPPORTED_VERSIONS, generation=None):

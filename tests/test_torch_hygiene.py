@@ -22,7 +22,9 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "repro" or k.startswith("repro."))
-print(len(names), bad)
+missing = sorted({"repro_torch.index.update", "repro_torch.launch",
+                  "repro_torch.launch.update_index"} - set(names))
+print(len(names), bad + missing)
 """
 
 
@@ -64,8 +66,13 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
     from repro_torch.core.sparse import SparseIndex
     from repro_torch.device import resolve_device
     from repro_torch.engine import RetrievalEngine
+    from repro_torch.index import (build_index_offline, compact_index,
+                                   update, write_index_delta)
+    from repro_torch.launch import update_index
 
     X = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    delta = update.IndexDelta(np.zeros(0), np.zeros((0, 8)), np.zeros((0, 2)),
+                              np.zeros((0, 2)), [1])
     calls = [
         lambda: resolve_device(None),
         lambda: resolve_device("cuda"),
@@ -76,6 +83,14 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
         lambda: clusd.build_index(clusd_msmarco.smoke(), X,
                                   np.zeros((64, 2), np.int32),
                                   np.ones((64, 2), np.float32)),
+        lambda: kmeans.kmeans_shards([X[:32], X[32:]], 4, 2),
+        lambda: quant.train_pq_stream(X, 2, iters=1),
+        lambda: build_index_offline(clusd_msmarco.smoke(), X,
+                                    np.zeros((64, 2), np.int32),
+                                    np.ones((64, 2), np.float32)),
+        lambda: write_index_delta("no-such-index", delta),
+        lambda: compact_index("no-such-index"),
+        lambda: update_index.main(["--index-dir", "no-such-index"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -101,12 +101,22 @@ def test_writer_matches_jax_writer(state, kind, tmp_path):
 
 
 def test_writer_refuses_v2_without_a_pq(state, tmp_path):
-    cfg, index, corpus, *_ = state
-    with pytest.raises(ValueError, match="PQ"):
-        write_index(str(tmp_path / "x"), tp.torch_cfg(cfg),
-                    _torch_index(index), np.asarray(corpus.embeddings),
-                    format_version=2)
+    """A v2 write refuses a PQ that does not cover the index (codes of
+    another doc count, or outside uint8) and an unknown format. With no
+    PQ at all it now trains one, as the JAX writer does
+    (tests/test_torch_build_offline.py holds that write to JAX's)."""
+    cfg, index, corpus, pq, _ = state
+    codes = np.asarray(pq.codes)
+    for bad, msg in ((codes[:-1], "PQ codes cover"),
+                     (codes + 256, "out of uint8 range")):
+        with pytest.raises(ValueError, match=msg):
+            write_index(str(tmp_path / "x"), tp.torch_cfg(cfg),
+                        _torch_index(index), np.asarray(corpus.embeddings),
+                        format_version=2, pq=convert.pq_from_numpy(
+                            pq.codebooks, bad, pq.rotation, pq.nsub,
+                            device="cpu"))
     with pytest.raises(ValueError, match="format_version"):
         write_index(str(tmp_path / "x"), tp.torch_cfg(cfg),
                     _torch_index(index), np.asarray(corpus.embeddings),
                     format_version=3)
+    assert not os.path.exists(tmp_path / "x")
