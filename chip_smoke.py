@@ -83,20 +83,48 @@ Phases, each printed with its seconds:
         deleted id served, the neighbor graph equal a CPU one), then
         `compact_index` in place, a full verify and `reload_index()` to
         generation 2 (ids equal generation 1's);
- 13. parity: the same 16 queries served on the card and on the CPU
-     (plain versions) through each (updated) directory must agree.
+ 13. the train path, on the v2 directory as 12b left it (generation 1,
+     tombstones): the label pass (512 train and 128 holdout queries of
+     the directory's corpus recipe, streamed in chunks of 64 clusters
+     through a store that refuses a larger fetch, scored on the card)
+     saved into the label cache; `repro_torch.launch.train_selector.main`
+     in process on the card with the config's 150 epochs, a checkpoint
+     every third of the steps, `--publish --serve-check 256` while a
+     second engine serves beside it and hot-reloads the new generation
+     (0 failed batches, its ids equal a fresh engine's), then again with
+     `--resume` (both label sets from the cache, no steps left); the
+     build_index CLI at its defaults (20000 docs, dim 64, 256 clusters,
+     512 train queries, 40 epochs), served by the port's reader; recsys
+     `make_train_step` on wide_deep `full()`, 8 steps of 512. Then the
+     gates: the streamed dense ids against the in-RAM top-k over the
+     store's decoded matrix on the card (isolated ranks), no deleted doc
+     among them, 16 queries again on the CPU; one step's gradients and
+     the first 20 steps' losses card against CPU; k steps, resume, N - k
+     against N straight on the card (bitwise); the engine's Stage II on
+     the holdout against `select_at` on the calibration probabilities;
+     one recsys step at smoke() widths card against CPU; MRR@10 before
+     and after the publish; then lstm_sequence at the trainer's largest
+     bucket (its backward bitwise autograd through the plain version),
+     cluster_score at the label chunk, topk over the (128, n_docs)
+     full-dense rows with k 10, and the embedding_bag backward, each
+     against its plain version;
+ 14. parity: the same 16 queries served on the card and on the CPU
+     (plain versions) through each (updated) directory must agree; v2
+     now serves the trained selector.
 
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk and bin_overlap on all ten, embedding_bag on recsys), and the
-kernel table sums the ten paths (the seven serving paths, the offline
-build, the two updates). Prints the kernel table as one JSON
+(topk and bin_overlap on all eleven, embedding_bag on recsys and
+train), and the kernel table sums the eleven paths (the seven serving
+paths, the offline build, the two updates, the train path). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import re
@@ -135,6 +163,15 @@ OFFLINE_SHARD_DOCS = 1 << 17
 UPDATE_UPSERTS, UPDATE_DELETES = 10000, 5000
 PQ_CHUNK_DOCS = 1 << 14
 BUILD_INDEX_PEAK = 0               # the in-RAM build_index's, set on the card
+# the train path: the CLI's query counts and label chunk, the serve check,
+# the recsys steps; card-vs-CPU tolerances of a step's gradients, and of
+# the first 20 steps' losses (Adam moves each parameter by about lr
+# whatever its gradient's size, so near-zero gradients that differ in
+# sign between the devices move parameters apart by up to 2 lr a step)
+TRAIN_QUERIES, HOLDOUT_QUERIES, TRAIN_CHUNK = 512, 128, 64
+TRAIN_SERVE_CHECK, TRAIN_RECSYS_STEPS = 256, 8
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
+LOSS_RTOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 
@@ -1742,6 +1779,646 @@ def update_v1_phase(v1_dir, qs, dev):
     return launches
 
 
+class CappedFetchStore:
+    """A host store whose fetches are held to at most `max_blocks` cluster
+    blocks (the label pass's bounded-read contract); `peak` is the
+    largest fetch."""
+
+    is_host = True
+
+    def __init__(self, store, max_blocks):
+        self._store = store
+        self.max_blocks = int(max_blocks)
+        self.peak = 0
+
+    @property
+    def cluster_docs(self):
+        return self._store.cluster_docs
+
+    @property
+    def block_bytes(self):
+        return self._store.block_bytes
+
+    def fetch_blocks(self, cluster_ids):
+        n = len(np.asarray(cluster_ids).reshape(-1))
+        self.peak = max(self.peak, n)
+        if n > self.max_blocks:
+            raise AssertionError(f"a fetch of {n} blocks, over the "
+                                 f"{self.max_blocks} a chunk may read")
+        return self._store.fetch_blocks(cluster_ids)
+
+
+class _Tee(io.TextIOBase):
+    """stdout for a CLI run in process: printed as it comes, and kept."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(main, argv):
+    """(rc, stdout) of an in-process CLI run."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv)
+    return rc, tee.buf.getvalue()
+
+
+def serve_beside(path, qs, dev, stop):
+    """A second engine over `path` serving batches on a thread until `stop`
+    is set; it adopts each new generation by reload_selector() between
+    batches. Returns (engine, thread, record)."""
+    from repro_torch.index import IndexReader
+    from repro_torch.index import format as fmt
+
+    eng = IndexReader.open(path).engine(max_batch=MAX_BATCH, device=dev)
+    rec = {"batches": 0, "failed": 0, "generations": [eng.reader.generation],
+           "reload_s": []}
+
+    def run():
+        while not stop.is_set():
+            try:
+                ids, _ = eng.retrieve(*queries(qs, 0, MAX_BATCH))
+                ids.cpu()
+                rec["batches"] += 1
+                if fmt.manifest_generation(fmt.load_manifest(path)) != \
+                        eng.reader.generation:
+                    t0 = time.perf_counter()
+                    rec["generations"].append(eng.reload_selector())
+                    rec["reload_s"].append(time.perf_counter() - t0)
+            except Exception as e:       # counted, and gated by the caller
+                rec["failed"] += 1
+                rec["error"] = repr(e)
+            stop.wait(0.05)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return eng, t, rec
+
+
+def serve_mrr(path, qs, dev):
+    """MRR@10 of the N_QUERIES queries through a fresh engine over path."""
+    from repro_torch.data import mrr_at
+    from repro_torch.index import IndexReader
+
+    with IndexReader.open(path).engine(max_batch=MAX_BATCH,
+                                       device=dev) as eng:
+        ids, _ = eng.retrieve(*queries(qs, 0, N_QUERIES))
+        return mrr_at(ids.cpu().numpy(), qs.rel_doc[:N_QUERIES])
+
+
+def decoded_matrix(store, n_docs, dim, dev):
+    """The (n_docs, dim) float matrix the store's live slots decode to, on
+    `dev`, filled 512 clusters a fetch."""
+    dec = torch.zeros((n_docs, dim), dtype=torch.float32, device=dev)
+    for lo in range(0, store.n_clusters, 512):
+        vecs, docs, valid = store.fetch_blocks(
+            np.arange(lo, min(lo + 512, store.n_clusters)))
+        valid = np.asarray(valid)
+        rows = torch.from_numpy(np.asarray(docs)[valid].astype(np.int64))
+        dec[rows.to(dev)] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(vecs)[valid])).to(dev)
+    return dec
+
+
+def label_gates(reader, cfg, store, sets, dev):
+    """The streamed label sets against the in-RAM top-k over the decoded
+    matrix on the card (isolated ranks), no deleted doc among them, and 16
+    train queries recomputed on the CPU. Returns the holdout queries'
+    in-RAM score rows (the topk kernel's (B, n_docs) input)."""
+    from repro_torch import train as train_lib
+    from repro_torch.core.clusd import full_dense_topk
+
+    t0 = time.perf_counter()
+    n_docs = int(reader.array("doc_cluster").shape[0])
+    dec = decoded_matrix(store, n_docs, cfg.dim, dev)
+    sync(dev)
+    print(f"  decoded matrix {tuple(dec.shape)} on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cd = np.asarray(reader.array("cluster_docs"))
+    tomb = reader.tombstones()
+    tomb = np.zeros(cd.shape, np.uint8) if tomb is None else tomb
+    live = set(cd[(tomb == 0) & (cd >= 0)].tolist())
+    dead = np.array(sorted(set(cd[tomb > 0].tolist()) - live), np.int64)
+    hold_rows = None
+    for tag, (q, ls) in sets.items():
+        qd = torch.from_numpy(q.q_dense).to(dev)
+        ids, sc = full_dense_topk(dec, qd, ls.dense_ids.shape[1])
+        ids, sc = ids.cpu().numpy(), sc.cpu().numpy()
+        ok = isolated_ranks(sc, PARITY_GAP)
+        bad = int((ids[ok] != ls.dense_ids[ok]).sum())
+        rows_eq = int((ids == ls.dense_ids).all(axis=1).sum())
+        n_dead = int(np.isin(ls.dense_ids, dead).sum())
+        print(f"  labels[{tag}]: streamed vs in-RAM top-{ids.shape[1]} over "
+              f"the decoded matrix: {int(ok.sum())} of {ok.size} ranks "
+              f"isolated, mismatches {bad}; rows bitwise equal {rows_eq} of "
+              f"{len(ids)}; deleted ids among them {n_dead} (of "
+              f"{len(dead)} deleted); pos_rate {ls.pos_rate:.4f}")
+        if bad or n_dead:
+            raise AssertionError(f"labels[{tag}] disagree with the in-RAM "
+                                 "top-k or hold a deleted doc")
+        if tag == "holdout":
+            hold_rows = (qd @ dec.T).contiguous()
+        if tag == "train":
+            train_sc = sc
+    del dec
+    # 16 train queries streamed again on the CPU
+    q, ls = sets["train"]
+    _, index_cpu = reader.load_index(device="cpu")
+    t0 = time.perf_counter()
+    cls = train_lib.make_labels_streaming(
+        cfg, index_cpu, store, q.q_dense[:16], q.q_terms[:16],
+        q.q_weights[:16], label_cfg=train_lib.LabelConfig(
+            chunk_clusters=TRAIN_CHUNK), device="cpu")
+    ok = isolated_ranks(train_sc[:16], PARITY_GAP)
+    bad = int((cls.dense_ids[ok] != ls.dense_ids[:16][ok]).sum())
+    same = (cls.dense_ids == ls.dense_ids[:16]).all(axis=1)
+    lab_bad = int((cls.labels[same] != ls.labels[:16][same]).sum())
+    cand_eq = np.array_equal(cls.cand, ls.cand[:16])
+    feat_err = float(np.abs(cls.feats - ls.feats[:16]).max())
+    print(f"  16 train queries on the CPU ({time.perf_counter() - t0:.2f} "
+          f"s): dense-id mismatches at isolated ranks {bad}; rows equal "
+          f"{int(same.sum())}; label mismatches in them {lab_bad}; "
+          f"candidates equal {cand_eq}; max |feature diff| {feat_err:.3g}")
+    if bad or lab_bad or not cand_eq or feat_err > 1e-4:
+        raise AssertionError("the CPU's labels disagree with the card's")
+    return hold_rows
+
+
+def trainer_gates(cfg, ls, dev, tmp):
+    """One step's gradients and the first 20 steps' losses, card against
+    CPU from the same params; resume on the card against a straight run.
+    Returns the largest bucket's batch features (the train LSTM shape)."""
+    from repro_torch import train as train_lib
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import data as data_lib
+
+    init = train_lib.trainer.init_selector_params(
+        "lstm", ls.feats.shape[-1], cfg.lstm_hidden,
+        torch.Generator().manual_seed(SEED + 5), "cpu")
+    buckets = data_lib.bucket_lengths(cfg, ls.feats, ls.labels)
+    per_epoch = data_lib.n_batches_per_epoch(buckets, MAX_BATCH)
+    batches = [b for e in range(-(-20 // per_epoch) + 1)
+               for b in data_lib.bucketed_batches(
+                   ls.feats, ls.labels, buckets, batch_size=MAX_BATCH,
+                   seed=SEED, epoch=e)][:20]
+    big = max(batches, key=lambda b: b.length)
+    losses, grads = {}, {}
+    for d in ("cpu", dev):
+        tr = train_lib.SelectorTrainer(cfg, device=d)
+        p = {k: v.to(d) for k, v in init.items()}
+        opt = adamw_init(p)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)  # noqa
+        pos_w = torch.tensor(float(cfg.pos_weight), device=d)
+        _, g = tr.loss_and_grads(p, t(big.feats), t(big.labels),
+                                 t(big.weights), pos_w)
+        grads[str(d)] = {k: v.cpu().numpy() for k, v in g.items()}
+        out = []
+        for b in batches:
+            p, opt, loss = tr._step_fn(b.length)(
+                p, opt, t(b.feats), t(b.labels), t(b.weights), pos_w)
+            out.append(float(loss))
+        losses[str(d)] = np.array(out)
+    gerr = max(float(np.abs(grads[str(dev)][k] - grads["cpu"][k]).max())
+               for k in grads["cpu"])
+    g_ok = all(np.allclose(grads[str(dev)][k], grads["cpu"][k],
+                           **TRAIN_TOL) for k in grads["cpu"])
+    lrel = float(np.abs(losses[str(dev)] / losses["cpu"] - 1).max())
+    print(f"  one step at {big.feats.shape}, card (kernel forward) vs CPU "
+          f"(plain): max |grad diff| {gerr:.3g}, allclose(rtol "
+          f"{TRAIN_TOL['rtol']}, atol {TRAIN_TOL['atol']}) {g_ok}; first "
+          f"{len(batches)} steps' losses max relative diff {lrel:.3g} "
+          f"(card {losses[str(dev)][0]:.6f} .. {losses[str(dev)][-1]:.6f})")
+    if not g_ok or lrel > LOSS_RTOL:
+        raise AssertionError("the card's training disagrees with the CPU's")
+    # train N steps == train k, resume, train N - k, on the card
+    kw = dict(epochs=2, seed=SEED)
+    n = 2 * per_epoch
+    k = per_epoch + max(1, per_epoch // 2) if per_epoch > 1 else 1
+    full, _ = train_lib.SelectorTrainer(cfg, train_lib.SelectorTrainConfig(
+        **kw), device=dev).fit(None, ls.feats, ls.labels, init=init)
+    ck = os.path.join(tmp, "resume_ckpt")
+    train_lib.SelectorTrainer(cfg, train_lib.SelectorTrainConfig(
+        ckpt_dir=ck, max_steps=k, **kw), device=dev).fit(
+        None, ls.feats, ls.labels, init=init)
+    res, _ = train_lib.SelectorTrainer(cfg, train_lib.SelectorTrainConfig(
+        ckpt_dir=ck, **kw), device=dev).fit(None, ls.feats, ls.labels,
+                                            init=init, resume=True)
+    same = all(torch.equal(full[key], res[key]) for key in full)
+    print(f"  resume on the card: {n} steps straight vs {k} + resume + "
+          f"{n - k}: bitwise {same}")
+    if not same:
+        raise AssertionError("resume on the card is not bitwise")
+    shutil.rmtree(ck)
+    return torch.from_numpy(np.ascontiguousarray(big.feats)).to(dev)
+
+
+def calibration_gate(path, hold_q, hold_ls, dev):
+    """The engine serves Stage II through the lstm_sequence kernel,
+    so the calibration's probabilities must come from it. The engine's
+    own Stage-I/II functions on the holdout queries against select_at on
+    the calibration probabilities at the published (theta, budget)."""
+    from repro_torch import train as train_lib
+    from repro_torch.engine import pipeline as pipe_lib
+    from repro_torch.index import IndexReader
+
+    reader = IndexReader.open(path)
+    cfg, index = reader.load_index(device=dev)
+    params = reader.lstm_params()
+    theta, budget = cfg.theta, cfg.max_selected
+    probs = train_lib.selector_probs(params, hold_ls.feats, use_kernel=True,
+                                     device=dev)
+    sel_ids, sel_mask = train_lib.select_at(hold_ls.cand, probs, theta,
+                                            budget)
+    qd, qt, qw = (torch.from_numpy(a).to(dev) for a in
+                  (hold_q.q_dense, hold_q.q_terms, hold_q.q_weights))
+    with torch.no_grad():
+        _, _, cand, feats = pipe_lib.build_stage1_fn(cfg, index)(qd, qt, qw)
+        e_ids, e_mask, e_probs = pipe_lib.build_stage2_fn(cfg, index)(
+            cand, feats)
+    e_ids, e_mask = e_ids.cpu().numpy(), e_mask.cpu().numpy()
+    e_probs = e_probs.cpu().numpy()
+    near = (np.abs(probs - theta) < 1e-6).any(axis=1)
+    diff = ((np.where(e_mask, e_ids, -1) != np.where(sel_mask, sel_ids, -1))
+            .any(axis=1) | (cand.cpu().numpy() != hold_ls.cand).any(axis=1))
+    bad = int((diff & ~near).sum())
+    print(f"  calibration at the published theta {theta} budget {budget}: "
+          f"engine Stage II vs select_at on the calibration probabilities: "
+          f"{int(diff.sum())} of {len(diff)} queries differ, {bad} away "
+          f"from theta; probs bitwise {np.array_equal(e_probs, probs)}, "
+          f"max |diff| {float(np.abs(e_probs - probs).max()):.3g}; clusters "
+          f"selected a query {e_mask.sum(1).mean():.2f}")
+    if bad:
+        raise AssertionError("the engine's Stage II disagrees with the "
+                             "calibration")
+    return {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+
+
+def recsys_train(dev):
+    """make_train_step on wide_deep at RECSYS_SIZE widths, TRAIN_RECSYS_STEPS
+    batches of 512 on the card. Returns the wide bag's (table, idx) of the
+    last batch."""
+    from repro_torch.data import RecsysStream
+    from repro_torch.models import recsys as rs
+    from repro_torch.optim import adamw_init
+
+    cfg, model = recsys_model(dev)
+    params = model.params
+    del model
+    opt = adamw_init(rs.train_tree(params))
+    step = rs.make_train_step(cfg)
+    stream = RecsysStream(cfg, seed=SEED + 2)
+    batches = [rs.as_batch(stream.batch(512), dev)
+               for _ in range(TRAIN_RECSYS_STEPS)]
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, st = step(params, opt, b)
+        losses.append(float(st["loss"]))       # syncs the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    p50, _, _ = _ms_stats(ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    print(f"  {cfg.name} make_train_step, {len(batches)} steps at batch 512: "
+          f"step ms p50 {p50:.3f} (first {ms[0]:.3f}, all "
+          f"{[round(m, 3) for m in ms]}); losses {[round(x, 5) for x in losses]}"
+          f"; peak device memory {peak:.2f} GB")
+    if not np.isfinite(losses).all():
+        raise AssertionError("the recsys train step gave a loss that is not "
+                             "finite")
+    wide = params["wide"]
+    sparse = batches[-1]["sparse"]
+    idx = (sparse + wide.offsets[:sparse.shape[1]]).contiguous()
+    return wide.weight.detach(), idx, p50
+
+
+def recsys_train_parity(dev):
+    """One make_train_step at wide_deep smoke() widths, card against CPU:
+    loss, gradients, params. Adam's first step moves each param by about
+    lr whatever its gradient's size, so where |grad| < 1e-6 the two may
+    step in opposite directions: held there at 2 lr."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import RecsysStream
+    from repro_torch.models import recsys as rs
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("wide-deep", "smoke")
+    params = rs.init_params(cfg, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    batch = RecsysStream(cfg, seed=SEED + 3).batch(512)
+    step = rs.make_train_step(cfg)
+    res = {}
+    for d in ("cpu", dev):
+        p = {k: v.moved(d) if isinstance(v, rs.FusedTable) else v.to(d)
+             for k, v in params.items()}
+        b = rs.as_batch(batch, d)
+        loss, grads = rs.train_loss_and_grads(cfg, p, b)
+        p2, _, _ = step(p, adamw_init(rs.train_tree(p)), b)
+        res[str(d)] = (float(loss), {k: v.cpu().numpy() for k, v in
+                                     grads.items()},
+                       {k: v.cpu().numpy() for k, v in
+                        rs.train_tree(p2).items()})
+    c, g = res["cpu"], res[str(dev)]
+    lr = TrainConfig().lr
+    g_ok = all(np.allclose(g[1][k], c[1][k], **TRAIN_TOL) for k in c[1])
+    p_bad = 0
+    for k in c[2]:
+        small = np.abs(c[1][k]) < 1e-6
+        d = np.abs(g[2][k] - c[2][k])
+        p_bad += int((d[~small] > 1e-5 + 1e-5 * np.abs(c[2][k][~small]))
+                     .sum() + (d[small] > 2 * lr + 1e-6).sum())
+    print(f"  wide_deep smoke one step card vs CPU: loss {g[0]:.7f} / "
+          f"{c[0]:.7f}; grads allclose {g_ok} (max |diff| "
+          f"{max(float(np.abs(g[1][k] - c[1][k]).max()) for k in c[1]):.3g})"
+          f"; params outside tolerance {p_bad}")
+    if not (abs(g[0] - c[0]) <= 1e-5 * abs(c[0]) and g_ok and p_bad == 0):
+        raise AssertionError("the recsys train step on the card disagrees "
+                             "with the CPU's")
+
+
+def train_phase(v2_dir, qs, tmp, dev):
+    """Selector training on the v2 directory as update_v2 left it: the
+    label pass (streamed, capped reads, into the CLI's label cache),
+    `repro_torch.launch.train_selector.main` with --publish beside a
+    serving thread, again with --resume, the build_index CLI at its
+    defaults, recsys make_train_step; then the gates. Returns (launch
+    counts of the driven path, the kernels' train inputs)."""
+    from types import SimpleNamespace
+
+    from repro_torch import kernels
+    from repro_torch import train as train_lib
+    from repro_torch.data import synth_corpus, synth_queries
+    from repro_torch.index import IndexReader
+    from repro_torch.launch import build_index as build_cli
+    from repro_torch.launch import train_selector as ts_cli
+
+    reader = IndexReader.open(v2_dir)
+    cfg, index = reader.load_index(device=dev)
+    store = reader.open_store(cluster_docs=index.cluster_docs)
+    t0 = time.perf_counter()
+    _, train_q, hold_q = ts_cli._corpus_queries(reader, SimpleNamespace(
+        seed=SEED, train_queries=TRAIN_QUERIES,
+        holdout_queries=HOLDOUT_QUERIES))
+    print(f"  generation {reader.generation}; the CLI's queries from the "
+          f"directory's corpus recipe: {time.perf_counter() - t0:.2f} s")
+    mrr_before = serve_mrr(v2_dir, qs, dev)
+
+    kernels.reset_launches()
+    lc = train_lib.LabelConfig(chunk_clusters=TRAIN_CHUNK)
+    cache = train_lib.LabelCache(v2_dir.rstrip("/") + ".labels")
+    sets = {}
+    for tag, q in (("train", train_q), ("holdout", hold_q)):
+        capped = CappedFetchStore(store, TRAIN_CHUNK)
+        ls = train_lib.make_labels_streaming(
+            cfg, index, capped, q.q_dense, q.q_terms, q.q_weights,
+            label_cfg=lc, device=dev)
+        key = train_lib.label_cache_key(
+            reader.manifest, cfg, lc, train_lib.query_fingerprint(
+                q.q_dense, q.q_terms, q.q_weights))
+        cache.save(key, ls, extra={"tag": tag,
+                                   "generation": reader.generation})
+        st = ls.stats
+        print(f"  label pass [{tag}] {ls.n_queries} queries: {st.wall_s:.2f} "
+              f"s (stream {st.stream_wall_s:.2f} s), {st.n_fetches} fetches, "
+              f"{st.blocks_read} blocks, {st.bytes_read} bytes; largest "
+              f"fetch {capped.peak} <= {TRAIN_CHUNK} blocks")
+        sets[tag] = (q, ls)
+    train_ls = sets["train"][1]
+    per_epoch = train_lib.n_batches_per_epoch(train_lib.bucket_lengths(
+        cfg, train_ls.feats, train_ls.labels), MAX_BATCH)
+    n_steps = cfg.epochs * per_epoch
+    every = max(1, n_steps // 3)
+
+    stop = threading.Event()
+    eng, thread, rec = serve_beside(v2_dir, qs, dev, stop)
+    trace = os.path.join(tmp, "train.jsonl")
+    metrics = os.path.join(tmp, "train_metrics.json")
+    argv = ["--index-dir", v2_dir, "--train-queries", str(TRAIN_QUERIES),
+            "--holdout-queries", str(HOLDOUT_QUERIES), "--chunk-clusters",
+            str(TRAIN_CHUNK), "--ckpt-every", str(every),
+            "--device", str(dev)]
+    t0 = time.perf_counter()
+    rc, out = run_cli(ts_cli.main, argv + [
+        "--publish", "--serve-check", str(TRAIN_SERVE_CHECK),
+        "--trace-out", trace, "--metrics-out", metrics])
+    sync(dev)
+    cli_s = time.perf_counter() - t0
+    deadline = time.perf_counter() + 120     # its next batch sees the commit
+    while rec["generations"][-1] == 1 and not rec["failed"] and \
+            time.perf_counter() < deadline:
+        time.sleep(0.05)
+    stop.set()
+    thread.join()
+    if rc != 0 or "serve check OK" not in out or out.count("(cache hit)") \
+            != 2:
+        raise AssertionError("the train_selector CLI failed")
+    hot, _ = eng.retrieve(*queries(qs, 0, MAX_BATCH))
+    eng.close()
+    with IndexReader.open(v2_dir).engine(max_batch=MAX_BATCH,
+                                         device=dev) as fresh:
+        want, _ = fresh.retrieve(*queries(qs, 0, MAX_BATCH))
+    print(f"  train_selector --publish: rc {rc} in {cli_s:.2f} s, {n_steps} "
+          f"steps ({per_epoch} per epoch, a checkpoint every {every}); serving "
+          f"thread: {rec['batches']} batches, {rec['failed']} failed, "
+          f"generations {rec['generations']}, reload_selector "
+          f"{[round(x, 3) for x in rec['reload_s']]} s; its ids after the "
+          f"reload equal a fresh engine's {torch.equal(hot, want)}")
+    if rec["failed"] or rec["generations"][-1] != 2 or not torch.equal(
+            hot, want):
+        raise AssertionError(f"serving beside the publish failed: {rec}")
+    spans = {}
+    with open(trace) as f:
+        for ln in f:
+            r = json.loads(ln)
+            if r["trace_name"] == "train_selector":
+                spans[r["span"]] = round(r["dur_ms"], 3)
+    with open(metrics) as f:
+        snap = json.load(f)
+    hist = snap["histograms"]["train.step_ms"]
+    print(f"  spans (ms) {json.dumps(spans)}; train.step_ms p50 "
+          f"{hist.get('p50')} p99 {hist.get('p99')} over {hist['count']} "
+          f"steps; train.steps_per_s {snap['gauges']['train.steps_per_s']}")
+    t0 = time.perf_counter()
+    rc, out = run_cli(ts_cli.main, argv + ["--resume"])
+    print(f"  train_selector --resume: rc {rc} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if rc != 0 or out.count("(cache hit)") != 2 or "no steps left" not in out:
+        raise AssertionError("the --resume run did not hit the label cache "
+                             "or had steps left")
+
+    bi = os.path.join(tmp, "build_index")
+    t0 = time.perf_counter()
+    rc, _ = run_cli(build_cli.main, ["--out", bi, "--device", str(dev)])
+    bi_s = time.perf_counter() - t0
+    r = IndexReader.open(bi, verify="full")
+    meta = r.manifest["extra"]["corpus"]
+    bq = synth_queries(SEED + 7, synth_corpus(meta["seed"], meta["n_docs"],
+                                              meta["dim"], meta["vocab"]), 64)
+    with r.engine(max_batch=64, device=dev) as beng:
+        ids, scores = beng.retrieve(bq.q_dense, bq.q_terms, bq.q_weights)
+        check_results(beng.cfg, ids, scores, 64)
+    from repro_torch.data import mrr_at
+    print(f"  build_index CLI at its defaults: rc {rc} in {bi_s:.2f} s, "
+          f"{r.manifest['total_bytes']} bytes, lstm "
+          f"{r.manifest['lstm'] is not None}; served 64 queries, MRR@10 "
+          f"{mrr_at(ids.cpu().numpy(), bq.rel_doc):.4f}")
+    if rc != 0 or r.manifest["lstm"] is None:
+        raise AssertionError("the build_index CLI failed")
+    shutil.rmtree(bi)
+    table, idx, recsys_ms = recsys_train(dev)
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  train path launches {launches}")
+
+    # the gates (their launches are not the path's)
+    with torch.no_grad():
+        hold_rows = label_gates(reader, cfg, store, sets, dev)
+    x = trainer_gates(cfg, train_ls, dev, tmp)
+    params = calibration_gate(v2_dir, hold_q, sets["holdout"][1], dev)
+    recsys_train_parity(dev)
+    mrr_after = serve_mrr(v2_dir, qs, dev)
+    print(f"  MRR@10 of the {N_QUERIES} queries on v2: {mrr_before:.4f} "
+          f"(generation 1, untrained selector) -> {mrr_after:.4f} "
+          f"(generation 2, trained and calibrated; for information)")
+    q_chunk = torch.from_numpy(train_q.q_dense).to(dev)
+    vecs, _, _ = store.fetch_blocks(np.arange(TRAIN_CHUNK))
+    chunk = torch.from_numpy(np.ascontiguousarray(vecs)).to(dev)
+    return launches, {"lstm": (x, params), "chunk": (q_chunk, chunk),
+                      "rows": hold_rows, "bag": (table, idx),
+                      "recsys_step_ms": recsys_ms}
+
+
+def check_train_kernels(rows, dev, t_in):
+    """The train path's new shapes, each kernel against its plain version:
+    lstm_sequence at the trainer's largest bucket (with the backward's
+    time for information), cluster_score at the label chunk, topk over
+    the in-RAM full-dense rows, and the embedding_bag backward against
+    autograd through its plain version. Appended to the rows' shapes."""
+    from repro_torch.kernels.cluster_score import (cluster_score,
+                                                   cluster_score_ref)
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_ref)
+    from repro_torch.kernels.lstm import lstm_sequence, lstm_sequence_ref
+    from repro_torch.kernels.topk import topk, topk_ref
+
+    by = {r["name"]: r for r in rows}
+    x, p = t_in["lstm"]
+    (B, n, F), (H, G) = x.shape, p["wh"].shape
+    out = lstm_sequence(x, p["wx"], p["wh"], p["b"])
+    ref = lstm_sequence_ref(x, p["wx"], p["wh"], p["b"])
+    e = (out - ref).abs().max().item()
+    ins = [t.clone().requires_grad_() for t in (x, p["wx"], p["wh"], p["b"])]
+    gout = torch.randn(out.shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    g_k = torch.autograd.grad(lstm_sequence(*ins), ins, gout)
+    g_r = torch.autograd.grad(lstm_sequence_ref(*ins), ins, gout)
+    bitwise = all(torch.equal(a, b) for a, b in zip(g_k, g_r))
+    if not e <= 1e-5 or not bitwise:
+        raise AssertionError(f"lstm_sequence at the train shape: {e}, "
+                             f"backward bitwise {bitwise}")
+    fwd = graph_ms(lambda: lstm_sequence(x, p["wx"], p["wh"], p["b"]), 50)
+    bwd = cuda_ms(lambda: torch.autograd.grad(lstm_sequence(*ins), ins,
+                                              gout), 10)
+    # one trainer step at this shape, alone on the card: the forward and
+    # loss, the backward (the plain LSTM recomputed under autograd), Adam
+    from repro_torch import train as train_lib
+    from repro_torch.configs import clusd_msmarco
+    from repro_torch.optim import adamw_init, adamw_update
+    tr = train_lib.SelectorTrainer(clusd_msmarco.full(), device=dev)
+    y = (torch.rand(B, n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+         < 0.05).float()
+    w, pw = torch.ones(B, device=dev), torch.tensor(4.0, device=dev)
+    opt = adamw_init(p)
+
+    def fwd_loss():
+        with torch.no_grad():
+            probs = torch.clamp(train_lib.selector_apply(p, x,
+                                                         use_kernel=True),
+                                1e-6, 1 - 1e-6)
+            return -(pw * y * torch.log(probs)
+                     + (1 - y) * torch.log(1 - probs)).mean()
+
+    def step():
+        _, grads = tr.loss_and_grads(p, x, y, w, pw)
+        return adamw_update(grads, opt, p, lr=1e-3)
+
+    t_fwd, t_lg, t_step = (cuda_ms(fwd_loss, 10),
+                           cuda_ms(lambda: tr.loss_and_grads(p, x, y, w, pw),
+                                   10), cuda_ms(step, 10))
+    b_ms, b_by = bound(4 * (x.numel() + F * G + H * G + G + B * n * H),
+                       2 * B * n * G * (F + H))
+    by["lstm_sequence"]["shapes"].append(
+        f"train (B, n, F, H) {(B, n, F, H)}: ms {fwd:.4f} plain "
+        f"{cuda_ms(lambda: lstm_sequence_ref(x, p['wx'], p['wh'], p['b']), 10):.4f}"
+        f" bound {b_ms:.4f} ({b_by}); forward + backward (plain VJP "
+        f"recomputed) eager {bwd:.4f}; max_abs_err {e:.3g}; backward "
+        f"bitwise autograd through plain; a trainer step alone {t_step:.4f}"
+        f" (forward + loss {t_fwd:.4f}, + backward {t_lg:.4f}, Adam "
+        f"{t_step - t_lg:.4f}; the backward's share "
+        f"{(t_lg - t_fwd) / t_step:.3f})")
+    q, blocks = t_in["chunk"]
+    U, cap, dim = blocks.shape
+    sel = torch.arange(U, dtype=torch.int32, device=dev)[None].expand(
+        q.shape[0], U).contiguous()
+    out = cluster_score(q, blocks, sel)
+    ref = cluster_score_ref(q, blocks, sel)
+    e = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"cluster_score at the label chunk: {e}")
+    flat = blocks.reshape(U * cap, dim)
+    b_ms, b_by = bound(4 * (U * cap * dim + q.numel() + q.shape[0] * U * cap)
+                       + 4 * sel.numel(), 2 * q.shape[0] * U * cap * dim)
+    by["cluster_score"]["shapes"].append(
+        f"label chunk q {tuple(q.shape)} blocks {(U, cap, dim)}: ms "
+        f"{graph_ms(lambda: cluster_score(q, blocks, sel)):.4f} plain "
+        f"{cuda_ms(lambda: cluster_score_ref(q, blocks, sel), 3):.4f} "
+        f"library (q @ blocks^T) {graph_ms(lambda: q @ flat.T):.4f} bound "
+        f"{b_ms:.4f} ({b_by}); max_abs_err {e:.3g}")
+    xr = t_in["rows"]
+    v, i = topk(xr, 10)
+    rv, ri = topk_ref(xr, 10)
+    if not (torch.equal(i, ri) and torch.equal(v.view(torch.int32),
+                                               rv.view(torch.int32))):
+        raise AssertionError("topk on the full-dense rows is not bitwise")
+    Bq, D = xr.shape
+    b_ms, b_by = bound(4 * Bq * D + 12 * Bq * 10, Bq * D)
+    by["topk"]["shapes"].append(
+        f"full-dense ({Bq}, {D}) k 10: ms "
+        f"{graph_ms(lambda: topk(xr, 10)):.4f} plain "
+        f"{cuda_ms(lambda: topk_ref(xr, 10), 3):.4f} library "
+        f"{graph_ms(lambda: torch.topk(xr, 10), 5):.4f} bound {b_ms:.4f} "
+        f"({b_by})")
+    table, idx = t_in["bag"]
+    gout = torch.randn((idx.shape[0], table.shape[1]), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(2))
+    tk = table.clone().requires_grad_()
+    tr = table.clone().requires_grad_()
+    (gk,) = torch.autograd.grad(embedding_bag(tk, idx), tk, gout)
+    (gr,) = torch.autograd.grad(embedding_bag_ref(tr, idx), tr, gout)
+    e = (gk - gr).abs().max().item()
+    # index_add_'s atomics add a row's duplicates in another order
+    if not torch.allclose(gk, gr, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"embedding_bag's backward disagrees: {e}")
+    by["embedding_bag"]["shapes"].append(
+        f"train wide bag backward (B, hot, d) "
+        f"{(idx.shape[0], idx.shape[1], table.shape[1])} over "
+        f"{table.shape[0]} rows: forward + backward eager "
+        f"{cuda_ms(lambda: torch.autograd.grad(embedding_bag(tk, idx), tk, gout), 10):.4f}"
+        f" plain's {cuda_ms(lambda: torch.autograd.grad(embedding_bag_ref(tr, idx), tr, gout), 5):.4f}"
+        f"; max |grad diff| {e:.3g}")
+    for name in ("lstm_sequence", "cluster_score", "topk", "embedding_bag"):
+        print(f"  {name}: {by[name]['shapes'][-1]}", flush=True)
+
+
 def parity(name, make_engine, qs, dev, atol):
     """The first PARITY_QUERIES queries served by make_engine(dev) and by
     make_engine("cpu") (plain versions): ids equal at isolated ranks,
@@ -1807,6 +2484,12 @@ PATH_KERNELS = {
                   "bin_overlap"),
     # the re-cluster's neighbor graph (topk) and v1 serving
     "update_v1": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+    # labels (sparse top-k, Stage I), the train step's forward,
+    # calibration, v2 serving beside and after the publish, the recsys
+    # step's wide bag, and the build_index CLI's v1 directory served
+    # ("dot" tail)
+    "train": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
+              "bin_overlap", "embedding_bag", "cluster_score"),
 }
 
 
@@ -1970,6 +2653,14 @@ def main():
         with phase("v1 re-clustering delta under serving, reload, "
                    "compaction, reload"):
             paths["update_v1"] = update_v1_phase(dirs["v1"], qs, dev)
+        with phase(f"train: labels ({TRAIN_QUERIES} + {HOLDOUT_QUERIES} "
+                   f"queries, chunks of {TRAIN_CHUNK}), train_selector "
+                   f"--publish beside serving, --resume, build_index, "
+                   f"recsys make_train_step; the gates"):
+            paths["train"], t_in = train_phase(dirs["v2"], qs, tmp, dev)
+        with phase("kernels vs plain versions on the train path's shapes"):
+            check_train_kernels(rows, dev, t_in)
+            del t_in
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
         print(f"  launches over the {len(paths)} paths: {launches}")

@@ -1,7 +1,9 @@
 """The npz checkpoint layout of the JAX package (`repro.checkpoint`),
-read and written with numpy alone."""
+read and written with numpy over nested dicts of tensors."""
 
-from repro_torch.checkpoint.ckpt import (leaf_key, read_checkpoint,
-                                         save_checkpoint)
+from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
+                                         leaf_key, read_checkpoint,
+                                         restore_checkpoint, save_checkpoint)
 
-__all__ = ["leaf_key", "read_checkpoint", "save_checkpoint"]
+__all__ = ["CheckpointManager", "latest_step", "leaf_key", "read_checkpoint",
+           "restore_checkpoint", "save_checkpoint"]

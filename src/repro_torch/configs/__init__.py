@@ -4,7 +4,8 @@ JAX module's `full()` and `smoke()`."""
 
 import importlib
 
-from repro_torch.configs.base import CluSDConfig, RecsysConfig
+from repro_torch.configs.base import (CluSDConfig, RecsysConfig,
+                                      TrainConfig)
 
 # arch-id -> module name (the subset of the JAX registry that is ported)
 ARCH_REGISTRY = {
@@ -26,4 +27,5 @@ def get_config(arch, variant="full"):
     return getattr(mod, variant)()
 
 
-__all__ = ["ARCH_REGISTRY", "CluSDConfig", "RecsysConfig", "get_config"]
+__all__ = ["ARCH_REGISTRY", "CluSDConfig", "RecsysConfig", "TrainConfig",
+           "get_config"]

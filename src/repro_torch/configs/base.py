@@ -1,5 +1,6 @@
-"""The system configs: copies of repro.configs.base.CluSDConfig and
-RecsysConfig, with the same fields, defaults and derived values."""
+"""The system configs: copies of repro.configs.base.CluSDConfig,
+RecsysConfig and TrainConfig, with the same fields, defaults and derived
+values."""
 
 import dataclasses
 import math
@@ -28,6 +29,23 @@ class RecsysConfig:
 
     def total_rows(self) -> int:
         return sum(self.table_sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    schedule: str = "cosine"
+    ckpt_every: int = 100
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    grad_compression: bool = False   # int8 error-feedback all-reduce
+    microbatch: int = 0              # grad accumulation (0 = off)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,12 @@ build or launch is an error, never a switch to ref. An index outside
 the CPU by a check before the lookup (torch indexing would wrap -1
 round), on the card from the call's own error word once its stream
 has finished (no extra pass over the indices; concurrent calls on
-other threads or streams each keep their own word)."""
+other threads or streams each keep their own word). Under autograd (a
+table that requires grad) the op is `_EmbeddingBagFn`: its forward is
+this launch (the plain version on the CPU), its backward the plain VJP,
+an index_add_ of each bag's gradient into its rows, which is how JAX
+differentiates the `jnp.take` of its recsys lookups; there is no
+backward kernel."""
 
 import torch
 
@@ -26,10 +31,41 @@ def _check_range(idx, V):
                              f"outside the table's [0, {V})")
 
 
+class _EmbeddingBagFn(torch.autograd.Function):
+    """Forward: the bag op. Backward: d table[idx[b, h]] += g[b] for
+    every (b, h), one index_add_ (atomics on the card, so duplicate rows
+    add in no fixed order there)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        ctx.table_dtype = table.dtype
+        return _bag(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        B, hot = idx.shape
+        d = ctx.table_shape[1]
+        grad = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                           device=g.device)
+        rows = g.float()[:, None, :].expand(B, hot, d).reshape(B * hot, d)
+        grad.index_add_(0, idx.reshape(-1).long(), rows)
+        return grad.to(ctx.table_dtype), None
+
+
 def embedding_bag(table, idx):
     """table: (V, d) float32 or bfloat16; idx: (B, hot) int32 (any
     integer type on the CPU). Returns the sum-pooled (B, d) bags in the
-    table's dtype, each summed in ascending h in float32."""
+    table's dtype, each summed in ascending h in float32;
+    differentiable in `table`."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingBagFn.apply(table, idx)
+    return _bag(table, idx)
+
+
+def _bag(table, idx):
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"table must be (V, d) and idx (B, hot), got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")

@@ -1,6 +1,11 @@
-"""Public LSTM-sequence op. CPU tensors take the plain version (ref.py);
-CUDA tensors launch the kernel of csrc/lstm.cu after the checks below,
-or raise. The kernel has no backward: training is a later slice."""
+"""Public LSTM-sequence op. CPU tensors take the plain version (ref.py),
+differentiated by autograd. CUDA tensors launch the kernel of
+csrc/lstm.cu after the checks below, or raise; under autograd the launch
+is the forward of `_LSTMSequenceFn`, whose backward recomputes the plain
+version on the saved inputs and takes its VJP: the same function, so the
+kernel's exact gradient, as the JAX package's custom VJP
+(`repro.train.trainer._lstm_hseq_bwd`) takes it through the scan. The
+JAX package has no backward kernel, and neither has this one."""
 
 import torch
 
@@ -9,14 +14,7 @@ from repro_torch.kernels.lstm import kernel
 from repro_torch.kernels.lstm.ref import lstm_sequence_ref
 
 
-def lstm_sequence(x, wx, wh, b):
-    """x: (B, n, F); wx: (F, 4H); wh: (H, 4H); b: (4H,) -> (B, n, H)."""
-    if not on_cuda(x, wx, wh, b):
-        return lstm_sequence_ref(x, wx, wh, b)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, wx, wh, b)):
-        raise RuntimeError("lstm_sequence's CUDA kernel has no backward; "
-                           "call it under torch.no_grad()")
+def _launch(x, wx, wh, b):
     for t, name, nd in ((x, "x", 3), (wx, "wx", 2), (wh, "wh", 2), (b, "b", 1)):
         require(t, name, torch.float32, nd)
     B, n, F = x.shape
@@ -32,3 +30,35 @@ def lstm_sequence(x, wx, wh, b):
         kernel.lstm_sequence_cuda(x, wx, wh, b, out)
     record_launch("lstm_sequence")
     return out
+
+
+class _LSTMSequenceFn(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: the VJP of lstm_sequence_ref
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, wx, wh, b):
+        ctx.save_for_backward(x, wx, wh, b)
+        return _launch(x, wx, wh, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad)]
+            h = lstm_sequence_ref(*inputs)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(h, wanted, g))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs)
+
+
+def lstm_sequence(x, wx, wh, b):
+    """x: (B, n, F); wx: (F, 4H); wh: (H, 4H); b: (4H,) -> (B, n, H)."""
+    if not on_cuda(x, wx, wh, b):
+        return lstm_sequence_ref(x, wx, wh, b)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, wx, wh, b)):
+        return _LSTMSequenceFn.apply(x, wx, wh, b)
+    return _launch(x, wx, wh, b)

@@ -14,7 +14,12 @@ into a float32 accumulator that starts at 0.0, which is the JAX Python
 
 `make_retrieval_step` scores users against candidates two-tower style;
 repro_torch.core.retrieval runs CluSD's cluster selection over the same
-towers. `make_train_step` waits for the training slice.
+towers. `make_train_step` is the JAX module's functional AdamW step over
+`train_tree(params)`, the params with each FusedTable as its one fused
+weight leaf (Adam is elementwise, so this is the JAX update of every
+per-field table; only the global norm sums its squares in another
+order). Gradients reach the tables through the lookups' indexing and the
+embedding_bag op's autograd Function (its backward an index_add_).
 """
 
 import dataclasses
@@ -98,7 +103,7 @@ class FusedTable(nn.Module):
     is field 3's (rows_3, d) view and `offsets[3]` its first row (int32).
     `lookup` and `bag` take (B, n) ids of the fields lo .. lo + n - 1."""
 
-    def __init__(self, weight, rows):
+    def __init__(self, weight, rows, *, requires_grad=False, offsets=None):
         super().__init__()
         self.rows = tuple(int(r) for r in rows)
         if sum(self.rows) != weight.shape[0]:
@@ -108,9 +113,16 @@ class FusedTable(nn.Module):
             raise ValueError("a fused table takes int32 row indices")
         self.starts = tuple(int(s) for s in
                             np.cumsum((0,) + self.rows[:-1]))
-        self.weight = nn.Parameter(weight, requires_grad=False)
-        self.register_buffer("offsets", torch.tensor(
-            self.starts, dtype=torch.int32, device=weight.device))
+        self.weight = nn.Parameter(weight, requires_grad=requires_grad)
+        if offsets is None:
+            offsets = torch.tensor(self.starts, dtype=torch.int32,
+                                   device=weight.device)
+        self.register_buffer("offsets", offsets)
+
+    def with_weight(self, weight, requires_grad=False):
+        """The same fields over another fused weight (its offsets shared)."""
+        return FusedTable(weight, self.rows, requires_grad=requires_grad,
+                          offsets=self.offsets)
 
     def __getitem__(self, name):
         i = int(name[1:])
@@ -319,6 +331,62 @@ def _din_forward(cfg, params, batch):
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
+
+def train_tree(params):
+    """The tree an optimizer updates: `params` with each FusedTable as its
+    fused weight tensor (leaves "tables", "wide", "wide_bias", the MLP
+    leaves)."""
+    return {k: v.weight.detach() if isinstance(v, FusedTable) else v
+            for k, v in _params(params).items()}
+
+
+def _from_tree(params, tree):
+    """`params` with the leaves of `tree` (train_tree's layout)."""
+    return {k: v.with_weight(tree[k]) if isinstance(v, FusedTable)
+            else tree[k] for k, v in _params(params).items()}
+
+
+def train_loss_and_grads(cfg, params, batch):
+    """(loss, grads) of one batch, grads in train_tree's layout: the JAX
+    module's logistic loss mean(max(z, 0) - z*y + log1p(exp(-|z|))) and
+    its value_and_grad."""
+    params = _params(params)
+    live = {k: v.with_weight(v.weight.detach(), requires_grad=True)
+            if isinstance(v, FusedTable) else v.detach().requires_grad_()
+            for k, v in params.items()}
+    leaves = {k: v.weight if isinstance(v, FusedTable) else v
+              for k, v in live.items()}
+    with torch.enable_grad():
+        logit = forward(cfg, live, batch)
+        y = batch["label"].float()
+        loss = torch.mean(torch.maximum(logit, torch.zeros_like(logit))
+                          - logit * y
+                          + torch.log1p(torch.exp(-torch.abs(logit))))
+        names = sorted(leaves)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def make_train_step(cfg, train_cfg=None):
+    """A functional step (params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"}): the logistic loss, then adamw_update with the
+    train config's lr and grad_clip and no weight decay, as the JAX
+    module passes none. opt_state is `adamw_init(train_tree(params))`;
+    the returned params hold new tensors (FusedTables over new fused
+    weights)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import adamw_update
+    tc = train_cfg or TrainConfig()
+
+    def train_step(params, opt_state, batch):
+        loss, grads = train_loss_and_grads(cfg, params, batch)
+        tree, opt_state, stats = adamw_update(
+            grads, opt_state, train_tree(params), lr=tc.lr,
+            grad_clip=tc.grad_clip)
+        return _from_tree(params, tree), opt_state, {"loss": loss, **stats}
+
+    return train_step
+
 
 def make_serve_step(cfg):
     def serve(params, batch):

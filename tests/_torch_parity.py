@@ -218,3 +218,93 @@ def assert_same_stats_surface(ts, js):
     assert ts["io"]["bytes"] == js["io"]["bytes"]
     for k in ("hits", "misses", "evictions", "clears", "size"):
         assert ts["cache"][k] == js["cache"][k], k
+
+
+# -- selector training ---------------------------------------------------------
+
+def tiny_train_cfg():
+    """tests/test_train.py's tiny CluSD config (512 docs, 32 clusters,
+    n 8), as a JAX config."""
+    import dataclasses
+
+    from repro.configs import get_config
+    return dataclasses.replace(
+        get_config("clusd-msmarco", "smoke"),
+        n_docs=512, dim=16, n_clusters=32, vocab=256, max_postings=128,
+        k_sparse=64, bins=(5, 15, 30, 64), n_candidates=8, max_selected=4,
+        n_neighbors=8, u_bins=4, k_final=32, train_queries=24, epochs=2)
+
+
+def jax_train_dirs(root, *, seed=0, n_queries=24):
+    """The tiny corpus of tests/test_train.py built by the JAX package and
+    written by its writer as v1 (3 float32 shards) and v2 (3 PQ code
+    shards, nsub 4), each with the synthetic-corpus recipe under `extra`
+    (so the train CLIs regenerate its queries). Returns (jax cfg, corpus,
+    jax index, {"v1", "v2"}, queries)."""
+    import os
+
+    import jax
+
+    from repro import index as jindex
+    from repro.core import clusd as cl
+    from repro.data import synth_corpus, synth_queries
+
+    cfg = tiny_train_cfg()
+    corpus = synth_corpus(seed, cfg.n_docs, cfg.dim, cfg.vocab)
+    index = cl.build_index(cfg, jax.random.key(seed), corpus.embeddings,
+                           corpus.doc_terms, corpus.doc_weights)
+    emb = np.asarray(corpus.embeddings)
+    extra = {"corpus": {"kind": "synthetic", "seed": seed,
+                        "n_docs": cfg.n_docs, "dim": cfg.dim,
+                        "vocab": cfg.vocab}}
+    dirs = {"v1": os.path.join(str(root), "v1"),
+            "v2": os.path.join(str(root), "v2")}
+    jindex.write_index(dirs["v1"], cfg, index, emb, n_shards=3, extra=extra)
+    jindex.write_index(dirs["v2"], cfg, index, emb, n_shards=3,
+                       format_version=2, pq_nsub=4, extra=extra)
+    qs = synth_queries(seed + 3, corpus, n_queries)
+    return cfg, corpus, index, dirs, qs
+
+
+class CappedFetchStore:
+    """A ClusterStore wrapper that fails if one fetch asks for more than
+    `max_blocks` cluster blocks (the bounded-read contract of streaming
+    label generation); `peak` is the largest fetch seen."""
+
+    is_host = True
+
+    def __init__(self, store, max_blocks):
+        self._store = store
+        self.max_blocks = int(max_blocks)
+        self.peak = 0
+
+    @property
+    def cluster_docs(self):
+        return self._store.cluster_docs
+
+    @property
+    def block_bytes(self):
+        return self._store.block_bytes
+
+    def fetch_blocks(self, cluster_ids):
+        n = len(np.asarray(cluster_ids).reshape(-1))
+        self.peak = max(self.peak, n)
+        assert n <= self.max_blocks, \
+            f"fetched {n} blocks in one read (cap {self.max_blocks})"
+        return self._store.fetch_blocks(cluster_ids)
+
+
+def frozen_zip_time(monkeypatch):
+    """Pin the time np.savez stamps into zip member headers, so two
+    writes of the same arrays give the same file bytes."""
+    import time as time_mod
+    import zipfile
+
+    class _T:
+        @staticmethod
+        def time():
+            return 1_700_000_000.0
+
+        localtime = staticmethod(time_mod.localtime)
+
+    monkeypatch.setattr(zipfile, "time", _T)

@@ -23,7 +23,15 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "repro" or k.startswith("repro."))
 missing = sorted({"repro_torch.index.update", "repro_torch.launch",
-                  "repro_torch.launch.update_index"} - set(names))
+                  "repro_torch.launch.update_index", "repro_torch.train",
+                  "repro_torch.train.labels", "repro_torch.train.trainer",
+                  "repro_torch.train.calibrate", "repro_torch.train.publish",
+                  "repro_torch.train.data", "repro_torch.optim",
+                  "repro_torch.optim.adam", "repro_torch.common.tree",
+                  "repro_torch.checkpoint.ckpt",
+                  "repro_torch.core.train_lstm",
+                  "repro_torch.launch.train_selector",
+                  "repro_torch.launch.build_index"} - set(names))
 print(len(names), bad + missing)
 """
 
@@ -68,7 +76,11 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
     from repro_torch.engine import RetrievalEngine
     from repro_torch.index import (build_index_offline, compact_index,
                                    update, write_index_delta)
-    from repro_torch.launch import update_index
+    from repro_torch.launch import build_index, train_selector, update_index
+    from repro_torch.train import (SelectorTrainer, make_labels_streaming,
+                                   selector_probs,
+                                   streaming_full_dense_topk)
+    from repro_torch.train import train_selector as train_one_shot
 
     X = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     delta = update.IndexDelta(np.zeros(0), np.zeros((0, 8)), np.zeros((0, 2)),
@@ -91,6 +103,18 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
         lambda: write_index_delta("no-such-index", delta),
         lambda: compact_index("no-such-index"),
         lambda: update_index.main(["--index-dir", "no-such-index"]),
+        lambda: SelectorTrainer(clusd_msmarco.smoke()).fit(
+            None, np.zeros((2, 4, 9), np.float32), np.zeros((2, 4))),
+        lambda: train_one_shot(clusd_msmarco.smoke(), None,
+                               np.zeros((2, 4, 9), np.float32),
+                               np.zeros((2, 4))),
+        lambda: make_labels_streaming(clusd_msmarco.smoke(), None, None,
+                                      X[:2], np.zeros((2, 2), np.int32),
+                                      np.ones((2, 2), np.float32)),
+        lambda: streaming_full_dense_topk(None, X[:2], 4),
+        lambda: selector_probs({}, np.zeros((2, 4, 9), np.float32)),
+        lambda: train_selector.main(["--index-dir", "no-such-index"]),
+        lambda: build_index.main(["--out", "no-such-index"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
