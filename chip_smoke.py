@@ -108,15 +108,39 @@ Phases, each printed with its seconds:
      cluster_score at the label chunk, topk over the (128, n_docs)
      full-dense rows with k 10, and the embedding_bag backward, each
      against its plain version;
- 14. parity: the same 16 queries served on the card and on the CPU
+ 14. the distributed path (it runs right after phase 11, while the
+     staged embeddings file is still there): `make_serve_step` through
+     `ServeRunner` on a 1 x 4 mesh, 4 processes (torch.multiprocessing,
+     spawn) on the one card in a gloo group (the gathers staged through
+     host memory), each building its 1.6 GB slice of the blocked index
+     from the staged embeddings file; 256 queries, 3 timed steps; gates:
+     the ranks agree, each rank's card output against its CPU twin on 16
+     queries, overlap@10 with the single-host `clusd.retrieve` (computed
+     in phase 5 beside the same step run as one rank, printed for
+     information) above 0.9, and the recsys guide row's top-k with
+     `local_topk` equal to the global one;
+ 15. the router path: `repro_torch.launch.serve.main` in process
+     over v2 as the train path left it (`--hosts 4 --replication 2
+     --kill-host 1 --check-parity --metrics-port 0`, its /healthz and
+     /metrics scraped while it serves, every host's lane in its Chrome
+     trace); then over v2 at 4 hosts, R 1 and R 2, the 1024 queries
+     bitwise a single-host engine (R 2 twice, the second pass traced:
+     p50/p99, qps, per-host counts and hit rates, span shares), one v1
+     batch through "dot" hosts bitwise, R 1 with a host killed bitwise a
+     placement without its shards, and a rolling `reload_index` across a
+     generation committed by `write_index_delta` while a second thread
+     serves; then one host's `adc_score_blocks` and the distributed
+     merge top-k against their plain versions;
+ 16. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each (updated) directory must agree; v2
      now serves the trained selector.
 
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk and bin_overlap on all eleven, embedding_bag on recsys and
-train), and the kernel table sums the eleven paths (the seven serving
-paths, the offline build, the two updates, the train path). Prints the kernel table as one JSON
+(topk and bin_overlap on all thirteen, embedding_bag on recsys and
+train), and the kernel table sums the thirteen paths (the seven serving
+paths, the offline build, the two updates, the train path, the
+distributed ranks and the router). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
@@ -172,6 +196,12 @@ TRAIN_QUERIES, HOLDOUT_QUERIES, TRAIN_CHUNK = 512, 128, 64
 TRAIN_SERVE_CHECK, TRAIN_RECSYS_STEPS = 256, 8
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
 LOSS_RTOL = 1e-3
+# the distributed path: ranks on the one card, queries, the CPU twin's
+# queries, timed steps; the router path: the CLI's sustained serving
+# (its endpoint is scraped meanwhile), the rolling reload's delta
+DIST_RANKS, DIST_QUERIES, DIST_PARITY_QUERIES, DIST_REPS = 4, 256, 16, 3
+ROUTER_SERVE_SECONDS = 3
+ROUTER_UPSERTS, ROUTER_DELETES = 2000, 1000
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 
@@ -2419,6 +2449,544 @@ def check_train_kernels(rows, dev, t_in):
         print(f"  {name}: {by[name]['shapes'][-1]}", flush=True)
 
 
+# -- the distributed path and the router path ------------------------------
+
+LSTM_KEYS = ("wx", "wh", "b", "head_w", "head_b")
+
+
+def stage_distributed(cfg, index, emb_path, qs, tmp, dev):
+    """Phase 5b, while the device InMemoryStore's index is alive: the files
+    the distributed ranks read (the index arrays they need, the untrained
+    selector's params, the first DIST_QUERIES queries, all np.save-d under
+    tmp/dist), then the single-host references on `dev`: clusd.retrieve's
+    ids for the overlap gate, and the same serve step run as one rank
+    (a 1 x 1 mesh over the InMemoryStore's (N, cap, dim) block table,
+    which is the blocked layout). Returns the job directory."""
+    from repro_torch.core import clusd as clusd_lib
+    from repro_torch.core import distributed as tdd
+
+    job = os.path.join(tmp, "dist")
+    os.makedirs(job)
+    sp = index.sparse_index
+    arrays = {"cluster_docs": index.cluster_docs, "centroids": index.centroids,
+              "neighbor_ids": index.neighbor_ids,
+              "neighbor_sims": index.neighbor_sims,
+              "postings_docs": sp.postings_docs,
+              "postings_weights": sp.postings_weights,
+              **{f"sel_{k}": p for k, p in index.selector.named_parameters()}}
+    for name, t in arrays.items():
+        np.save(os.path.join(job, name + ".npy"), t.detach().cpu().numpy())
+    for name, x in zip(("q_dense", "q_terms", "q_weights"),
+                       queries(qs, 0, DIST_QUERIES)):
+        np.save(os.path.join(job, name + ".npy"), np.asarray(x))
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump({"cfg": dataclasses.asdict(cfg), "emb_path": emb_path,
+                   "n_docs": cfg.n_docs, "dim": cfg.dim}, f)
+    q3 = [torch.as_tensor(np.asarray(x)).to(dev)
+          for x in queries(qs, 0, DIST_QUERIES)]
+    with torch.inference_mode():
+        ids, _, _ = clusd_lib.retrieve(cfg, index, q3[0].float(),
+                                       q3[1].int(), q3[2].float())
+        np.save(os.path.join(job, "ref_clusd_ids.npy"), ids.cpu().numpy())
+        _, o2n = tdd.blocked_ids(index.cluster_docs, cfg.n_docs)
+        pd, pw = tdd.postings_by_owner(
+            tdd.renumber_postings(sp.postings_docs, o2n),
+            sp.postings_weights, cfg.n_clusters, cfg.cluster_cap, 1)
+        # the InMemoryStore's block table is the blocked layout
+        one = tdd.ServeRunner(cfg, tdd.ServeMesh(1, 1),
+                              clusd_lib._device_store(index).blocks, pd, pw,
+                              index.centroids, index.neighbor_ids,
+                              index.neighbor_sims, index.selector,
+                              device=dev)
+        one(*queries(qs, 0, DIST_QUERIES))              # first use
+        sync(dev)
+        t0 = time.perf_counter()
+        ids, scores = one(*queries(qs, 0, DIST_QUERIES))
+        sync(dev)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        np.save(os.path.join(job, "ref_one_ids.npy"), ids.cpu().numpy())
+        np.save(os.path.join(job, "ref_one_scores.npy"),
+                scores.cpu().numpy())
+    del one
+    index._stores.clear()
+    print(f"  staged {len(arrays) + 3} arrays for {DIST_RANKS} ranks in "
+          f"{job}; clusd.retrieve and the step as one rank over "
+          f"{DIST_QUERIES} queries (one rank: {one_ms:.3f} ms)", flush=True)
+    return job
+
+
+def dist_rank(rank, world, job, dev_kind):
+    """One of the distributed path's gloo ranks (a process of its own; a
+    FileStore in the job directory). It builds its blocked slice from the
+    staged embeddings file (np.memmap) and its postings by owner, serves
+    the DIST_QUERIES queries through ServeRunner on a 1 x world mesh on
+    `dev_kind` (warm-up, then DIST_REPS timed steps with the launch
+    counts zeroed before them), takes the recsys guide row's top-k with
+    local_topk and without, runs its CPU twin over the first
+    DIST_PARITY_QUERIES queries, and saves its results in the job
+    directory."""
+    import torch.distributed as tdist
+
+    from repro_torch import kernels
+    from repro_torch.configs import CluSDConfig
+    from repro_torch.convert import selector_from_numpy
+    from repro_torch.core import distributed as tdd
+    from repro_torch.core import retrieval as tret
+
+    dev = torch.device(dev_kind)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    with open(os.path.join(job, "job.json")) as f:
+        meta = json.load(f)
+
+    def arr(name):
+        return np.load(os.path.join(job, name + ".npy"), mmap_mode="r")
+
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(os.path.join(job, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        cfg = CluSDConfig(**{**meta["cfg"], "bins": tuple(meta["cfg"]["bins"])})
+        mesh = tdd.make_mesh(1, world)
+        t0 = time.perf_counter()
+        cd = np.asarray(arr("cluster_docs"))
+        N, cap = cd.shape
+        lo = rank * (N // world)
+        emb = np.memmap(meta["emb_path"], dtype=np.float32, mode="r",
+                        shape=(meta["n_docs"], meta["dim"]))
+        _, o2n = tdd.blocked_ids(cd, meta["n_docs"])
+        blocks = tdd.blocked_blocks(emb, cd, lo, lo + N // world)
+        pd, pw = tdd.postings_by_owner(
+            tdd.renumber_postings(arr("postings_docs"), o2n),
+            arr("postings_weights"), N, cap, world)
+        params = {k: np.asarray(arr(f"sel_{k}")) for k in LSTM_KEYS}
+        layout_s = time.perf_counter() - t0
+        args = (blocks, pd, pw, np.asarray(arr("centroids")),
+                np.asarray(arr("neighbor_ids")),
+                np.asarray(arr("neighbor_sims")))
+        runner = tdd.ServeRunner(cfg, mesh, *args,
+                                 selector_from_numpy(params, device=dev),
+                                 device=dev)
+        q3 = [np.asarray(arr(n)) for n in ("q_dense", "q_terms",
+                                           "q_weights")]
+        # the merge top-k's (B, n_model * kk) input, captured on the
+        # warm-up step (its launches are not counted)
+        real = tdd.topk_desc_index_asc
+        width = world * min(cfg.k_sparse, N // world * cap)
+        merge_in = []
+        tdd.topk_desc_index_asc = lambda x, k: (
+            merge_in.append(x.clone()) if x.shape[-1] == width
+            and not merge_in else None, real(x, k))[1]
+        try:
+            runner(*q3)
+        finally:
+            tdd.topk_desc_index_asc = real
+        sync(dev)
+        kernels.reset_launches()
+        ms = []
+        for _ in range(DIST_REPS):
+            tdist.barrier()
+            t0 = time.perf_counter()
+            ids, scores = runner(*q3)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        g = torch.from_numpy(np.asarray(arr("guide_row"))).to(dev)
+        spec = tret.CandidateIndexSpec(n_candidates=g.shape[0],
+                                       n_clusters=int(meta["guide_clusters"]),
+                                       cap=int(meta["guide_cap"]),
+                                       k_guide=int(meta["k_guide"]),
+                                       local_topk=True)
+        lv, li = tret._guide_topk(g, spec)
+        sync(dev)
+        launches = dict(kernels.LAUNCHES)
+        gv, gi = tret._guide_topk(g, dataclasses.replace(spec,
+                                                         local_topk=False))
+        guide_equal = bool(torch.equal(li, gi) and torch.equal(
+            lv.view(torch.int32), gv.view(torch.int32)))
+        # the CPU twin on the first DIST_PARITY_QUERIES queries
+        cpu = tdd.ServeRunner(cfg, mesh, *args,
+                              selector_from_numpy(params, device="cpu"),
+                              device="cpu")
+        n = DIST_PARITY_QUERIES
+        c_ids, c_sc = cpu(*[x[:n] for x in q3])
+        np.savez(os.path.join(job, f"rank{rank}.npz"), ids=ids.cpu().numpy(),
+                 scores=scores.cpu().numpy(), cpu_ids=c_ids.numpy(),
+                 cpu_scores=c_sc.numpy(),
+                 merge_in=merge_in[0].cpu().numpy() if rank == 0
+                 else np.zeros(0, np.float32))
+        with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
+            json.dump({"ms": ms, "launches": launches, "layout_s": layout_s,
+                       "blocks_bytes": int(blocks.nbytes),
+                       "p_shard": int(pd.shape[2]),
+                       "guide_equal": guide_equal}, f)
+    finally:
+        tdist.destroy_process_group()
+
+
+def distributed_phase(job, guide, dev):
+    """The distributed path: DIST_RANKS processes (torch.multiprocessing,
+    spawn) on the one card, a gloo group (NCCL refuses two ranks on one
+    GPU; the gathers stage the (B, kk) values and ids through host
+    memory). Gates: every rank returns the same rows; each rank's card
+    output equals its CPU twin's on DIST_PARITY_QUERIES (ids at isolated
+    ranks, scores rtol 1e-5, atol 1e-6); overlap@10 with the single-host
+    clusd.retrieve above 0.9 (tests/test_distributed.py's bar); the
+    guide top-k with local_topk equal to the global one on the recsys
+    guide row. Against the same step run as one rank it prints the
+    overlap (the one rank's kd top-k spans every selected slot, the four
+    ranks' each their own: two lists of dense candidates, not one).
+    Returns (the summed launches of the ranks' timed steps and guide
+    top-k, the merge top-k's input of rank 0)."""
+    import torch.multiprocessing as tmp
+
+    row, k_guide, n_clusters, cap = guide
+    np.save(os.path.join(job, "guide_row.npy"), row.cpu().numpy())
+    with open(os.path.join(job, "job.json")) as f:
+        meta = json.load(f)
+    meta.update(k_guide=k_guide, guide_clusters=n_clusters, guide_cap=cap)
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump(meta, f)
+    t0 = time.perf_counter()
+    tmp.spawn(dist_rank, args=(DIST_RANKS, job, str(dev)),
+              nprocs=DIST_RANKS, join=True)
+    print(f"  {DIST_RANKS} ranks spawned, ran and joined in "
+          f"{time.perf_counter() - t0:.2f} s")
+    res = [dict(np.load(os.path.join(job, f"rank{r}.npz")))
+           for r in range(DIST_RANKS)]
+    info = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(job, f"rank{r}.json")) as f:
+            info.append(json.load(f))
+    for r in res[1:]:
+        if not (np.array_equal(r["ids"], res[0]["ids"])
+                and r["scores"].tobytes() == res[0]["scores"].tobytes()):
+            raise AssertionError("the model ranks returned different rows")
+    n = DIST_PARITY_QUERIES
+    ok = isolated_ranks(res[0]["cpu_scores"], PARITY_GAP)
+    bad = int((res[0]["ids"][:n][ok] != res[0]["cpu_ids"][ok]).sum())
+    close = np.allclose(res[0]["scores"][:n], res[0]["cpu_scores"],
+                        rtol=1e-5, atol=1e-6)
+    print(f"  card vs CPU twin on {n} queries: ranks compared "
+          f"{int(ok.sum())} of {ok.size}; id mismatches {bad}; scores "
+          f"allclose(rtol 1e-5, atol 1e-6) {close}; max |score diff| "
+          f"{np.abs(res[0]['scores'][:n] - res[0]['cpu_scores']).max():.3g}")
+    from repro_torch.core import distributed as tdd
+    cd = np.load(os.path.join(job, "cluster_docs.npy"))
+    _, o2n = tdd.blocked_ids(cd, meta["n_docs"])
+    n2o = np.full(cd.size + 1, -1, np.int64)     # the sentinel maps to -1
+    n2o[o2n[o2n >= 0]] = np.nonzero(o2n >= 0)[0]
+    ids_orig = n2o[res[0]["ids"]]
+    ref = np.load(os.path.join(job, "ref_clusd_ids.npy"))
+    overlap = float(np.mean([len(set(ids_orig[b, :10]) & set(ref[b, :10]))
+                             / 10 for b in range(len(ref))]))
+    one = np.load(os.path.join(job, "ref_one_ids.npy"))
+    one_sc = np.load(os.path.join(job, "ref_one_scores.npy"))
+    one_overlap = float(np.mean([len(set(res[0]["ids"][b, :10])
+                                     & set(one[b, :10])) / 10
+                                 for b in range(len(one))]))
+    same_rows = int(sum(np.array_equal(res[0]["ids"][b], one[b])
+                        and res[0]["scores"][b].tobytes()
+                        == one_sc[b].tobytes() for b in range(len(one))))
+    ms = np.asarray([m for i in info for m in i["ms"]])
+    launches = {k: sum(i["launches"][k] for i in info)
+                for k in info[0]["launches"]}
+    print(f"  step over {DIST_QUERIES} queries: ms per rank "
+          f"{[[round(m, 3) for m in i['ms']] for i in info]}; p50 "
+          f"{np.percentile(ms, 50):.3f}; blocks per rank "
+          f"{info[0]['blocks_bytes']} bytes; P_shard {info[0]['p_shard']}; "
+          f"layout built in {max(i['layout_s'] for i in info):.2f} s")
+    print(f"  overlap@10 with clusd.retrieve {overlap:.4f} (gate > 0.9); "
+          f"with the step as one rank {one_overlap:.4f}, rows equal bit "
+          f"for bit {same_rows} of {len(one)} (for information); guide "
+          f"top-k with local_topk equal to the global on every rank "
+          f"{all(i['guide_equal'] for i in info)}; launches {launches}")
+    if bad or not close:
+        raise AssertionError("distributed: card and CPU disagree")
+    if not overlap > 0.9:
+        raise AssertionError(f"distributed overlap@10 {overlap} <= 0.9")
+    if not all(i["guide_equal"] for i in info):
+        raise AssertionError("local_topk guide top-k != the global one")
+    return launches, torch.from_numpy(res[0]["merge_in"]).to(dev)
+
+
+def _get(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def router_cli(v2_dir, tmp, dev):
+    """The serve CLI in process on the card over v2, --hosts 4
+    --replication 2 --kill-host 1 --check-parity, its live endpoint
+    scraped while it serves (--serve-seconds keeps it up): /healthz 200,
+    then /metrics with router_hosts_alive 3 once host 1 is down. Gates:
+    exit 0, parity OK, failed=0, failovers > 0, every host's lane in the
+    Chrome trace."""
+    from repro_torch.launch import serve as serve_cli
+
+    trace = os.path.join(tmp, "router_trace.json")
+    argv = ["--index-dir", v2_dir, "--hosts", "4", "--replication", "2",
+            "--kill-host", "1", "--check-parity", "--queries",
+            str(N_QUERIES), "--batch", str(MAX_BATCH), "--metrics-port", "0",
+            "--trace-out", trace, "--explain-out",
+            os.path.join(tmp, "router_explain.jsonl"), "--serve-seconds",
+            str(ROUTER_SERVE_SECONDS), "--device", str(dev)]
+    tee, result = _Tee(sys.stdout), {}
+
+    def run():
+        with contextlib.redirect_stdout(tee):
+            result["rc"] = serve_cli.main(argv)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run)
+    th.start()
+    port, health, metrics = None, None, ""
+    deadline = time.monotonic() + 600
+    while th.is_alive() and time.monotonic() < deadline:
+        m = re.search(r"127\.0\.0\.1:(\d+)/metrics", tee.buf.getvalue())
+        if m and port is None:
+            port = int(m.group(1))
+        if port is not None and "router_hosts_alive 3" not in metrics:
+            health = health or _get(port, "/healthz")[0]
+            code, metrics = _get(port, "/metrics")
+        time.sleep(0.2)
+    th.join()
+    out = tee.buf.getvalue()
+    lanes = {ev["tid"] for ev in json.load(open(trace))["traceEvents"]
+             if (ev.get("args") or {}).get("host") is not None}
+    hosts = {int(str(t).rsplit(".host", 1)[1]) for t in lanes}
+    fo = re.search(r"failovers=(\d+)", out)
+    print(f"  serve CLI: rc {result.get('rc')} in "
+          f"{time.perf_counter() - t0:.2f} s; /healthz {health}; "
+          f"router_hosts_alive 3 scraped {'router_hosts_alive 3' in metrics}"
+          f"; host lanes {sorted(hosts)}")
+    if result.get("rc") != 0 or "parity OK" not in out or "failed=0" \
+            not in out or not fo or int(fo.group(1)) == 0 or health != 200 \
+            or "router_hosts_alive 3" not in metrics or hosts != {0, 1, 2, 3}:
+        raise AssertionError("the serve CLI's router gates failed")
+
+
+def router_phase(dirs, qs, tmp, dev):
+    """The router path. The serve CLI (router_cli), then on the card:
+    over v2 at 4 hosts with R 1 and R 2, ids and scores bitwise a
+    single-host engine on the N_QUERIES queries (R 2 served twice, the
+    second pass traced and timed); v1 ("dot" hosts, cluster_score) on one
+    batch, bitwise; R 1 with host 1 killed bitwise a placement without its
+    shards; a rolling reload_index across a generation committed by the
+    update path (write_index_delta) while a second thread serves (0
+    failed batches, one generation per batch, ids after the hop equal a
+    fresh engine's). Returns (the launches of the R 2 runs and the v1
+    batch, the kernel check's input: one host's adc_score_blocks
+    arguments)."""
+    from repro_torch import kernels
+    from repro_torch.engine import ShardPlacement, ShardRouter
+    from repro_torch.index import IndexReader, write_index_delta
+    from repro_torch.launch.update_index import synth_delta
+
+    v2, v1 = dirs["v2"], dirs["v1"]
+    router_cli(v2, tmp, dev)
+
+    def engine_out(path, n, show=False):
+        with IndexReader.open(path).engine(max_batch=MAX_BATCH,
+                                           prefetch=False, device=dev) as e:
+            out = [t.cpu().numpy() for t in e.retrieve(*queries(qs, 0, n))]
+            if show:
+                st = e.stats()
+                print(f"  single-host v2 engine (no prefetch) on generation "
+                      f"{st['generation']}, the same {n} queries: batch p50 "
+                      f"{st['p50_ms']} ms p99 {st['p99_ms']} ms qps_steady "
+                      f"{st['qps_steady']}")
+            return out
+
+    def bitwise(got, want, what):
+        got = [t.cpu().numpy() for t in got]
+        if not all(g.tobytes() == w.tobytes() for g, w in zip(got, want)):
+            bad = int((got[0] != want[0]).any(axis=1).sum())
+            raise AssertionError(f"{what}: {bad} rows differ from the "
+                                 "single-host engine")
+
+    ref = engine_out(v2, N_QUERIES, show=True)
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    host_in = {}
+    for repl in (1, 2):
+        with ShardRouter.local(IndexReader.open(v2), 4, repl,
+                               max_batch=MAX_BATCH, device=dev) as router:
+            if repl == 2:
+                kernels.reset_launches()
+            bitwise(router.retrieve(*queries(qs, 0, N_QUERIES)), ref,
+                    f"v2 router R {repl}")
+            if repl == 1:
+                continue
+            router.reset_stats()
+            router.tracer.sample_rate = 1.0
+            real = router.hosts[0].submit
+            router.hosts[0].submit = lambda req: (
+                host_in.update(req=req), real(req))[1]
+            bitwise(router.retrieve(*queries(qs, 0, N_QUERIES)), ref,
+                    "v2 router R 2, second pass")
+            sync(dev)
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            st = router.stats()
+            tot = router.tracer.span_totals("batch", skip_root=False)
+            share = {k: round(tot[k]["ms"] / tot["batch"]["ms"], 4)
+                     for k in ("stage1", "lut_build", "stage2_select",
+                               "scatter", "gather", "merge", "fuse")}
+            print(f"  v2 router, 4 hosts R 2, second pass of {N_QUERIES}: "
+                  f"batch p50 {st['p50_ms']} ms p99 {st['p99_ms']} ms "
+                  f"qps_steady {st['qps_steady']}; per host served "
+                  f"{[h['served'] for h in st['per_host']]} cache hit rate "
+                  f"{[round(h['cache']['hit_rate'], 4) for h in st['per_host']]}"
+                  f"; span shares of a batch {json.dumps(share)}")
+            gen = router.hosts[0]._gens[router._generation]
+    # host 0's kernel input of its last request, as its _serve makes it
+    req = host_in["req"]
+    from repro_torch.engine import pipeline as pipe_lib
+    uniq = np.asarray(req.uniq, np.int64)
+    codes = pipe_lib.fetch_unique_code_blocks(gen.store, uniq)
+    mine = np.asarray(req.mine, bool)
+    sc = 1
+    while sc < max(int(mine.sum(axis=1).max()), 1):
+        sc *= 2
+    sel = np.asarray(req.sel_ids)
+    if sc < sel.shape[1]:
+        keep = np.argsort(~mine, axis=1, kind="stable")[:, :sc]
+        sel = np.take_along_axis(sel, keep, axis=1)
+        mine = np.take_along_axis(mine, keep, axis=1)
+    pos = np.searchsorted(uniq, np.where(mine, sel, uniq[0]))
+    host_args = (torch.from_numpy(np.array(req.q_or_lut)).to(dev),
+                 torch.from_numpy(codes).to(dev),
+                 torch.from_numpy(pos.astype(np.int32)).to(dev))
+    # v1: "dot" hosts, one batch
+    ref1 = engine_out(v1, MAX_BATCH)
+    with ShardRouter.local(IndexReader.open(v1), 4, 2, max_batch=MAX_BATCH,
+                           device=dev) as router:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        bitwise(router.retrieve(*queries(qs, 0, MAX_BATCH)), ref1,
+                "v1 router")
+        sync(dev)
+        v1_s = time.perf_counter() - t0
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v
+    # R 1, host 1 killed == no replica for its shards
+    n_shards = IndexReader.open(v2).n_block_shards()
+    with ShardRouter.local(IndexReader.open(v2), 4, 1, max_batch=MAX_BATCH,
+                           device=dev) as router:
+        router.retrieve(*queries(qs, 0, MAX_BATCH))
+        router.hosts[1].kill()
+        t0 = time.perf_counter()
+        got = router.retrieve(*queries(qs, 0, MAX_BATCH))
+        sync(dev)
+        kill_ms = (time.perf_counter() - t0) * 1e3
+        st = router.stats()
+    left = [0, 2, 3]                     # the hosts still up, renumbered
+    pl = ShardPlacement(n_shards, 3, 1, replicas={
+        s: ([] if s % 4 == 1 else [left.index(s % 4)])
+        for s in range(n_shards)})
+    with ShardRouter.local(IndexReader.open(v2), 3, placement=pl,
+                           max_batch=MAX_BATCH, device=dev) as router:
+        bitwise(got, [t.cpu().numpy() for t in router.retrieve(
+            *queries(qs, 0, MAX_BATCH))], "R 1 with host 1 killed")
+    print(f"  v1 router batch ({MAX_BATCH} queries, 4 hosts R 2): "
+          f"{v1_s:.2f} s; R 1 kill-host batch {kill_ms:.3f} ms, missing "
+          f"shards {st['missing_shards']}, degraded "
+          f"{st['degraded_requests']}, bitwise a placement without them")
+    # a rolling reload across a committed generation under serving
+    with ShardRouter.local(IndexReader.open(v2), 4, 2, max_batch=MAX_BATCH,
+                           device=dev) as router:
+        old = router.stats()["generation"]
+        rec, stop = {"batches": 0, "failed": 0}, threading.Event()
+
+        def serve():
+            while not stop.is_set():
+                try:
+                    router.retrieve(*queries(qs, 0, MAX_BATCH))[0].cpu()
+                    rec["batches"] += 1
+                except Exception as e:
+                    rec["failed"] += 1
+                    rec["error"] = repr(e)
+
+        th = threading.Thread(target=serve)
+        th.start()
+        try:
+            t0 = time.perf_counter()
+            delta, _ = synth_delta(router.reader, ROUTER_UPSERTS,
+                                   ROUTER_DELETES, seed=2)
+            write_index_delta(v2, delta, verify="none", device=dev)
+            commit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            new = router.reload_index()
+            reload_s = time.perf_counter() - t0
+            router.retrieve(*queries(qs, 0, MAX_BATCH))
+        finally:
+            stop.set()
+            th.join()
+        gens = {m["generation"] for m in router.last_batches}
+        got = router.retrieve(*queries(qs, 0, MAX_BATCH))
+        st = router.stats()
+    bitwise(got, engine_out(v2, MAX_BATCH), "router after the hop")
+    print(f"  rolling reload {old} -> {new}: commit {commit_s:.2f} s, "
+          f"reload_index {reload_s:.3f} s; {rec['batches']} batches beside, "
+          f"{rec['failed']} failed; generations served {sorted(gens)}; "
+          f"failed_requests {st['failed_requests']}")
+    if rec["failed"] or st["failed_requests"] or new != old + 1 \
+            or not gens <= {old, new}:
+        raise AssertionError(f"the rolling reload failed: {rec}")
+    return launches, host_args
+
+
+def check_router_kernels(rows, dev, host_args, merge_in, k):
+    """The slice's new shapes against the plain versions: one router
+    host's adc_score_blocks (its LUT, its own unique code blocks, its
+    compacted positions) and the distributed step's (B, n_model * kk)
+    merge top-k (rank 0's gathered values). Appended to the rows'
+    shapes."""
+    from repro_torch.kernels.adc import adc_score_blocks, adc_score_blocks_ref
+    from repro_torch.kernels.topk import topk, topk_ref
+
+    by = {r["name"]: r for r in rows}
+    lut, codes, sel = host_args
+    out = adc_score_blocks(lut, codes, sel)
+    ref = adc_score_blocks_ref(lut, codes, sel)
+    if not torch.equal(out, ref):
+        raise AssertionError("adc_score_blocks at the router host's shape "
+                             "is not bitwise the plain version")
+    (B, S), (U, cap, nsub), K = sel.shape, codes.shape, lut.shape[2]
+    n_read = torch.unique(sel).numel()
+    b_ms, b_by = bound(4 * B * nsub * K + n_read * cap * nsub + 4 * B * S
+                       + 4 * B * S * cap, B * S * cap * nsub)
+    by["adc_score_blocks"]["shapes"].append(
+        f"router host codes {(U, cap, nsub)} sel {(B, S)}: ms "
+        f"{graph_ms(lambda: adc_score_blocks(lut, codes, sel)):.4f} plain "
+        f"{cuda_ms(lambda: adc_score_blocks_ref(lut, codes, sel), 3):.4f} "
+        f"bound {b_ms:.4f} ({b_by})")
+    x = merge_in
+    v, i = topk(x, k)
+    rv, ri = topk_ref(x, k)
+    if not (torch.equal(i, ri) and torch.equal(v.view(torch.int32),
+                                               rv.view(torch.int32))):
+        raise AssertionError("topk on the distributed merge rows is not "
+                             "bitwise the plain version")
+    B, D = x.shape
+    b_ms, b_by = bound(4 * B * D + 12 * B * k, B * D)
+    by["topk"]["shapes"].append(
+        f"distributed merge ({B}, {D}) k {k}: ms "
+        f"{graph_ms(lambda: topk(x, k)):.4f} plain "
+        f"{cuda_ms(lambda: topk_ref(x, k), 3):.4f} library "
+        f"{graph_ms(lambda: torch.topk(x, k), 5):.4f} bound {b_ms:.4f} "
+        f"({b_by})")
+    for name in ("adc_score_blocks", "topk"):
+        print(f"  {name}: {by[name]['shapes'][-1]}", flush=True)
+
+
 def parity(name, make_engine, qs, dev, atol):
     """The first PARITY_QUERIES queries served by make_engine(dev) and by
     make_engine("cpu") (plain versions): ids equal at isolated ranks,
@@ -2490,6 +3058,12 @@ PATH_KERNELS = {
     # ("dot" tail)
     "train": ("adc_tables", "adc_score_blocks", "lstm_sequence", "topk",
               "bin_overlap", "embedding_bag", "cluster_score"),
+    # the ranks' timed steps (sparse, Stage I/II, the owned blocks, the
+    # merges) and the guide top-k
+    "distributed": ("cluster_score", "lstm_sequence", "topk", "bin_overlap"),
+    # v2 at 4 hosts R 2 (ADC hosts) and one v1 batch ("dot" hosts)
+    "router": ("adc_tables", "adc_score_blocks", "cluster_score",
+               "lstm_sequence", "topk", "bin_overlap"),
 }
 
 
@@ -2575,6 +3149,7 @@ def main():
             eng.close()
             del eng
             parity("memory", device_engine(cfg, index), qs, dev, 1e-6)
+            dist_job = stage_distributed(cfg, index, emb_path, qs, tmp, dev)
         index.embeddings, index.quantizer = None, pq
         del corpus
         with phase(f"device PQStore serving: {N_QUERIES} queries + 1 "
@@ -2621,6 +3196,8 @@ def main():
             parity("v1_pq", load_index_engine(dirs["v1"]), qs, dev, 0.0)
         with phase(f"recsys: wide_deep {RECSYS_SIZE}"):
             paths["recsys"], eb = recsys_phase(dev)
+            guide = (eb["guide_row"][0].clone(), eb["k_guide"],
+                     RECSYS_CLUSTERS, RECSYS_CAP)
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
         print(f"  launches over the {len(paths)} paths: {launches}")
@@ -2639,6 +3216,11 @@ def main():
         with phase("embedding_bag: two threads' error words, the word's "
                    "fill"):
             bag_threads(dev)
+        # before the offline phase, which removes the staged embeddings
+        with phase(f"distributed: make_serve_step on {DIST_RANKS} gloo "
+                   f"ranks on the card, {DIST_QUERIES} queries"):
+            paths["distributed"], merge_in = distributed_phase(dist_job,
+                                                               guide, dev)
         # the update paths, each driven with the counts zeroed just before
         # it and read just after; their launches join the kernel table's
         with phase(f"offline build from an np.memmap (shards of "
@@ -2661,6 +3243,15 @@ def main():
         with phase("kernels vs plain versions on the train path's shapes"):
             check_train_kernels(rows, dev, t_in)
             del t_in
+        with phase("router: the serve CLI (4 hosts R 2, a host killed, "
+                   "live endpoint), v2/v1 against the engine, degraded, "
+                   "a rolling reload"):
+            paths["router"], host_args = router_phase(dirs, qs, tmp, dev)
+        with phase("kernels vs plain versions on the router's and the "
+                   "distributed step's shapes"):
+            check_router_kernels(rows, dev, host_args, merge_in,
+                                 cfg.k_sparse)
+            del host_args, merge_in
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
         print(f"  launches over the {len(paths)} paths: {launches}")

@@ -11,6 +11,15 @@ sparse and dense retrievers into one ranked list.
 Both sides carry a validity mask; masked entries contribute 0 and are
 left out of the min-max range and of the ranks.
 
+Two formulations, one semantics:
+
+  fuse_topk        the (B, n_docs + 1) scatter-add buffer, ranked by the
+      top-k (the serving engine's; a doc gets at most two addends).
+  fuse_topk_merge  sort-merge without the O(n_docs) buffer: the entries
+      are stably sorted by id and each id's run is folded in sorted
+      order, so a doc may appear any number of times across (and
+      within) the two lists (the distributed serve step's gathers).
+
 Ties: `lax.top_k` returns ties in ascending index order; `torch.topk`
 promises no order among them. `topk_desc_index_asc` applies the rule
 explicitly and is the port's one top-k (sparse retrieval, Stage-I
@@ -67,7 +76,10 @@ def side_contrib(scores, mask, weight, method, rrf_k):
         return weight * minmax_norm(scores, mask)
     if method == "rrf":
         r = rank_desc(scores, mask).to(scores.dtype)
-        return torch.where(mask, weight / (rrf_k + r), 0.0)
+        # a true division, as JAX divides: `weight / tensor` would be
+        # weight * reciprocal(tensor), another rounding
+        w = torch.full_like(r, weight)
+        return torch.where(mask, w / (rrf_k + r), 0.0)
     raise ValueError(f"unknown fusion method {method!r}; "
                      f"expected one of {FUSION_METHODS}")
 
@@ -109,3 +121,59 @@ def fuse_topk(sparse_ids, sparse_scores, dense_ids, dense_scores, dense_mask,
                         method=method, rrf_k=rrf_k)
     scores, ids = topk_desc_index_asc(fused[:, :n_docs], k)
     return ids.int(), scores
+
+
+def _fold_runs(c_s, seg, rank, n_layers):
+    """Per-segment sums of c_s (B, L) in sorted order: layer r adds each
+    run's r-th entry, so a run of length m is ((0.0 + c0) + c1) + ... in
+    order, as a serial segment_sum adds it. No layer adds twice to one
+    segment (the CUDA scatter meets no collision but in the dump column
+    L, which is dropped)."""
+    B, L = c_s.shape
+    totals = torch.zeros((B, L + 1), dtype=torch.float32, device=c_s.device)
+    for r in range(n_layers):
+        at = torch.where(rank == r, seg, L)
+        totals.scatter_add_(1, at, torch.where(rank == r, c_s, 0.0))
+    return totals[:, :L]
+
+
+def fuse_topk_merge(sparse_ids, sparse_scores, dense_ids, dense_scores,
+                    dense_mask, alpha, k, sentinel, *, sparse_mask=None,
+                    method="interp", rrf_k=60.0):
+    """Sort-merge fusion without an O(n_docs) buffer.
+
+    The masked ids become `sentinel` (an id above every real doc id); the
+    (B, Ks + Kd) entries are sorted stably by id (on equal ids the sparse
+    entries first, as they come first in the concatenation), each id's
+    run is folded by `_fold_runs`, and the top-k of the run totals is
+    taken under (value desc, id asc) by `topk_desc_index_asc`. A doc may
+    appear any number of times. Returns (ids (B, k) int32, scores)."""
+    if sparse_mask is None:
+        sparse_mask = torch.ones_like(sparse_ids, dtype=torch.bool)
+    s_c = side_contrib(sparse_scores, sparse_mask, alpha, method, rrf_k)
+    d_c = side_contrib(dense_scores, dense_mask, 1.0 - alpha, method, rrf_k)
+    ids = torch.cat([torch.where(sparse_mask, sparse_ids.long(), sentinel),
+                     torch.where(dense_mask, dense_ids.long(), sentinel)], 1)
+    contrib = torch.cat([s_c.float(), d_c.float()], 1)  # masked: already 0
+    ids_s, order = torch.sort(ids, dim=1, stable=True)
+    c_s = contrib.gather(1, order)
+    B, L = ids_s.shape
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[:, 1:] = ids_s[:, 1:] != ids_s[:, :-1]
+    seg = torch.cumsum(first, 1) - 1                       # (B, L) run index
+    pos = torch.arange(L, device=ids.device).expand(B, L)
+    rank = pos - torch.where(first, pos, 0).cummax(1).values
+    # the sentinel run (the masked entries) is never folded
+    real = ids_s < sentinel
+    n_layers = int(rank[real].max()) + 1 if bool(real.any()) else 0
+    totals = _fold_runs(c_s, seg, rank, n_layers)
+    # each run's id at its run index (the other entries go to the dump
+    # column L); indices past the last run keep the sentinel
+    seg_ids = torch.full((B, L + 1), sentinel, dtype=torch.long,
+                         device=ids.device)
+    seg_ids.scatter_(1, torch.where(first, seg, L), ids_s)
+    seg_ids = seg_ids[:, :L]
+    live = seg_ids < sentinel
+    final = torch.where(live, totals, -torch.inf)
+    top_s, top_i = topk_desc_index_asc(final, k)
+    return seg_ids.gather(1, top_i).int(), top_s

@@ -14,17 +14,20 @@ Mapping of the paper onto the recsys setting:
 On the card a query runs the embedding_bag kernel (user tower, guide),
 the topk kernel (guide top-k, Stage-II budget, fuse), bin_overlap (Stage
 I's P and Q, which the JAX function computes with two inline
-segment_sums) and lstm_sequence (Stage II).
+segment_sums) and lstm_sequence (Stage II). With `local_topk` the guide
+top-k is shard-local over the ranks of a torch.distributed group.
 """
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bins as bins_lib
 from repro_torch.core import features as feat_lib
 from repro_torch.core import fusion as fusion_lib
 from repro_torch.core import stage1 as stage1_lib
+from repro_torch.core.distributed import all_gather_rank_major
 from repro_torch.core.fusion import topk_desc_index_asc
 from repro_torch.kernels.bin_overlap import ops as bin_overlap_ops
 from repro_torch.models import recsys as rs
@@ -62,13 +65,33 @@ def guide_scores(cfg, params, u, item_vecs, cand_sparse):
 
 
 def _guide_topk(g, spec):
-    """Guide-phase top-k over the (n,) guide scores."""
-    if spec.local_topk:
-        raise NotImplementedError(
-            "the shard-local guide top-k needs a device mesh; it comes with "
-            "the port's router and distributed slice")
-    vals, ids = topk_desc_index_asc(g[None], spec.k_guide)
-    return vals[0], ids[0]
+    """Guide-phase top-k over the (n,) guide scores.
+
+    With `spec.local_topk` every rank of the initialized default process
+    group takes the top-k of its contiguous slice of g, the ranks
+    all-gather (values, global ids) — wire bytes n_ranks * k * 12
+    instead of the whole score vector — and the concatenation in rank
+    order is ranked again. That is the global top-k: within a rank the
+    ties come index asc, and a lower rank holds lower ids. Without a
+    process group it raises; it never falls back to the global top-k."""
+    if not spec.local_topk:
+        vals, ids = topk_desc_index_asc(g[None], spec.k_guide)
+        return vals[0], ids[0]
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("local_topk=True shards the guide top-k over the "
+                           "ranks of a torch.distributed process group; "
+                           "none is initialized")
+    nm, r = dist.get_world_size(), dist.get_rank()
+    if g.shape[0] % nm:
+        raise ValueError(f"{g.shape[0]} candidates do not split over {nm} "
+                         f"ranks")
+    shard = g.shape[0] // nm
+    kk = min(spec.k_guide, shard)
+    v, i = topk_desc_index_asc(g[None, r * shard:(r + 1) * shard], kk)
+    v_all = all_gather_rank_major(v[0], None)             # (nm, kk)
+    g_all = all_gather_rank_major(i[0] + r * shard, None)
+    mv, mi = topk_desc_index_asc(v_all.reshape(1, -1), spec.k_guide)
+    return mv[0], g_all.reshape(-1)[mi[0]]
 
 
 def clusd_candidate_retrieval(model_cfg, spec: CandidateIndexSpec, params,

@@ -308,3 +308,60 @@ def frozen_zip_time(monkeypatch):
         localtime = staticmethod(time_mod.localtime)
 
     monkeypatch.setattr(zipfile, "time", _T)
+
+
+# -- torch.distributed ranks ---------------------------------------------------
+
+def dist_worker(rank, world, store_path, n_data, job_path, out_dir):
+    """One gloo rank of a `torch.multiprocessing.spawn` (a FileStore at
+    `store_path`): serves the job's queries through the port's
+    ServeRunner on an (n_data, world // n_data) mesh on the CPU (its data
+    slice, and again the whole batch on each model group), takes the
+    job's guide top-k with local_topk and without, and saves both to
+    `out_dir`/rank<r>.npz. The job (an .npz) holds the config as JSON,
+    the blocked index, the postings by owner, the selector's params
+    (keys "sel_*"), the queries and a guide score vector."""
+    import dataclasses
+    import json
+    import os
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import CluSDConfig
+    from repro_torch.convert import selector_from_numpy
+    from repro_torch.core import distributed as tdd
+    from repro_torch.core import retrieval as tret
+
+    torch.set_num_threads(1)
+    tdist.init_process_group("gloo", store=tdist.FileStore(store_path, world),
+                             rank=rank, world_size=world)
+    try:
+        job = dict(np.load(job_path))
+        d = json.loads(str(job["cfg_json"]))
+        cfg = CluSDConfig(**{**d, "bins": tuple(d["bins"])})
+        mesh = tdd.make_mesh(n_data, world // n_data)
+        n_local = job["blocks"].shape[0] // mesh.n_model
+        lo = mesh.model * n_local
+        params = {k[4:]: v for k, v in job.items() if k.startswith("sel_")}
+        runner = tdd.ServeRunner(
+            cfg, mesh, job["blocks"][lo:lo + n_local], job["pd"], job["pw"],
+            job["centroids"], job["nb_ids"], job["nb_sims"],
+            selector_from_numpy(params, device="cpu"), device="cpu")
+        q3 = (job["q_dense"], job["q_terms"], job["q_weights"])
+        ids, scores = runner(*q3)
+        whole_ids, whole_scores = runner.serve(*q3)
+        g = torch.from_numpy(job["guide"])
+        spec = tret.CandidateIndexSpec(n_candidates=len(g),
+                                       k_guide=int(job["k_guide"]),
+                                       local_topk=True)
+        lv, li = tret._guide_topk(g, spec)
+        gv, gi = tret._guide_topk(g, dataclasses.replace(spec,
+                                                         local_topk=False))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), ids=ids.numpy(),
+                 scores=scores.numpy(), whole_ids=whole_ids.numpy(),
+                 whole_scores=whole_scores.numpy(), data=mesh.data,
+                 model=mesh.model,
+                 local_v=lv.numpy(), local_i=li.numpy(), global_v=gv.numpy(),
+                 global_i=gi.numpy())
+    finally:
+        tdist.destroy_process_group()

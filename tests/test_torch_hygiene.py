@@ -31,7 +31,11 @@ missing = sorted({"repro_torch.index.update", "repro_torch.launch",
                   "repro_torch.checkpoint.ckpt",
                   "repro_torch.core.train_lstm",
                   "repro_torch.launch.train_selector",
-                  "repro_torch.launch.build_index"} - set(names))
+                  "repro_torch.launch.build_index",
+                  "repro_torch.engine.router", "repro_torch.core.distributed",
+                  "repro_torch.obs.slo", "repro_torch.obs.exporter",
+                  "repro_torch.launch.serve"} - set(names))
+from repro_torch.core.fusion import fuse_topk_merge  # noqa: F401
 print(len(names), bad + missing)
 """
 
@@ -76,7 +80,10 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
     from repro_torch.engine import RetrievalEngine
     from repro_torch.index import (build_index_offline, compact_index,
                                    update, write_index_delta)
-    from repro_torch.launch import build_index, train_selector, update_index
+    from repro_torch.core.distributed import ServeMesh, ServeRunner
+    from repro_torch.engine import EngineHost, ShardRouter
+    from repro_torch.launch import (build_index, serve, train_selector,
+                                    update_index)
     from repro_torch.train import (SelectorTrainer, make_labels_streaming,
                                    selector_probs,
                                    streaming_full_dense_topk)
@@ -115,6 +122,15 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
         lambda: selector_probs({}, np.zeros((2, 4, 9), np.float32)),
         lambda: train_selector.main(["--index-dir", "no-such-index"]),
         lambda: build_index.main(["--out", "no-such-index"]),
+        lambda: EngineHost(0, None, [0]),
+        lambda: ShardRouter.local(None, 2),
+        lambda: ServeRunner(clusd_msmarco.smoke(), ServeMesh(1, 1),
+                            np.zeros((64, 4, 8), np.float32),
+                            np.zeros((8, 1, 8), np.int32),
+                            np.zeros((8, 1, 8), np.float32), X, X[:, :2],
+                            X[:, :2], None),
+        lambda: serve.main(["--index-dir", "no-such-index"]),
+        lambda: serve.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

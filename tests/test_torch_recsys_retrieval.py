@@ -202,9 +202,13 @@ def test_stage1_pq_through_bin_overlap_bitwise_vs_segment_sum(state):
 
 
 def test_shard_local_guide_topk_is_not_ported(state):
+    """The shard-local guide top-k runs only under a torch.distributed
+    process group (tests/test_torch_distributed.py holds it to the global
+    top-k there); without one it raises and never falls back to the
+    global top-k."""
     spec = dataclasses.replace(state["spec"], local_topk=True)
     t = state["t_in"]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="process group"):
         ret.clusd_candidate_retrieval(
             state["tcfg"], spec, state["model"], _user(state["users"], 0,
                                                        "torch"),
