@@ -21,7 +21,9 @@ Phases, each printed with its seconds:
      index's float embeddings and their 6.4 GB (N, cap, dim) block
      table, the cluster_score kernel), then from a PQStore (the index's
      PQ and its (N, cap, nsub) code table, the ADC kernels), each with
-     one profiled batch and the card-vs-CPU parity on 16 queries; the
+     one profiled batch and the card-vs-CPU parity on 16 queries (and
+     cluster_score held to its plain version on one more InMemoryStore
+     batch's input, the whole table by cluster id); the
      PQStore engine's last batch gives the topk and bin_overlap kernels
      their main-path inputs; then one batch through `clusd.retrieve`
      with each of the "rnn" and "mlp" selectors (seeded params), card
@@ -60,7 +62,9 @@ Phases, each printed with its seconds:
      nn.LSTM on the v2 batch's features and a recsys query's,
      bin_overlap on the Stage-I batch's results and a recsys query's,
      embedding_bag on the four recsys bags with its sector floor, topk
-     also on the neighbor graph's (8192, 8192) similarities, k 128);
+     also on the neighbor graph's (8192, 8192) similarities, k 128), and
+     cluster_score's grouping check: (query, block) pairs scored in groups
+     of 1, 3, 64 and 512 queries must be bitwise equal;
  11. embedding_bag's per-call error word: two threads on their own
      streams, one with a bad index, 200 bags each (only that one raises,
      the other's bags are bitwise), and the word's zero fill timed;
@@ -105,9 +109,10 @@ Phases, each printed with its seconds:
      one recsys step at smoke() widths card against CPU; MRR@10 before
      and after the publish; then lstm_sequence at the trainer's largest
      bucket (its backward bitwise autograd through the plain version),
-     cluster_score at the label chunk, topk over the (128, n_docs)
-     full-dense rows with k 10, and the embedding_bag backward, each
-     against its plain version;
+     cluster_score at the label chunk (beside q @ blocks^T), topk over the
+     (128, n_docs) full-dense rows with k 10, and the embedding_bag
+     backward, each against its plain version (the wide bag's forward
+     and forward + backward beside F.embedding_bag's, with their bounds);
  14. the distributed path (it runs right after phase 11, while the
      staged embeddings file is still there): `make_serve_step` through
      `ServeRunner` on a 1 x 4 mesh, 4 processes (torch.multiprocessing,
@@ -118,7 +123,8 @@ Phases, each printed with its seconds:
      queries, overlap@10 with the single-host `clusd.retrieve` (computed
      in phase 5 beside the same step run as one rank, printed for
      information) above 0.9, and the recsys guide row's top-k with
-     `local_topk` equal to the global one;
+     `local_topk` equal to the global one; rank 0 then holds cluster_score
+     to its plain version on its own input while the others wait;
  15. the router path: `repro_torch.launch.serve.main` in process
      over v2 as the train path left it (`--hosts 4 --replication 2
      --kill-host 1 --check-parity --metrics-port 0`, its /healthz and
@@ -129,8 +135,9 @@ Phases, each printed with its seconds:
      batch through "dot" hosts bitwise, R 1 with a host killed bitwise a
      placement without its shards, and a rolling `reload_index` across a
      generation committed by `write_index_delta` while a second thread
-     serves; then one host's `adc_score_blocks` and the distributed
-     merge top-k against their plain versions;
+     serves; then one host's `adc_score_blocks`, one "dot" host's
+     `cluster_score` and the distributed merge top-k against their plain
+     versions;
  16. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each (updated) directory must agree; v2
      now serves the trained selector.
@@ -279,6 +286,81 @@ def table_sectors(table, idx):
     start = (base + u * row_bytes) // 32
     end = (base + (u + 1) * row_bytes - 1) // 32
     return int((end - start + 1).sum() - (start[1:] == end[:-1]).sum())
+
+
+def gathered_einsum(q, blocks, sel):
+    """cluster_score's library yardstick where no one call computes it:
+    torch.einsum over the gathered blocks, B in chunks of 32."""
+    return lambda: torch.cat([torch.einsum(
+        "bd,bscd->bsc", q[i:i + 32], blocks[sel[i:i + 32].long()])
+        for i in range(0, q.shape[0], 32)])
+
+
+def cluster_score_case(key, q, blocks, sel, library):
+    """cluster_score on one main-path shape against its plain version
+    (rtol 1e-5, atol 1e-6 on unit-norm rows: the kernel's one FMA chain
+    against the einsum's order; raises), with the kernel's and
+    `library`'s ms (CUDA-graph replays), the plain version's (eager) and
+    the bound: the unique blocks `sel` reaches, the queries, `sel` and
+    the scores over 3.35 TB/s, or 2 B S cap dim FLOP over 67 TFLOP/s.
+    Returns {"note", "ms", "plain_ms", "library_ms", "bound_ms",
+    "bound_by", "max_abs_err"}."""
+    from repro_torch.kernels.cluster_score import (cluster_score,
+                                                   cluster_score_ref)
+
+    U, cap, dim = blocks.shape
+    B, S = sel.shape
+    out = cluster_score(q, blocks, sel)
+    ref = cluster_score_ref(q, blocks, sel)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"cluster_score at the {key} shape disagrees "
+                             f"with plain: {err}")
+    del out, ref
+    n_read = torch.unique(sel).numel()
+    b_ms, b_by = bound(4 * (n_read * cap * dim + B * dim + B * S * cap)
+                       + 4 * B * S, 2 * B * S * cap * dim)
+    t = {"ms": graph_ms(lambda: cluster_score(q, blocks, sel)),
+         "plain_ms": cuda_ms(lambda: cluster_score_ref(q, blocks, sel), 3,
+                             warmup=1),
+         "library_ms": graph_ms(library, 3),
+         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    t["note"] = (f"{key} q {(B, dim)} blocks {(U, cap, dim)} sel {(B, S)}, "
+                 f"{n_read} blocks read: ms {t['ms']:.4f} plain "
+                 f"{t['plain_ms']:.4f} library {t['library_ms']:.4f} bound "
+                 f"{b_ms:.4f} ({b_by}); max_abs_err {err:.3g}")
+    return t
+
+
+def cluster_score_groups(dev):
+    """The same (query, block) pairs scored inside groups of 1, 3, 64 and
+    512 queries at the full widths (the bytes path for 1 and 3, GEMM
+    tiles of 64 and four of 128 above), every other query alone on a
+    block of its own; raises unless each pair scores bitwise the same in
+    every group it is in. Returns a note."""
+    from repro_torch.kernels.cluster_score import cluster_score
+
+    B, cap, dim = 512, 256, 768
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(B, dim, device=dev, generator=g)
+    q /= q.norm(dim=1, keepdim=True)
+    blocks = torch.randn(B + 1, cap, dim, device=dev, generator=g)
+    blocks /= blocks.norm(dim=2, keepdim=True)
+    outs = {}
+    for n in (1, 3, 64, 512):
+        sel = torch.arange(1, B + 1, dtype=torch.int32,
+                           device=dev)[:, None].contiguous()
+        sel[:n] = 0
+        outs[n] = cluster_score(q, blocks, sel)[:, 0].view(torch.int32)
+    torch.cuda.synchronize()
+    bad = [(a, b) for a in outs for b in outs
+           if a < b and not torch.equal(outs[a][:a], outs[b][:a])]
+    if bad:
+        raise AssertionError(f"cluster_score: a (query, block) pair scores "
+                             f"differently in groups {bad}")
+    return ("grouping: (query, block 0) pairs in groups of 1, 3, 64 and "
+            "512 queries bitwise equal")
 
 
 def ptxas_summary(text):
@@ -492,6 +574,26 @@ def serve_device(name, cfg, index, qs, n, dev):
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB since the "
               f"engine was made")
     return launches, eng
+
+
+def memory_store_case(eng, qs):
+    """cluster_score at the memory store's shape: one more batch (the last
+    MAX_BATCH queries) through the InMemoryStore engine, its
+    score_blocks input captured (the queries, the store's whole (N, cap,
+    dim) block table, the batch's selected cluster ids), then
+    cluster_score_case on it. Returns the note."""
+    got, store = [], eng.store
+    real = store.score_blocks
+    store.score_blocks = lambda qd, sel: (got.append((qd, sel)),
+                                          real(qd, sel))[1]
+    try:
+        eng.retrieve(*queries(qs, N_QUERIES - MAX_BATCH, N_QUERIES))
+    finally:
+        del store.score_blocks
+    qd, sel = got[-1]
+    q, sel = qd.float().contiguous(), sel.int().contiguous()
+    return cluster_score_case("memory store", q, store.blocks, sel,
+                              gathered_einsum(q, store.blocks, sel))["note"]
 
 
 def serve_disk(cfg, index, blocks, qs, n, dev):
@@ -1149,14 +1251,12 @@ def main_path_inputs(eng, qs, dev):
 
 
 def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb,
-                  nb_sims):
+                  nb_sims, cs_notes):
     """Each kernel vs its plain version on the main path's inputs."""
     from repro_torch.kernels.adc import (adc_score_blocks,
                                          adc_score_blocks_ref, adc_tables,
                                          adc_tables_ref)
     from repro_torch.kernels.bin_overlap import bin_overlap, bin_overlap_ref
-    from repro_torch.kernels.cluster_score import (cluster_score,
-                                                   cluster_score_ref)
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_ref)
     from repro_torch.kernels.embedding_bag import kernel as eb_kernel
@@ -1245,42 +1345,18 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb,
                             f"{clock_hz / 1e6:.0f} MHz"
                             for key, shape, bs, n, tt in notes]})
 
-    # cluster_score: the v1 batch's queries, unique float blocks, positions
+    # cluster_score: the v1 batch's queries, unique float blocks and
+    # positions (the row's numbers), the memory store's shape (`cs_notes`,
+    # taken while its table was on the card) and the grouping check
     q, blocks, sel = v1["q"], v1["blocks"], v1["pos"]
-    U, cap, dim = blocks.shape
-    B, S = sel.shape
-    out = cluster_score(q, blocks, sel)
-    ref = cluster_score_ref(q, blocks, sel)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    # unit-norm embeddings: |score| <= 1; the kernel sums with FMA in
-    # lane order and a shuffle tree, the plain einsum in its own order
-    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
-        raise AssertionError(f"cluster_score disagrees with plain: {err}")
-    del ref
-    chunk = 32
-
-    def library():      # the einsum over gathered blocks, B in chunks
-        return torch.cat([torch.einsum(
-            "bd,bscd->bsc", q[i:i + chunk], blocks[sel[i:i + chunk].long()])
-            for i in range(0, B, chunk)])
-
-    lib_err = (library() - out).abs().max().item()
-    n_read = torch.unique(sel).numel()
-    b_ms, b_by = bound(4 * (n_read * cap * dim + B * dim + B * S * cap)
-                       + 4 * B * S, 2 * B * S * cap * dim)
+    t = cluster_score_case("v1 tail", q, blocks, sel,
+                           gathered_einsum(q, blocks, sel))
     rows.append({"name": "cluster_score", "route": "cuda",
                  "source": "src/repro_torch/csrc/cluster_score.cu",
                  "replaces": "src/repro/kernels/cluster_score/kernel.py:30",
-                 "launches": launches["cluster_score"], "max_abs_err": err,
-                 "ms": graph_ms(lambda: cluster_score(q, blocks, sel)),
-                 "plain_ms": cuda_ms(
-                     lambda: cluster_score_ref(q, blocks, sel), 3, warmup=1),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": graph_ms(library, 3),
-                 "shapes": [(B, dim), (U, cap, dim), (B, S),
-                            f"{n_read} blocks read"],
-                 "library_max_abs_err": lib_err})
+                 "launches": launches["cluster_score"],
+                 **{k: v for k, v in t.items() if k != "note"},
+                 "shapes": [t["note"], *cs_notes, cluster_score_groups(dev)]})
 
     # lstm_sequence, each input within atol 1e-5 of the plain version,
     # with nn.LSTM (cuDNN, TF32 off) on the same weights by the same
@@ -2329,13 +2405,16 @@ def train_phase(v2_dir, qs, tmp, dev):
 def check_train_kernels(rows, dev, t_in):
     """The train path's new shapes, each kernel against its plain version:
     lstm_sequence at the trainer's largest bucket (with the backward's
-    time for information), cluster_score at the label chunk, topk over
-    the in-RAM full-dense rows, and the embedding_bag backward against
-    autograd through its plain version. Appended to the rows' shapes."""
-    from repro_torch.kernels.cluster_score import (cluster_score,
-                                                   cluster_score_ref)
+    time for information), cluster_score at the label chunk (beside q @
+    blocks^T), topk over the in-RAM full-dense rows, and the embedding_bag
+    backward against autograd through its plain version (with the wide
+    bag's forward and forward + backward beside F.embedding_bag's, and
+    their bounds). Appended to the rows' shapes."""
+    from torch.nn.functional import embedding_bag as lib_bag
+
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_ref)
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
     from repro_torch.kernels.lstm import lstm_sequence, lstm_sequence_ref
     from repro_torch.kernels.topk import topk, topk_ref
 
@@ -2399,20 +2478,10 @@ def check_train_kernels(rows, dev, t_in):
     U, cap, dim = blocks.shape
     sel = torch.arange(U, dtype=torch.int32, device=dev)[None].expand(
         q.shape[0], U).contiguous()
-    out = cluster_score(q, blocks, sel)
-    ref = cluster_score_ref(q, blocks, sel)
-    e = (out - ref).abs().max().item()
-    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
-        raise AssertionError(f"cluster_score at the label chunk: {e}")
     flat = blocks.reshape(U * cap, dim)
-    b_ms, b_by = bound(4 * (U * cap * dim + q.numel() + q.shape[0] * U * cap)
-                       + 4 * sel.numel(), 2 * q.shape[0] * U * cap * dim)
-    by["cluster_score"]["shapes"].append(
-        f"label chunk q {tuple(q.shape)} blocks {(U, cap, dim)}: ms "
-        f"{graph_ms(lambda: cluster_score(q, blocks, sel)):.4f} plain "
-        f"{cuda_ms(lambda: cluster_score_ref(q, blocks, sel), 3):.4f} "
-        f"library (q @ blocks^T) {graph_ms(lambda: q @ flat.T):.4f} bound "
-        f"{b_ms:.4f} ({b_by}); max_abs_err {e:.3g}")
+    by["cluster_score"]["shapes"].append(cluster_score_case(
+        "train: label chunk (library q @ blocks^T)", q, blocks, sel,
+        lambda: q @ flat.T)["note"])
     xr = t_in["rows"]
     v, i = topk(xr, 10)
     rv, ri = topk_ref(xr, 10)
@@ -2438,13 +2507,31 @@ def check_train_kernels(rows, dev, t_in):
     # index_add_'s atomics add a row's duplicates in another order
     if not torch.allclose(gk, gr, rtol=1e-5, atol=1e-5):
         raise AssertionError(f"embedding_bag's backward disagrees: {e}")
+    # the launch alone and the library's forward (F.embedding_bag) and
+    # forward + backward through autograd; the forward's bound (the
+    # distinct rows read, the indices, the output) and sector floor, and
+    # the backward's bytes beside (the output's gradient read, the dense
+    # table gradient written)
+    (B, hot), (V, d), es = idx.shape, table.shape, table.element_size()
+    out = torch.empty((B, d), dtype=table.dtype, device=dev)
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+    tl = table.clone().requires_grad_()
+    io = 4 * idx.numel() + es * B * d
+    read = es * torch.unique(idx).numel() * d
+    f_ms, f_by = bound(read + io, B * hot * d)
+    fb_ms, fb_by = bound(read + io + 4 * B * d + es * V * d, 2 * B * hot * d)
     by["embedding_bag"]["shapes"].append(
-        f"train wide bag backward (B, hot, d) "
-        f"{(idx.shape[0], idx.shape[1], table.shape[1])} over "
-        f"{table.shape[0]} rows: forward + backward eager "
+        f"train wide bag (B, hot, d) {(B, hot, d)} over {V} rows: forward "
+        f"ms {graph_ms(lambda: eb_kernel.embedding_bag_cuda(table, idx, out, word)):.4f}"
+        f" (wrapper {cuda_ms(lambda: embedding_bag(table, idx), 20):.4f}) "
+        f"library {graph_ms(lambda: lib_bag(idx, table, mode='sum')):.4f}"
+        f" bound {f_ms:.3g} ({f_by}) sector floor "
+        f"{(32 * table_sectors(table, idx) + io) / HBM_BYTES_PER_S * 1e3:.3g}"
+        f"; forward + backward eager "
         f"{cuda_ms(lambda: torch.autograd.grad(embedding_bag(tk, idx), tk, gout), 10):.4f}"
         f" plain's {cuda_ms(lambda: torch.autograd.grad(embedding_bag_ref(tr, idx), tr, gout), 5):.4f}"
-        f"; max |grad diff| {e:.3g}")
+        f" library's {cuda_ms(lambda: torch.autograd.grad(lib_bag(idx, tl, mode='sum'), tl, gout), 10):.4f}"
+        f" bound {fb_ms:.4f} ({fb_by}); max |grad diff| {e:.3g}")
     for name in ("lstm_sequence", "cluster_score", "topk", "embedding_bag"):
         print(f"  {name}: {by[name]['shapes'][-1]}", flush=True)
 
@@ -2579,10 +2666,15 @@ def dist_rank(rank, world, job, dev_kind):
         tdd.topk_desc_index_asc = lambda x, k: (
             merge_in.append(x.clone()) if x.shape[-1] == width
             and not merge_in else None, real(x, k))[1]
+        # and the rank's cluster_score input (its owned blocks, the
+        # positions with the other ranks' clusters clamped)
+        real_cs, cs_in = tdd.cluster_score, []
+        tdd.cluster_score = lambda *a: (cs_in.append(a), real_cs(*a))[1]
         try:
             runner(*q3)
         finally:
             tdd.topk_desc_index_asc = real
+            tdd.cluster_score = real_cs
         sync(dev)
         kernels.reset_launches()
         ms = []
@@ -2601,6 +2693,15 @@ def dist_rank(rank, world, job, dev_kind):
         lv, li = tret._guide_topk(g, spec)
         sync(dev)
         launches = dict(kernels.LAUNCHES)
+        # rank 0 times cluster_score on its own input while the others wait
+        tdist.barrier()
+        cs = None
+        if rank == 0 and dev.type == "cuda":
+            q_c, blocks_c, sel_c = cs_in[0]
+            cs = cluster_score_case("distributed rank 0", q_c, blocks_c,
+                                    sel_c, gathered_einsum(q_c, blocks_c,
+                                                           sel_c))
+        tdist.barrier()
         gv, gi = tret._guide_topk(g, dataclasses.replace(spec,
                                                          local_topk=False))
         guide_equal = bool(torch.equal(li, gi) and torch.equal(
@@ -2620,7 +2721,7 @@ def dist_rank(rank, world, job, dev_kind):
             json.dump({"ms": ms, "launches": launches, "layout_s": layout_s,
                        "blocks_bytes": int(blocks.nbytes),
                        "p_shard": int(pd.shape[2]),
-                       "guide_equal": guide_equal}, f)
+                       "guide_equal": guide_equal, "cluster_score": cs}, f)
     finally:
         tdist.destroy_process_group()
 
@@ -2637,8 +2738,11 @@ def distributed_phase(job, guide, dev):
     guide row. Against the same step run as one rank it prints the
     overlap (the one rank's kd top-k spans every selected slot, the four
     ranks' each their own: two lists of dense candidates, not one).
-    Returns (the summed launches of the ranks' timed steps and guide
-    top-k, the merge top-k's input of rank 0)."""
+    Rank 0 also holds cluster_score to its plain version on its own
+    input (cluster_score_case, after its launches are read). Returns (the
+    summed launches of the ranks' timed steps and guide top-k, the merge
+    top-k's input of rank 0, rank 0's cluster_score numbers or None off
+    the card)."""
     import torch.multiprocessing as tmp
 
     row, k_guide, n_clusters, cap = guide
@@ -2708,7 +2812,8 @@ def distributed_phase(job, guide, dev):
         raise AssertionError(f"distributed overlap@10 {overlap} <= 0.9")
     if not all(i["guide_equal"] for i in info):
         raise AssertionError("local_topk guide top-k != the global one")
-    return launches, torch.from_numpy(res[0]["merge_in"]).to(dev)
+    return (launches, torch.from_numpy(res[0]["merge_in"]).to(dev),
+            info[0]["cluster_score"])
 
 
 def _get(port, path):
@@ -2783,8 +2888,8 @@ def router_phase(dirs, qs, tmp, dev):
     update path (write_index_delta) while a second thread serves (0
     failed batches, one generation per batch, ids after the hop equal a
     fresh engine's). Returns (the launches of the R 2 runs and the v1
-    batch, the kernel check's input: one host's adc_score_blocks
-    arguments)."""
+    batch, the kernel checks' inputs: one host's adc_score_blocks
+    arguments and one "dot" host's cluster_score arguments)."""
     from repro_torch import kernels
     from repro_torch.engine import ShardPlacement, ShardRouter
     from repro_torch.index import IndexReader, write_index_delta
@@ -2866,8 +2971,13 @@ def router_phase(dirs, qs, tmp, dev):
                  torch.from_numpy(pos.astype(np.int32)).to(dev))
     # v1: "dot" hosts, one batch
     ref1 = engine_out(v1, MAX_BATCH)
+    dot_in = {}
     with ShardRouter.local(IndexReader.open(v1), 4, 2, max_batch=MAX_BATCH,
                            device=dev) as router:
+        for h in router.hosts:       # the first "dot" host's input
+            h._score = (lambda real: lambda gen, mode, x, b, p: (
+                dot_in.setdefault("args", (x, b, p)),
+                real(gen, mode, x, b, p))[1])(h._score)
         kernels.reset_launches()
         t0 = time.perf_counter()
         bitwise(router.retrieve(*queries(qs, 0, MAX_BATCH)), ref1,
@@ -2940,19 +3050,31 @@ def router_phase(dirs, qs, tmp, dev):
     if rec["failed"] or st["failed_requests"] or new != old + 1 \
             or not gens <= {old, new}:
         raise AssertionError(f"the rolling reload failed: {rec}")
-    return launches, host_args
+    x, b, p = dot_in["args"]
+    host_dot = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (x, b, p.astype(np.int32)))
+    return launches, (host_args, host_dot)
 
 
-def check_router_kernels(rows, dev, host_args, merge_in, k):
+def check_router_kernels(rows, dev, host_args, merge_in, k, dist_cs):
     """The slice's new shapes against the plain versions: one router
     host's adc_score_blocks (its LUT, its own unique code blocks, its
-    compacted positions) and the distributed step's (B, n_model * kk)
-    merge top-k (rank 0's gathered values). Appended to the rows'
-    shapes."""
+    compacted positions) and cluster_score (a "dot" host's queries,
+    unique float blocks and positions), the distributed step's (B,
+    n_model * kk) merge top-k (rank 0's gathered values), and rank 0's
+    cluster_score numbers (`dist_cs`, taken in its process). Appended to
+    the rows' shapes."""
     from repro_torch.kernels.adc import adc_score_blocks, adc_score_blocks_ref
     from repro_torch.kernels.topk import topk, topk_ref
 
+    host_args, host_dot = host_args
     by = {r["name"]: r for r in rows}
+    q, blocks, sel = host_dot
+    by["cluster_score"]["shapes"] += [
+        cluster_score_case("router host", q, blocks, sel,
+                           gathered_einsum(q, blocks, sel))["note"],
+        dist_cs["note"]]
+    del host_dot, q, blocks, sel
     lut, codes, sel = host_args
     out = adc_score_blocks(lut, codes, sel)
     ref = adc_score_blocks_ref(lut, codes, sel)
@@ -2983,8 +3105,10 @@ def check_router_kernels(rows, dev, host_args, merge_in, k):
         f"{cuda_ms(lambda: topk_ref(x, k), 3):.4f} library "
         f"{graph_ms(lambda: torch.topk(x, k), 5):.4f} bound {b_ms:.4f} "
         f"({b_by})")
-    for name in ("adc_score_blocks", "topk"):
-        print(f"  {name}: {by[name]['shapes'][-1]}", flush=True)
+    for name, n in (("cluster_score", 2), ("adc_score_blocks", 1),
+                    ("topk", 1)):
+        for note in by[name]["shapes"][-n:]:
+            print(f"  {name}: {note}", flush=True)
 
 
 def parity(name, make_engine, qs, dev, atol):
@@ -3146,6 +3270,7 @@ def main():
                    f"profiled batch + parity on {PARITY_QUERIES}"):
             paths["memory"], eng = serve_device("memory", cfg, index, qs,
                                                 N_QUERIES, dev)
+            cs_notes = [memory_store_case(eng, qs)]
             eng.close()
             del eng
             parity("memory", device_engine(cfg, index), qs, dev, 1e-6)
@@ -3211,7 +3336,7 @@ def main():
             nb_sims = C @ C.T - 2e9 * torch.eye(C.shape[0], device=dev)
             rows = check_kernels(dev, launches, v2_in, v1_in, tail,
                                  codebooks, eng_v2.index.selector, eb,
-                                 nb_sims)
+                                 nb_sims, cs_notes)
             del v1_in, v2_in, tail, eb, nb_sims
         with phase("embedding_bag: two threads' error words, the word's "
                    "fill"):
@@ -3219,8 +3344,8 @@ def main():
         # before the offline phase, which removes the staged embeddings
         with phase(f"distributed: make_serve_step on {DIST_RANKS} gloo "
                    f"ranks on the card, {DIST_QUERIES} queries"):
-            paths["distributed"], merge_in = distributed_phase(dist_job,
-                                                               guide, dev)
+            paths["distributed"], merge_in, dist_cs = distributed_phase(
+                dist_job, guide, dev)
         # the update paths, each driven with the counts zeroed just before
         # it and read just after; their launches join the kernel table's
         with phase(f"offline build from an np.memmap (shards of "
@@ -3250,7 +3375,7 @@ def main():
         with phase("kernels vs plain versions on the router's and the "
                    "distributed step's shapes"):
             check_router_kernels(rows, dev, host_args, merge_in,
-                                 cfg.k_sparse)
+                                 cfg.k_sparse, dist_cs)
             del host_args, merge_in
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}

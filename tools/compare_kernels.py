@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's topk, adc_tables, adc_score_blocks, lstm_sequence,
-bin_overlap and embedding_bag kernels against an older version of their
-sources, on one NVIDIA GPU.
+bin_overlap, embedding_bag and cluster_score kernels against an older
+version of their sources, on one NVIDIA GPU.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/old
     python3 tools/compare_kernels.py --old build/old [--profile] \
@@ -38,7 +38,11 @@ seed:
   (262,144, 40, 1) and the small one (512, 40, 1) over RecsysStream's
   Zipf ids, the user tower (1, 20, 32); and B from 1 to 32,768 across
   the warp-per-bag threshold (2048 bags) at hot 40 / d 1, hot 20 / d 32
-  and hot 2 / d 1, uniform ids.
+  and hot 2 / d 1, uniform ids;
+  cluster_score: unit-norm (256, 768) float blocks at the v1 tail's,
+  the memory store's, the label chunk's and a distributed rank's
+  selections (see compare_cluster_score), timed by CUDA-graph replay
+  (`new_ms` the public op, its scratch allocation included).
 
 Each shape is timed by CUDA events over `--reps` launches after warm-up,
 in turns old, new, new, old (both by their launch functions with the
@@ -663,12 +667,106 @@ def compare_topk(lib, g, args):
 
 
 # kernel -> the csrc source that holds it, and its comparison
+def cluster_launcher(lib):
+    """The PR 13 cluster_score.cu's launch: one CTA per slot, no scratch."""
+    lib.cluster_score_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _P]
+    lib.cluster_score_launch.restype = _I
+
+    def run(q, blocks, sel, out):
+        U, cap, dim = blocks.shape
+        rc = lib.cluster_score_launch(
+            q.data_ptr(), blocks.data_ptr(), sel.data_ptr(), out.data_ptr(),
+            q.shape[0], sel.shape[1], U, cap, dim, stream())
+        assert rc == 0, rc
+    return run
+
+
+def compare_cluster_score(lib, g, args):
+    """cluster_score old against new on unit-norm float32 blocks of (256,
+    768): the v1 tail (5173 unique blocks, each reached by one or two of
+    the (256, 32) positions), the memory store (the whole (8192, 256,
+    768) table by uniform cluster ids), the label chunk (512 queries x
+    64 blocks, every query on every block; q @ blocks^T beside it) and a
+    distributed rank (2048 local blocks, the ids of the other ranks'
+    clusters clamped to the last local block: one run of about 6144
+    slots). Held to the plain version at rtol 1e-5, atol 1e-6; bound as
+    chip_smoke.py counts it."""
+    from repro_torch.kernels.cluster_score import (cluster_score,
+                                                   cluster_score_ref,
+                                                   group_slots_ref)
+
+    run_old = cluster_launcher(lib)
+    cap, dim = 256, 768
+
+    def unit(*shape):
+        x = torch.randn(*shape, device="cuda", generator=g)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    rows, bad = {}, []
+    for name in ("v1_tail", "memory", "label_chunk", "distributed"):
+        B, S = (512, 64) if name == "label_chunk" else (256, 32)
+        U = {"v1_tail": 5173, "memory": 8192, "label_chunk": 64,
+             "distributed": 2048}[name]
+        q = unit(B, dim)
+        blocks = torch.empty(U, cap, dim, device="cuda")
+        for lo in range(0, U, 512):           # in pieces: no second copy
+            blocks[lo:lo + 512] = unit(min(512, U - lo), cap, dim)
+        if name == "v1_tail":
+            sel = torch.randperm(B * S, device="cuda", generator=g) % U
+        elif name == "label_chunk":
+            sel = torch.arange(U, device="cuda").expand(B, U)
+        else:
+            sel = torch.randint(0, 8192, (B, S), device="cuda", generator=g)
+            sel = sel.clamp(0, U - 1)
+        sel = sel.reshape(B, S).int().contiguous()
+        out_old = torch.empty(B, S, cap, device="cuda")
+        run_old(q, blocks, sel, out_old)
+        new = cluster_score(q, blocks, sel)
+        ref = cluster_score_ref(q, blocks, sel)
+        torch.cuda.synchronize()
+        errs = [(t - ref).abs().max().item() for t in (new, out_old)]
+        if not torch.allclose(new, ref, rtol=1e-5, atol=1e-6):
+            bad.append(f"cluster_score {name}")
+        del ref
+        old_ms, new_ms = turns(lambda: run_old(q, blocks, sel, out_old),
+                               lambda: cluster_score(q, blocks, sel),
+                               lambda fn: graph_ms(fn, args.reps))
+        n_read = torch.unique(sel).numel()
+        nbytes = 4 * (n_read * cap * dim + B * dim + B * S * cap + B * S)
+        flops = 2 * B * S * cap * dim
+        _, _, _, items = group_slots_ref(sel, U, cap)
+        gemm = int((items[:, 2] >= 32).sum())
+        row = {"shape": {"q": [B, dim], "blocks": [U, cap, dim],
+                         "sel": [B, S], "blocks_read": n_read,
+                         "gemm_items": gemm,
+                         "bytes_items": items.shape[0] - gemm},
+               "old_ms": old_ms, "new_ms": new_ms,
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / 67e12)
+               * 1e3,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+               >= flops / 67e12 else "operations",
+               "max_abs_err_new": errs[0], "max_abs_err_old": errs[1]}
+        if name == "label_chunk":
+            flat = blocks.reshape(U * cap, dim)
+            row["library_ms"] = graph_ms(lambda: q @ flat.T, args.reps)
+        if args.profile:
+            row["device_ms"] = kernel_ms(
+                lambda: cluster_score(q, blocks, sel), "_kernel")
+        rows[name] = row
+        print(f"cluster_score {name}: {row}", flush=True)
+        del blocks, new, out_old
+        torch.cuda.empty_cache()
+    return rows, bad
+
+
 KERNELS = {"adc_tables": ("adc", compare_adc_tables),
            "adc_score_blocks": ("adc", compare_adc_score),
            "lstm_sequence": ("lstm", compare_lstm),
            "topk": ("topk", compare_topk),
            "bin_overlap": ("bin_overlap", compare_bin_overlap),
-           "embedding_bag": ("embedding_bag", compare_embedding_bag)}
+           "embedding_bag": ("embedding_bag", compare_embedding_bag),
+           "cluster_score": ("cluster_score", compare_cluster_score)}
 
 
 def main():
