@@ -140,23 +140,55 @@ Phases, each printed with its seconds:
      versions;
  16. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each (updated) directory must agree; v2
-     now serves the trained selector.
+     now serves the trained selector;
+ 17. the paper's baselines (they run right after phase 5's
+     InMemoryStore, on the index's float embeddings and the memory
+     store's block table): the doc kNN graph (8 neighbours over 3 probe
+     clusters) built on the card by `build_doc_knn`, then IVF 10/5/2%
+     (and 2% unfused), S + Rerank at depth 1000, CDFS at p_stop 0.95,
+     LADR default (64 seeds, depth 3, budget 512) and fast (16, 2, 256),
+     and the CluSD memory path beside them, over the 1024 queries twice
+     (the second pass timed: p50/p99 batch ms, MRR@10, %D); gates: each
+     against its CPU twin on 16 queries, the CDFS mass bitwise the CPU's
+     and its selections away from the cumsum band, 4096 sampled kNN rows
+     against a numpy loop of the reference's algorithm; then topk and
+     cluster_score at the shapes these runs gave them (IVF's (256, 8192)
+     probes and 819-cluster selection, the CDFS mass, LADR's (256, 4608)
+     pool, the kNN's (8192, 8192) and (8192, 768) rows and (8192, 3)
+     selection), each against its plain version beside torch.topk, the
+     gathered einsum and q @ blocks^T;
+ 18. the dense LM (after the index directories are removed): qwen2-1.5b
+     at full width and 2 layers in float32, card against a CPU twin from
+     one init (hidden states, loss, gradients, params after one AdamW
+     step, prefill logits, 4 decode steps); at all 28 layers (bf16
+     compute, float32 params, microbatch 4, B 8, S 128) the train
+     step's p50 over 5 steps after 2 and its peak device memory, prefill
+     and decode ms; then `python -m repro_torch.launch.train --arch
+     qwen2-1.5b --variant full --steps 6 --ckpt-every 3 --fail-at 4` in
+     its own process (exit 0, restarts=1, steps=7, last checkpoint step
+     5, two 21.3 GB checkpoints; the disk's free space checked first);
+ 19. the port's four examples (examples/torch_*.py), each in its own
+     process on the card, the four at once: exit 0, their result lines,
+     seconds and kernel launches.
 
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk and bin_overlap on all thirteen, embedding_bag on recsys and
-train), and the kernel table sums the thirteen paths (the seven serving
-paths, the offline build, the two updates, the train path, the
-distributed ranks and the router). Prints the kernel table as one JSON
+(topk on all but the LM, which runs none of the seven, embedding_bag on
+recsys, train and the examples), and the kernel table sums the sixteen
+paths (the seven serving paths, the offline build, the two updates, the
+train path, the distributed ranks, the router, the baselines, the LM
+and the examples). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -3111,6 +3143,712 @@ def check_router_kernels(rows, dev, host_args, merge_in, k, dist_cs):
             print(f"  {name}: {note}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the paper's baselines (core/baselines.py) on the memory state
+# ---------------------------------------------------------------------------
+
+# IVF p% of N 8192 as table1 takes them, the LADR settings of Table 2,
+# the doc kNN graph's (n_neighbors, probe_clusters) and its gate's sample
+IVF_PCTS = (10, 5, 2)
+LADR_RUNS = {"default": dict(n_seeds=64, depth=3, budget=512),
+             "fast": dict(n_seeds=16, depth=2, budget=256)}
+KNN_NEIGHBORS, KNN_PROBE, KNN_SAMPLE = 8, 3, 4096
+
+
+class _Recorder:
+    """Wraps the baselines module's topk and cluster_score: the last
+    input of each shape is kept (the same launches, nothing added)."""
+
+    def __init__(self, mod):
+        self.mod, self.topk, self.cs = mod, {}, {}
+        self._real = (mod.topk_desc_index_asc, mod.cluster_score)
+
+    def __enter__(self):
+        real_topk, real_cs = self._real
+
+        def topk(x, k):
+            self.topk[(tuple(x.shape), k)] = x
+            return real_topk(x, k)
+
+        def cs(q, blocks, sel):
+            self.cs[tuple(sel.shape)] = (q, blocks, sel)
+            return real_cs(q, blocks, sel)
+        self.mod.topk_desc_index_asc, self.mod.cluster_score = topk, cs
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.topk_desc_index_asc, self.mod.cluster_score = self._real
+        return False
+
+
+def baseline_runs(cfg, index, knn):
+    """name -> (fn(index, qd, qt, qw) -> (ids, scores, diag), %D of diag)."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import clusd
+
+    N, cap, D = cfg.n_clusters, cfg.cluster_cap, cfg.n_docs
+    runs = {}
+    for pct in IVF_PCTS:
+        n_probe = int(N * pct / 100)
+        runs[f"IVF {pct}%"] = (
+            lambda ix, *q, n=n_probe: bl.ivf_retrieve(cfg, ix, *q, n),
+            lambda d, p=pct: float(p))
+    n2 = int(N * IVF_PCTS[-1] / 100)
+    runs[f"IVF {IVF_PCTS[-1]}% unfused"] = (
+        lambda ix, *q: bl.ivf_retrieve(cfg, ix, *q, n2, fuse_sparse=False),
+        lambda d: float(IVF_PCTS[-1]))
+    runs["S + Rerank 1000"] = (
+        lambda ix, *q: bl.rerank_retrieve(cfg, ix, *q, rerank_depth=1000),
+        lambda d: 100 * d["n_docs_fetched"] / D)
+    runs["CDFS p 0.95"] = (
+        lambda ix, *q: bl.cdfs_retrieve(cfg, ix, *q, p_stop=0.95),
+        lambda d: 100 * float(d["n_selected"].float().mean()) * cap / D)
+    for name, kw in LADR_RUNS.items():
+        runs[f"LADR {name}"] = (
+            lambda ix, *q, kw=kw: bl.ladr_retrieve(
+                cfg, ix, knn.to(ix.device), *q, **kw),
+            lambda d: 100 * d["n_docs_fetched"] / D)
+    runs["CluSD (memory)"] = (
+        lambda ix, *q: clusd.retrieve(cfg, ix, *q),
+        lambda d: 100 * float(d["frac_docs_scanned"].mean()))
+    return runs
+
+
+def knn_gate(knn, emb, centroids, cluster_docs, tol=PARITY_GAP):
+    """The kNN rows of KNN_SAMPLE sampled docs against a per-doc numpy
+    loop with the reference's algorithm (np.argsort of the centroid
+    similarities, the probe clusters' docs, np.argsort of their scores,
+    the doc itself left out, the last pick repeated), compared away from
+    ties: docs whose probe clusters are isolated from the next cluster's
+    similarity, ranks whose neighbour score is isolated, by `tol` in
+    float64. Returns a note; raises on a mismatch."""
+    rng = np.random.default_rng(SEED + 5)
+    docs = rng.choice(emb.shape[0], KNN_SAMPLE, replace=False)
+    got = knn[torch.from_numpy(docs).to(knn.device)].cpu().numpy()
+    want = np.zeros_like(got)
+    compared = bad = rows_ok = 0
+    sims = emb[docs] @ centroids.T          # the reference's, per doc
+    s64 = np.sort(emb[docs].astype(np.float64)
+                  @ centroids.astype(np.float64).T, 1)[:, ::-1]
+    for i, d in enumerate(docs):
+        near_c = np.argsort(-sims[i])[:KNN_PROBE]
+        cand = cluster_docs[near_c].reshape(-1)
+        cand = cand[cand >= 0]
+        s = emb[cand] @ emb[d]
+        picked = [c for c in cand[np.argsort(-s)] if c != d][:KNN_NEIGHBORS]
+        while len(picked) < KNN_NEIGHBORS:
+            picked.append(picked[-1] if picked else d)
+        want[i] = picked
+        if abs(s64[i, KNN_PROBE - 1] - s64[i, KNN_PROBE]) <= tol:
+            continue
+        rows_ok += 1
+        ns = emb[want[i]].astype(np.float64) @ emb[d].astype(np.float64)
+        ok = isolated_ranks(ns[None], tol)[0]
+        compared += int(ok.sum())
+        bad += int((got[i][ok] != want[i][ok]).sum())
+    note = (f"kNN gate: {KNN_SAMPLE} sampled docs, {rows_ok} with isolated "
+            f"probe clusters, {compared} neighbour ranks compared, "
+            f"{bad} mismatches; all rows equal: {(got == want).all()}")
+    print(f"  {note}")
+    if bad or rows_ok < 0.9 * KNN_SAMPLE:
+        raise AssertionError(f"doc kNN disagrees with the numpy loop: {note}")
+    return note
+
+
+def baseline_parity(name, fn, index, cpu_index, qs):
+    """One baseline on the first PARITY_QUERIES queries, card against the
+    CPU twin: ids at isolated ranks, scores within rtol 1e-5, atol 1e-6,
+    -inf at the same places."""
+    q3 = queries(qs, 0, PARITY_QUERIES)
+    dev = index.device
+    with torch.no_grad():
+        g = fn(index, *(torch.from_numpy(x).to(dev) for x in q3))
+        c = fn(cpu_index, *(torch.from_numpy(x) for x in q3))
+    gi, gs = (t.cpu().numpy() for t in g[:2])
+    ci, cs = (t.numpy() for t in c[:2])
+    fin = np.isfinite(cs)
+    ok = isolated_ranks(np.where(fin, cs, -1e30), PARITY_GAP) & fin
+    bad = int((gi[ok] != ci[ok]).sum())
+    close = bool((np.isfinite(gs) == fin).all()) and np.allclose(
+        gs[fin], cs[fin], rtol=1e-5, atol=1e-6)
+    print(f"  parity {name}: ranks compared {int(ok.sum())} of {ok.size}; "
+          f"id mismatches {bad}; scores allclose {close}")
+    if bad or not close or not ok.any():
+        raise AssertionError(f"baseline {name}: card and CPU disagree")
+
+
+def cdfs_gates(cfg, index, cpu_index, qs):
+    """The CDFS mass on the card bitwise the CPU plain version's on the
+    same sparse ids, and the selections equal away from the band
+    |prev - p_stop * total| < 1e-6 * total. Returns a note."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.sparse import sparse_retrieve_topk
+
+    _, qt, qw = (torch.from_numpy(x).to(index.device)
+                 for x in queries(qs, 0, MAX_BATCH))
+    sid, ss = sparse_retrieve_topk(index.sparse_index, qt, qw, cfg.k_sparse)
+    mass = bl.cdfs_mass(index, sid).cpu()
+    want = bl.cdfs_mass(cpu_index, sid.cpu())
+    if not torch.equal(mass.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("CDFS mass on the card is not bitwise the CPU's")
+    g_ids, g_mask = (t.cpu().numpy() for t in bl.cdfs_select(
+        cfg, index, None, sid, ss, p_stop=0.95))
+    c_ids, c_mask = (t.numpy() for t in bl.cdfs_select(
+        cfg, cpu_index, None, sid.cpu(), ss.cpu(), p_stop=0.95))
+    top = np.take_along_axis(want.numpy(), c_ids.astype(np.int64),
+                             1).astype(np.float64)
+    prev = np.cumsum(top, 1) - top
+    total = want.numpy().astype(np.float64).sum(1, keepdims=True)
+    away = np.abs(prev - 0.95 * total) >= 1e-6 * total
+    bad = int((g_mask[away] != c_mask[away]).sum()) + int(
+        (g_ids != c_ids).sum())
+    note = (f"CDFS: mass ({MAX_BATCH}, {cfg.n_clusters}) bitwise the CPU's; "
+            f"selections {int(away.sum())} of {away.size} slots away from "
+            f"the band, {bad} mismatches; layers (max occurrence rank + 1) "
+            f"{int(bl.occurrence_ranks(index.doc_cluster[sid.long()].long()).max()) + 1}")
+    print(f"  {note}")
+    if bad:
+        raise AssertionError(f"CDFS selections disagree: {note}")
+    return note
+
+
+def cluster_score_big_case(key, q, blocks, sel, chunk):
+    """cluster_score at a shape whose plain version would materialise a
+    (B, S, cap, dim) gather of tens of GB: the plain version and the
+    gathered-einsum library call run `chunk` queries at a time (eager,
+    CUDA events), beside `q @ blocks^T` over the unique blocks the
+    selection reaches (what one GEMM over them costs). Held to the plain
+    version at rtol 1e-5, atol 1e-6. Returns a note."""
+    from repro_torch.kernels.cluster_score import (cluster_score,
+                                                   cluster_score_ref)
+
+    U, cap, dim = blocks.shape
+    B, S = sel.shape
+    out = cluster_score(q, blocks, sel)
+
+    def plain():
+        return torch.cat([cluster_score_ref(q[i:i + chunk], blocks,
+                                            sel[i:i + chunk])
+                          for i in range(0, B, chunk)])
+
+    def gathered():
+        return torch.cat([torch.einsum("bd,bscd->bsc", q[i:i + chunk],
+                                       blocks[sel[i:i + chunk].long()])
+                          for i in range(0, B, chunk)])
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"cluster_score at the {key} shape disagrees "
+                             f"with plain: {err}")
+    del out, ref
+    uniq = torch.unique(sel)
+    flat = blocks.reshape(U * cap, dim) if uniq.numel() == U \
+        else blocks[uniq.long()].reshape(-1, dim)
+    b_ms, b_by = bound(4 * (uniq.numel() * cap * dim + B * dim + B * S * cap)
+                       + 4 * B * S, 2 * B * S * cap * dim)
+    t = {"ms": graph_ms(lambda: cluster_score(q, blocks, sel), 5),
+         "plain_ms": cuda_ms(plain, 1, warmup=0),
+         "gathered_ms": cuda_ms(gathered, 1, warmup=1),
+         "gemm_ms": cuda_ms(lambda: q @ flat.T, 3)}
+    return (f"{key} q {(B, dim)} blocks {(U, cap, dim)} sel {(B, S)}, "
+            f"{uniq.numel()} blocks read: ms {t['ms']:.4f} plain (chunks of "
+            f"{chunk}) {t['plain_ms']:.4f} library: gathered einsum "
+            f"{t['gathered_ms']:.4f}, q @ blocks^T over the unique blocks "
+            f"{t['gemm_ms']:.4f}; bound {b_ms:.4f} ({b_by}); max_abs_err "
+            f"{err:.3g}")
+
+
+def topk_case(key, x, k):
+    """topk on one baselines shape, bitwise the plain version, timed
+    (CUDA-graph replays) beside torch.topk. Returns a note."""
+    from repro_torch.kernels.topk import topk, topk_ref
+
+    v, i = topk(x, k)
+    rv, ri = topk_ref(x, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(i, ri)
+            and torch.equal(v.view(torch.int32), rv.view(torch.int32))):
+        raise AssertionError(f"topk on the {key} rows is not bitwise the "
+                             f"plain version")
+    B, D = x.shape
+    b_ms, b_by = bound(4 * B * D + 12 * B * k, B * D)
+    return (f"{key} ({B}, {D}) k {k}: ms {graph_ms(lambda: topk(x, k)):.4f} "
+            f"plain {cuda_ms(lambda: topk_ref(x, k), 3):.4f} library "
+            f"{graph_ms(lambda: torch.topk(x, k), 5):.4f} bound {b_ms:.4f} "
+            f"({b_by})")
+
+
+def check_baseline_kernels(rec, cfg, index, qs, dev):
+    """topk and cluster_score at the shapes the baselines gave them: the
+    recorded last inputs, and IVF 10%'s cluster_score input (the last
+    batch's queries, the memory store's (N, cap, dim) table and the
+    probe's selection, as ivf_retrieve makes them). Returns ({"topk":
+    notes, "cluster_score": notes})."""
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import clusd
+
+    N = cfg.n_clusters
+    notes = {"topk": [], "cluster_score": []}
+    want = [(f"IVF {p}% probe", (MAX_BATCH, N), int(N * p / 100))
+            for p in IVF_PCTS]
+    want += [("CDFS mass", (MAX_BATCH, N), cfg.max_selected)]
+    ladr = LADR_RUNS["default"]
+    P = ladr["budget"]
+    want += [("LADR pool", (MAX_BATCH, P + P * KNN_NEIGHBORS), P)]
+    want += [("kNN probe", (None, N), KNN_PROBE),
+             ("kNN neighbours", (None, KNN_PROBE * cfg.cluster_cap),
+              KNN_NEIGHBORS)]
+    for key, shape, k in want:
+        hits = [x for (s, kk), x in rec.topk.items()
+                if kk == k and s[1] == shape[1]
+                and shape[0] in (None, s[0])]
+        if not hits:
+            raise AssertionError(f"no recorded topk input for {key}")
+        notes["topk"].append(topk_case(key, hits[-1], k))
+    q = torch.from_numpy(queries(qs, N_QUERIES - MAX_BATCH,
+                                 N_QUERIES)[0]).to(dev)
+    _, sel = bl.topk_desc_index_asc(q @ index.centroids.T,
+                                    int(N * IVF_PCTS[0] / 100))
+    blocks = clusd._device_store(index, index.embeddings).blocks
+    notes["cluster_score"].append(cluster_score_big_case(
+        f"IVF {IVF_PCTS[0]}% selection", q, blocks, sel.int().contiguous(),
+        8))
+    hits = [v for s, v in rec.cs.items() if s[1] == KNN_PROBE]
+    if not hits:
+        raise AssertionError("no recorded cluster_score input for the kNN")
+    notes["cluster_score"].append(cluster_score_big_case("kNN build",
+                                                         *hits[-1], 1024))
+    for n in notes["topk"] + notes["cluster_score"]:
+        print(f"  {n}", flush=True)
+    return notes
+
+
+def baselines_phase(cfg, index, corpus, qs, dev):
+    """The doc kNN graph built on the card, then each baseline (and the
+    CluSD memory path) over the N_QUERIES queries in batches of
+    MAX_BATCH, twice (the second pass timed), with the launch counts
+    zeroed just before and read just after; then the gates: each run
+    against its CPU twin, the CDFS mass bitwise and its selections, the
+    kNN rows against the numpy loop, and topk and cluster_score at the
+    shapes these runs gave them. Returns (launches, kernel notes)."""
+    from repro_torch import kernels
+    from repro_torch.core import baselines as bl
+    from repro_torch.data import mrr_at
+
+    kernels.reset_launches()
+    with _Recorder(bl) as rec, torch.no_grad():
+        t0 = time.perf_counter()
+        knn = bl.build_doc_knn(index, KNN_NEIGHBORS, KNN_PROBE)
+        sync(dev)
+        knn_s = time.perf_counter() - t0
+        print(f"  doc kNN ({cfg.n_docs}, {KNN_NEIGHBORS}) over "
+              f"{KNN_PROBE} probe clusters, built on the card in "
+              f"{knn_s:.2f} s (the block table built by the first call "
+              f"included)", flush=True)
+        runs = baseline_runs(cfg, index, knn)
+        for name, (fn, pct_d) in runs.items():
+            for rep in range(2):
+                ms, ids, pcts = [], [], []
+                for lo in range(0, N_QUERIES, MAX_BATCH):
+                    q3 = [torch.from_numpy(x).to(dev)
+                          for x in queries(qs, lo, lo + MAX_BATCH)]
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    out = fn(index, *q3)
+                    sync(dev)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    ids.append(out[0].cpu().numpy())
+                    pcts.append(pct_d(out[2]))
+            ids = np.concatenate(ids)
+            if ids.shape != (N_QUERIES, cfg.k_final) or ids.min() < 0 \
+                    or ids.max() >= cfg.n_docs:
+                raise AssertionError(f"{name}: results malformed")
+            print(f"  {name}: batch ms p50 {np.percentile(ms, 50):.3f} p99 "
+                  f"{np.percentile(ms, 99):.3f}; MRR@10 "
+                  f"{mrr_at(ids, qs.rel_doc[:N_QUERIES]):.4f}; %D "
+                  f"{np.mean(pcts):.4f}", flush=True)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  baselines kernel launches: {launches}")
+    t0 = time.perf_counter()
+    emb, index.embeddings = index.embeddings, None
+    cpu_index = index.to("cpu")
+    index.embeddings = emb
+    cpu_index.embeddings = torch.from_numpy(corpus.embeddings)
+    for name, (fn, _) in runs.items():
+        baseline_parity(name, fn, index, cpu_index, qs)
+    notes = [cdfs_gates(cfg, index, cpu_index, qs)]
+    del cpu_index
+    t1 = time.perf_counter()
+    notes.append(knn_gate(knn, corpus.embeddings,
+                          index.centroids.cpu().numpy(),
+                          index.cluster_docs.cpu().numpy()))
+    t2 = time.perf_counter()
+    kn = check_baseline_kernels(rec, cfg, index, qs, dev)
+    print(f"  gates: CPU twins and CDFS {t1 - t0:.2f} s, kNN rows "
+          f"{t2 - t1:.2f} s, kernels {time.perf_counter() - t2:.2f} s")
+    del rec, knn
+    index._stores.pop("memory", None)
+    torch.cuda.empty_cache()
+    return launches, kn
+
+
+# ---------------------------------------------------------------------------
+# the dense LM (models/transformer.py) and the training driver
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_VARIANT = "qwen2-1.5b", "full"
+LM_CLI_ARGS = []           # e.g. ["--device", "cpu"] for a CPU rehearsal
+LM_PARITY_LAYERS, LM_PARITY_B, LM_PARITY_S = 2, 2, 32
+LM_B, LM_S, LM_DECODE_SLOTS = 8, 128, 256
+LM_TOL = dict(rtol=1e-4, atol=1e-5)
+LM_GRAD_RTOL = 1e-4
+# one AdamW step on the card: (a) the update P1 - P0 recomputed in
+# float64 from the card's own lr and moments, every entry within
+# LM_RECOMPUTE_RTOL of the update's terms plus 4 ulp of the parameter;
+# (b) the update against the CPU's within LM_UPDATE_RTOL wherever the
+# two first moments agree to LM_MU_AGREE (so eps cannot magnify their
+# difference past it), on at least LM_UPDATE_KEPT of all entries
+LM_RECOMPUTE_RTOL, LM_UPDATE_RTOL, LM_MU_AGREE = 1e-5, 1e-3, 1e-4
+LM_UPDATE_KEPT = 0.99
+# step 12 of a warmed-up cosine schedule, so that lr = sched(count) and
+# the bias corrections of count 13 enter the update
+LM_SCHED, LM_SCHED_COUNT = ("cosine", 3e-4, 10, 100), 12
+
+
+def _lm_close(name, g, c, **tol):
+    g = g.detach().float().cpu()
+    c = c.detach().float()
+    err = (g - c).abs().max().item()
+    if not torch.allclose(g, c, **(tol or LM_TOL)):
+        raise AssertionError(f"LM {name}: card and CPU disagree: {err}")
+    return err
+
+
+def _lm_step_close(pg, og, mg, pc, oc, mc, p0):
+    """Holds one AdamW step on the card (params pg, state og, metrics mg)
+    to the CPU's (pc, oc, mc) from the same params p0 and zero moments:
+    lr and count equal, the moments' relative L2 error within
+    LM_GRAD_RTOL (2x for the second), the update as the LM_* constants
+    above say, and every other entry within two first-step moves (a
+    near-zero gradient may differ in sign there). Returns (the largest
+    error of (a) over its tolerance, the share (b) held)."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs.base import TrainConfig
+
+    tc = TrainConfig()
+    lr = float(mg["lr"])
+    if not abs(lr - float(mc["lr"])) <= 1e-6 * abs(float(mc["lr"])):
+        raise AssertionError(f"LM step lr: card {lr} CPU {float(mc['lr'])}")
+    if int(og["count"]) != int(oc["count"]):
+        raise AssertionError("LM step count: card and CPU disagree")
+    n = int(og["count"])
+    f32 = np.float32
+    c1 = float(f32(1) - f32(tc.b1) ** f32(n))
+    c2 = float(f32(1) - f32(tc.b2) ** f32(n))
+    most = (1 - tc.b1) / c1 / math.sqrt((1 - tc.b2) / c2)
+    tiny = 2 * torch.finfo(torch.float32).eps
+    worst, kept, total = 0.0, 0, 0
+    for name, rt in (("mu", LM_GRAD_RTOL), ("nu", 2 * LM_GRAD_RTOL)):
+        for a, b in zip(tu.tree_leaves(og[name]), tu.tree_leaves(oc[name])):
+            b = b.to(a.device)
+            rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+            if not rel <= rt:
+                raise AssertionError(f"LM step {name}: relative L2 {rel}")
+    # in float64 on the card's side, leaf by leaf
+    for a, c, ma, va, mc_, p in zip(
+            tu.tree_leaves(pg), tu.tree_leaves(pc), tu.tree_leaves(og["mu"]),
+            tu.tree_leaves(og["nu"]), tu.tree_leaves(oc["mu"]),
+            tu.tree_leaves(p0)):
+        dev = a.device
+        p = p.to(dev).double()
+        dt = a.double() - p
+        ma, va, mc_ = ma.double(), va.double(), mc_.to(dev).double()
+        # (a) the card's update from its own moments
+        adam = (ma / c1) / ((va / c2).sqrt() + tc.eps)
+        want = -lr * (adam + tc.weight_decay * p)
+        tol = LM_RECOMPUTE_RTOL * lr * (adam.abs() + tc.weight_decay
+                                        * p.abs()) \
+            + 2 * tiny * (p.abs() + want.abs())
+        over = float(((dt - want).abs() / tol).max())
+        worst = max(worst, over)
+        if over > 1:
+            raise AssertionError(f"LM step: the card's update is off its "
+                                 f"own moments by {over:.3g}x the tolerance")
+        # (b) the card's update against the CPU's
+        dj = c.to(dev).double() - p
+        ulp = tiny * (p.abs() + dj.abs())
+        ok = (((ma - mc_).abs() <= LM_MU_AGREE * mc_.abs()) & (mc_ != 0)) \
+            | ((ma == 0) & (mc_ == 0))
+        err = (dt - dj).abs()
+        bad = ok & (err > LM_UPDATE_RTOL * dj.abs() + ulp)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"LM step: {int(bad.sum())} updates disagree with the CPU's "
+                f"where the moments agree (largest error "
+                f"{float(err[bad].max()):.3g})")
+        if not bool((err[~ok] <= 2 * lr * most + ulp[~ok]).all()):
+            raise AssertionError("LM step: an update is off the CPU's by "
+                                 "more than two first-step moves")
+        kept, total = kept + int(ok.sum()), total + ok.numel()
+        del p, dt, ma, va, mc_, adam, want, tol, dj, ulp, ok, err, bad
+    if not kept >= LM_UPDATE_KEPT * total:
+        raise AssertionError(f"LM step: only {kept / total:.4f} of the "
+                             f"entries held to rtol {LM_UPDATE_RTOL}")
+    return worst, kept / total
+
+
+def lm_parity(dev):
+    """qwen2-1.5b at full width and depth LM_PARITY_LAYERS in float32 (TF32
+    off), card against a CPU twin from the same init: hidden states, the
+    loss, each gradient leaf (relative L2 error), one AdamW step at
+    LM_SCHED_COUNT (lr, moments and the update, `_lm_step_close`),
+    prefill logits and 4 decode steps. Returns a note."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init, make_schedule
+
+    cfg = dataclasses.replace(get_config(LM_ARCH, LM_VARIANT),
+                              n_layers=LM_PARITY_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+    cpu_p = tu.tree_map(lambda x: x.cpu(), params)
+    rng = np.random.default_rng(SEED + 7)
+    t = rng.integers(0, cfg.vocab_size, (LM_PARITY_B, LM_PARITY_S + 1))
+    batch = {"tokens": torch.from_numpy(t[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(t[:, 1:].astype(np.int32))}
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    errs = {}
+    with torch.no_grad():
+        hg = tt.forward(cfg, params, gb["tokens"])[0]
+        hc = tt.forward(cfg, cpu_p, batch["tokens"])[0]
+    errs["hidden"] = _lm_close("hidden", hg, hc)
+    (_, lg, _), gg = tt.value_and_grad(cfg, params, gb)
+    (_, lc, _), gc = tt.value_and_grad(cfg, cpu_p, batch)
+    errs["loss"] = _lm_close("loss", lg, lc, rtol=1e-5, atol=0)
+    rel = max(float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+              for a, b in zip(tu.tree_leaves(gg), tu.tree_leaves(gc)))
+    errs["grad_rel_l2"] = rel
+    if not rel <= LM_GRAD_RTOL:
+        raise AssertionError(f"LM gradients: relative L2 error {rel}")
+    del gg, gc
+    step = tt.make_train_step(cfg, make_schedule(*LM_SCHED))
+
+    def state(p):
+        return dict(adamw_init(p), count=torch.tensor(
+            LM_SCHED_COUNT, dtype=torch.int32, device=p["embed"].device))
+    pg, og, mg = step(params, state(params), gb)
+    pc, oc, mc = step(cpu_p, state(cpu_p), batch)
+    errs["update_recompute"], errs["update_kept"] = _lm_step_close(
+        pg, og, mg, pc, oc, mc, cpu_p)
+    del pg, pc, og, oc
+    prefill, decode = tt.make_prefill_step(cfg), tt.make_decode_step(cfg)
+    lg, kvg = prefill(params, gb["tokens"])
+    lc, kvc = prefill(cpu_p, batch["tokens"])
+    errs["prefill_logits"] = _lm_close("prefill logits", lg, lc)
+    S = LM_PARITY_S
+    cg = tt.init_cache(cfg, LM_PARITY_B, S + 8, device=dev)
+    cc = tt.init_cache(cfg, LM_PARITY_B, S + 8, device="cpu")
+    for n in ("k", "v"):
+        cg[n][:, :, :S] = kvg[n]
+        cc[n][:, :, :S] = kvc[n]
+    tok = lc.argmax(1, keepdim=True).int()
+    for i in range(4):
+        lg, cg = decode(params, cg, tok.to(dev), S + i)
+        lc, cc = decode(cpu_p, cc, tok, S + i)
+        errs[f"decode_{i}"] = _lm_close(f"decode step {i}", lg, lc)
+        tok = lc.argmax(1, keepdim=True).int()
+    note = (f"LM parity ({cfg.name} full width, {cfg.n_layers} layers, "
+            f"{cfg.param_count()} params, float32, B {LM_PARITY_B} S "
+            f"{LM_PARITY_S}): " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in errs.items()))
+    print(f"  {note}", flush=True)
+    return note
+
+
+def lm_timing(dev):
+    """qwen2-1.5b full() at all its layers (bf16 compute, float32 params,
+    microbatch 4): the train step's p50 over 5 steps after 2 of warm-up
+    and its peak device memory, prefill (LM_B, LM_S), and decode ms a
+    token with a LM_DECODE_SLOTS-slot cache. Returns a note."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(LM_ARCH, LM_VARIANT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    opt = adamw_init(params)
+    step = tt.make_train_step(cfg)
+    rng = np.random.default_rng(SEED + 8)
+    t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_S + 1))
+                         .astype(np.int32)).to(dev)
+    batch = {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+    ms = []
+    for i in range(7):
+        sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError("LM loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    prefill, decode = tt.make_prefill_step(cfg), tt.make_decode_step(cfg)
+    pre_ms = cuda_ms(lambda: prefill(params, batch["tokens"]), 3)
+    logits, kv = prefill(params, batch["tokens"])
+    cache = tt.init_cache(cfg, LM_B, LM_DECODE_SLOTS, device=dev)
+    for n in ("k", "v"):
+        cache[n][:, :, :LM_S] = kv[n]
+    tok = logits.argmax(1, keepdim=True).int()
+    sync(dev)
+    t0 = time.perf_counter()
+    n_dec = 16
+    for i in range(n_dec):
+        logits, cache = decode(params, cache, tok, LM_S + i)
+        tok = logits.argmax(1, keepdim=True).int()
+    sync(dev)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    note = (f"LM timing ({cfg.name} full(), {cfg.n_layers} layers, "
+            f"{cfg.param_count()} params, {cfg.dtype} compute, "
+            f"{cfg.param_dtype} params, microbatch {cfg.microbatch}, B "
+            f"{LM_B} S {LM_S}): train step ms p50 "
+            f"{np.percentile(ms[2:], 50):.2f} (steps "
+            f"{', '.join(f'{x:.1f}' for x in ms)}); peak device memory "
+            f"{peak / 1e9:.2f} GB; prefill ({LM_B}, {LM_S}) "
+            f"{pre_ms:.2f} ms; decode {dec_ms:.2f} ms a token "
+            f"({LM_DECODE_SLOTS}-slot cache, B {LM_B})")
+    print(f"  {note}", flush=True)
+    del params, cache, kv, logits
+    torch.cuda.empty_cache()
+    return note
+
+
+def lm_cli_drill(tmp):
+    """`python -m repro_torch.launch.train --arch qwen2-1.5b --variant full
+    --steps 6 --ckpt-every 3 --fail-at 4` on the card, in its own
+    process: it must exit 0 with restarts=1 and steps=7 (0-3, then 3-5
+    after the restore of step 2), its last checkpoint at step 5. Its two
+    checkpoints (params and AdamW moments) are written under `tmp`; the
+    disk must hold them. Returns a note."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+
+    ck = os.path.join(tmp, "lm_ckpt")
+    need = 3 * 4 * get_config(LM_ARCH, LM_VARIANT).param_count()
+    free = shutil.disk_usage(tmp).free
+    print(f"  checkpoints: {need} bytes each, 2 kept (plus one being "
+          f"written); disk free under {tmp}: {free} bytes", flush=True)
+    if free < 2.2 * need:
+        raise AssertionError(f"the disk holds {free} bytes, short of the "
+                             f"{int(2.2 * need)} the drill's checkpoints need")
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            LM_ARCH, "--variant", LM_VARIANT, "--steps", "6",
+            "--ckpt-every", "3", "--fail-at", "4", "--ckpt-dir", ck,
+            *LM_CLI_ARGS]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    print("\n".join(f"  | {ln}" for ln in lines[-4:]))
+    if out.returncode != 0:
+        print(out.stderr[-3000:])
+        raise AssertionError(f"train CLI exited {out.returncode}")
+    done = re.search(r"done: steps=(\d+) restarts=(\d+)", out.stdout)
+    last = latest_step(ck)
+    sizes = {d: sum(os.path.getsize(os.path.join(ck, d, f))
+                    for f in os.listdir(os.path.join(ck, d)))
+             for d in sorted(os.listdir(ck))}
+    note = (f"train CLI drill: exit 0 in {secs:.1f} s; "
+            f"{done.group(0) if done else 'no done line'}; last checkpoint "
+            f"step {last}; checkpoints {sizes}")
+    print(f"  {note}", flush=True)
+    if not done or done.group(1, 2) != ("7", "1") or last != 5:
+        raise AssertionError(f"train CLI drill: {note}")
+    shutil.rmtree(ck)
+    return note
+
+
+def lm_phase(tmp, dev):
+    """The three LM parts, with the launch counts zeroed just before and
+    read just after (the LM runs none of the seven kernels: its matmuls
+    are cuBLAS, its attention plain torch ops, as the reference has no
+    Pallas kernel there). Returns the launches."""
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    lm_parity(dev)
+    lm_timing(dev)
+    lm_cli_drill(tmp)
+    return dict(kernels.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# the port's examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart", "torch_serve_retrieval",
+            "torch_recsys_clusd_retrieval", "torch_train_with_failures")
+_EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+from repro_torch import kernels
+path = sys.argv[1]
+sys.argv = [path]
+rc = 0
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+    rc = e.code or 0
+print("KERNEL_LAUNCHES " + json.dumps(kernels.LAUNCHES))
+sys.exit(rc)
+"""
+
+
+def examples_phase():
+    """The port's four examples, each in its own process on the card
+    (their default device), all four at once: exit 0, the last result
+    lines and seconds printed, and each process's kernel launches
+    (printed by the runner after the example) summed. Returns the
+    launches."""
+    # two intra-op threads each: the four share the host's eight cores
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _EXAMPLE_RUNNER,
+         os.path.join(ROOT, "examples", f"{name}.py")], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    total = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            lines = stdout.strip().splitlines()
+            launches = json.loads(lines[-1].split(" ", 1)[1]) \
+                if lines and lines[-1].startswith("KERNEL_LAUNCHES") else {}
+            print(f"  {name}: exit {proc.returncode}, done {secs:.1f} s "
+                  f"after the four started; launches {launches}")
+            print("\n".join(f"  | {ln}" for ln in lines[-5:-1]), flush=True)
+            if proc.returncode != 0 or not launches:
+                print(stderr[-3000:])
+                raise AssertionError(f"example {name} failed")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return total
+
 def parity(name, make_engine, qs, dev, atol):
     """The first PARITY_QUERIES queries served by make_engine(dev) and by
     make_engine("cpu") (plain versions): ids equal at isolated ranks,
@@ -3188,12 +3926,20 @@ PATH_KERNELS = {
     # v2 at 4 hosts R 2 (ADC hosts) and one v1 batch ("dot" hosts)
     "router": ("adc_tables", "adc_score_blocks", "cluster_score",
                "lstm_sequence", "topk", "bin_overlap"),
+    # the kNN build and IVF (cluster_score), every top-k, and CluSD beside
+    "baselines": ("cluster_score", "topk", "bin_overlap", "lstm_sequence"),
+    # cuBLAS matmuls and plain torch attention: none of the seven
+    "lm": (),
+    # quickstart and serve (memory store, "dot" tail, selector training),
+    # the recsys example
+    "examples": ("cluster_score", "lstm_sequence", "topk", "bin_overlap",
+                 "embedding_bag"),
 }
 
 
 def check_path_launches(paths):
     """Every kernel of each path that has run launched in its run."""
-    missing = {p: [k for k in PATH_KERNELS[p] if paths[p][k] <= 0]
+    missing = {p: [k for k in PATH_KERNELS[p] if paths[p].get(k, 0) <= 0]
                for p in paths}
     if any(missing.values()):
         raise AssertionError(f"kernels of a main path never launched: "
@@ -3275,6 +4021,12 @@ def main():
             del eng
             parity("memory", device_engine(cfg, index), qs, dev, 1e-6)
             dist_job = stage_distributed(cfg, index, emb_path, qs, tmp, dev)
+        with phase(f"baselines: IVF {'/'.join(map(str, IVF_PCTS))}% (and "
+                   f"{IVF_PCTS[-1]}% unfused), S + Rerank, CDFS, LADR "
+                   f"default and fast over a doc kNN built on the card, "
+                   f"CluSD beside; {N_QUERIES} queries; the gates"):
+            paths["baselines"], bl_notes = baselines_phase(cfg, index, corpus,
+                                                           qs, dev)
         index.embeddings, index.quantizer = None, pq
         del corpus
         with phase(f"device PQStore serving: {N_QUERIES} queries + 1 "
@@ -3337,7 +4089,9 @@ def main():
             rows = check_kernels(dev, launches, v2_in, v1_in, tail,
                                  codebooks, eng_v2.index.selector, eb,
                                  nb_sims, cs_notes)
-            del v1_in, v2_in, tail, eb, nb_sims
+            for r in rows:
+                r["shapes"] += bl_notes.get(r["name"], [])
+            del v1_in, v2_in, tail, eb, nb_sims, eng_v1, eng_v2
         with phase("embedding_bag: two threads' error words, the word's "
                    "fill"):
             bag_threads(dev)
@@ -3389,6 +4143,27 @@ def main():
             with phase(f"parity {name}: {PARITY_QUERIES} queries, card vs "
                        f"CPU"):
                 parity(name, dir_engine(dirs[name]), qs, dev, atol)
+    # the LM and the examples run after the index directories are gone:
+    # the train CLI's two checkpoints take 43 GB of disk
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before the LM: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="chip_smoke_lm_") as tmp:
+        with phase(f"lm: {LM_ARCH} card vs CPU at full width and "
+                   f"{LM_PARITY_LAYERS} layers; the train step, prefill and "
+                   f"decode at all layers; the train CLI drill"):
+            paths["lm"] = lm_phase(tmp, dev)
+    with phase("examples: the port's four, each in its own process, at "
+               "once"):
+        paths["examples"] = examples_phase()
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in paths["v2"]}
+    print(f"  launches over the {len(paths)} paths: {launches}")
+    check_path_launches(paths)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
     print(f"chip_smoke total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in ("shapes",

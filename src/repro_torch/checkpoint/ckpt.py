@@ -23,6 +23,7 @@ import json
 import os
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ import torch
 from repro_torch.common.tree import leaf_paths, tree_unflatten_like
 
 _SHARD_BYTES = 256 * 1024 * 1024
+_IO_THREADS = 8          # shard files written or read at once
 
 
 def leaf_key(name):
@@ -59,25 +61,25 @@ def save_checkpoint(ckpt_dir, step, tree, *, async_save=False, extra=None):
             shutil.rmtree(tmp)
         os.makedirs(tmp, exist_ok=True)
         manifest = {"step": int(step), "leaves": [], "extra": extra or {}}
-        shard, shard_bytes, shard_id = {}, 0, 0
-
-        def flush():
-            nonlocal shard, shard_bytes, shard_id
-            if shard:
-                np.savez(os.path.join(tmp, f"shard_{shard_id}.npz"), **shard)
-                shard, shard_bytes = {}, 0
-                shard_id += 1
-
+        shards = [{}]
+        shard_bytes = 0
         for i, (path, arr) in enumerate(host):
             key = f"leaf_{i}"
             manifest["leaves"].append({
-                "path": path, "key": key, "shard": shard_id,
+                "path": path, "key": key, "shard": len(shards) - 1,
                 "shape": list(arr.shape), "dtype": str(arr.dtype)})
-            shard[key] = arr
+            shards[-1][key] = arr
             shard_bytes += arr.nbytes
             if shard_bytes >= _SHARD_BYTES:
-                flush()
-        flush()
+                shards.append({})
+                shard_bytes = 0
+        # each shard is its own file, so they are written at once (the
+        # zip CRC and the file writes release the GIL)
+        with ThreadPoolExecutor(_IO_THREADS) as pool:
+            for f in [pool.submit(np.savez, os.path.join(
+                    tmp, f"shard_{i}.npz"), **shard)
+                    for i, shard in enumerate(shards) if shard]:
+                f.result()
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         open(os.path.join(tmp, ".complete"), "w").close()
@@ -101,11 +103,14 @@ def read_checkpoint(ckpt_dir, step):
     by_shard = {}
     for leaf in manifest["leaves"]:
         by_shard.setdefault(leaf["shard"], []).append(leaf)
-    arrays = {}
-    for shard_id, leaves in by_shard.items():
+
+    def load(shard_id, leaves):
         with np.load(os.path.join(d, f"shard_{shard_id}.npz")) as z:
-            for leaf in leaves:
-                arrays[leaf["path"]] = z[leaf["key"]]
+            return {leaf["path"]: z[leaf["key"]] for leaf in leaves}
+    arrays = {}
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        for f in [pool.submit(load, *kv) for kv in by_shard.items()]:
+            arrays.update(f.result())
     return arrays, manifest.get("extra", {})
 
 

@@ -5,10 +5,13 @@ JAX module's `full()` and `smoke()`."""
 import importlib
 
 from repro_torch.configs.base import (CluSDConfig, RecsysConfig,
-                                      TrainConfig)
+                                      TrainConfig, TransformerConfig)
 
 # arch-id -> module name (the subset of the JAX registry that is ported)
 ARCH_REGISTRY = {
+    "qwen2-1.5b": "qwen2_1_5b",
+    "deepseek-67b": "deepseek_67b",
+    "qwen2.5-32b": "qwen2_5_32b",
     "wide-deep": "wide_deep",
     "din": "din",
     "deepfm": "deepfm",
@@ -28,4 +31,4 @@ def get_config(arch, variant="full"):
 
 
 __all__ = ["ARCH_REGISTRY", "CluSDConfig", "RecsysConfig", "TrainConfig",
-           "get_config"]
+           "TransformerConfig", "get_config"]

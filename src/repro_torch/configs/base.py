@@ -1,10 +1,73 @@
 """The system configs: copies of repro.configs.base.CluSDConfig,
-RecsysConfig and TrainConfig, with the same fields, defaults and derived
-values."""
+RecsysConfig, TransformerConfig and TrainConfig, with the same fields,
+defaults and derived values."""
 
 import dataclasses
 import math
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    family: str = "lm"
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    d_ff: int = 512
+    vocab_size: int = 1024
+    head_dim: Optional[int] = None          # default: d_model // n_heads
+    qkv_bias: bool = False
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    dense_residual: bool = False            # arctic: dense FFN beside MoE
+    # attention
+    sliding_window: Optional[int] = None    # SWA window (mixtral)
+    rope_theta: float = 1e6
+    # numerics / memory policy
+    dtype: str = "bfloat16"                 # activations / compute
+    param_dtype: str = "float32"
+    opt_state_dtype: str = "float32"        # arctic uses bf16 to fit HBM
+    remat: bool = True
+    logits_chunk: int = 0                   # chunked xent (0 = off)
+    microbatch: int = 0                     # grad-accumulation splits
+    moe_impl: str = "sort"                  # sort | ep_shard_map
+    grad_accum_dtype: str = "float32"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + L layers + final norm)."""
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * hd
+        dense_ffn = 3 * d * self.d_ff
+        per_layer = attn + 2 * d  # norms
+        if self.moe:
+            per_layer += self.n_experts * 3 * d * self.moe_d_ff \
+                + d * self.n_experts
+            if self.dense_residual:
+                per_layer += dense_ffn
+        else:
+            per_layer += dense_ffn
+        return self.vocab_size * d * 2 + self.n_layers * per_layer + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts active)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        inactive = self.n_layers * (self.n_experts - self.moe_top_k) * 3 \
+            * d * self.moe_d_ff
+        return self.param_count() - inactive
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,6 +6,7 @@ compute on the same index, selector and quantizer.
   selector_from_numpy(params, selector=) -> LSTM/RNN/MLP selector
   pq_from_numpy(codebooks, codes, rotation, nsub) -> PQ
   recsys_params_from_numpy(cfg, params) -> recsys params (fused tables)
+  transformer_params_from_numpy(cfg, params) -> dense LM params
 """
 
 import numpy as np
@@ -119,3 +120,28 @@ def recsys_params_from_numpy(cfg, params, *, device=None):
                                  f"{tuple(leaf.shape)}")
             out[name] = _tensor(a, np.float32, dev)
     return out
+
+
+def transformer_params_from_numpy(cfg, params, *, device=None):
+    """A JAX transformer params tree as numpy ({"embed", "lm_head",
+    "final_norm", "layers": {"wq", ...}}, every layer leaf stacked over
+    L) -> the port's tree of the same structure, each leaf a tensor of
+    the template's dtype on `device` (None: the card). Shapes are checked
+    against repro_torch.models.transformer.param_template(cfg)."""
+    from repro_torch.models import transformer as tf
+    dev = resolve_device(device)
+
+    def conv(tmpl, src, path):
+        if isinstance(tmpl, dict):
+            missing = sorted(set(tmpl) - set(src))
+            if missing:
+                raise KeyError(f"transformer params missing {path}{missing}")
+            return {k: conv(tmpl[k], src[k], f"{path}{k}/")
+                    for k in sorted(tmpl)}
+        a = np.asarray(src, np.float32)
+        if a.shape != tuple(tmpl.shape):
+            raise ValueError(f"{path[:-1]}: shape {a.shape}, expected "
+                             f"{tmpl.shape}")
+        return torch.from_numpy(np.array(a, order="C")).to(
+            device=dev, dtype=getattr(torch, str(tmpl.dtype)))
+    return conv(tf.param_template(cfg), params, "")

@@ -1,0 +1,67 @@
+"""Attention: GQA with optional sliding window; chunked-q train/prefill
+(each chunk recomputed in the backward) and single-token decode against
+a KV cache. The JAX package's `repro.models.attention` in plain torch
+ops: GQA as (B, S, Hkv, G, hd), masked scores filled with -1e30 and the
+softmax in float32. No SDPA: its masking and numerics are another
+function."""
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def _chunk_attend(q, k, v, q_start, *, causal, window):
+    """q: (B, C, Hkv, G, hd); k/v: (B, S, Hkv, hd) -> (B, C, Hkv, G, hd)."""
+    B, C, Hkv, G, hd = q.shape
+    S = k.shape[1]
+    scores = torch.einsum("bchgd,bshd->bhgcs", q, k) / (hd ** 0.5)
+    qpos = q_start + torch.arange(C, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((C, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhgcs,bshd->bchgd", probs, v)
+
+
+def attention(q, k, v, *, causal=True, window=None, q_chunk=512):
+    """q: (B, S, Hq, hd); k/v: (B, S, Hkv, hd) -> (B, S, Hq, hd). Above
+    q_chunk queries, S must divide by q_chunk; each chunk's (C, S) score
+    slab is recomputed in the backward instead of stored."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    q = q.reshape(B, S, Hkv, G, hd)
+    if S <= q_chunk:
+        out = _chunk_attend(q, k, v, 0, causal=causal, window=window)
+        return out.reshape(B, S, Hq, hd)
+    assert S % q_chunk == 0, (S, q_chunk)
+    outs = []
+    for i in range(S // q_chunk):
+        q_i = q[:, i * q_chunk:(i + 1) * q_chunk]
+
+        def body(q_i, k, v, start=i * q_chunk):
+            return _chunk_attend(q_i, k, v, start, causal=causal,
+                                 window=window)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(body, q_i, k, v, use_reentrant=False))
+        else:
+            outs.append(body(q_i, k, v))
+    return torch.cat(outs, dim=1).reshape(B, S, Hq, hd)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """Single-token decode. q: (B, 1, Hq, hd); caches: (B, S, Hkv, hd);
+    the first `cache_len` slots are valid."""
+    B, S, Hkv, hd = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    q = q.reshape(B, Hkv, G, hd)
+    scores = torch.einsum("bhgd,bshd->bhgs", q, k_cache) / (hd ** 0.5)
+    kpos = torch.arange(S, device=q.device)[None, None, None, :]
+    scores = torch.where(kpos < cache_len, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache)
+    return out.reshape(B, 1, Hq, hd)

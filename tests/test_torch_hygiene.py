@@ -34,7 +34,12 @@ missing = sorted({"repro_torch.index.update", "repro_torch.launch",
                   "repro_torch.launch.build_index",
                   "repro_torch.engine.router", "repro_torch.core.distributed",
                   "repro_torch.obs.slo", "repro_torch.obs.exporter",
-                  "repro_torch.launch.serve"} - set(names))
+                  "repro_torch.launch.serve", "repro_torch.core.baselines",
+                  "repro_torch.common.metrics", "repro_torch.optim.schedules",
+                  "repro_torch.data.pipeline", "repro_torch.runtime.fault",
+                  "repro_torch.models.layers", "repro_torch.models.attention",
+                  "repro_torch.models.transformer",
+                  "repro_torch.launch.train"} - set(names))
 from repro_torch.core.fusion import fuse_topk_merge  # noqa: F401
 print(len(names), bad + missing)
 """
