@@ -163,21 +163,52 @@ Phases, each printed with its seconds:
      step, prefill logits, 4 decode steps); at all 28 layers (bf16
      compute, float32 params, microbatch 4, B 8, S 128) the train
      step's p50 over 5 steps after 2 and its peak device memory, prefill
-     and decode ms; then `python -m repro_torch.launch.train --arch
-     qwen2-1.5b --variant full --steps 6 --ckpt-every 3 --fail-at 4` in
-     its own process (exit 0, restarts=1, steps=7, last checkpoint step
-     5, two 21.3 GB checkpoints; the disk's free space checked first);
- 19. the port's four examples (examples/torch_*.py), each in its own
+     and decode ms;
+ 19. three `python -m repro_torch.launch.train ... --steps 6 --ckpt-every
+     3 --fail-at 4` drills start in their own processes (qwen2-1.5b full,
+     writing two 21.3 GB checkpoints, the disk's free space checked
+     first; mixtral-8x7b smoke; nequip full): each must exit 0 with
+     restarts=1 and steps=7, its last checkpoint at step 5;
+ 20. the GNN (models/nequip.py): nequip full() on the `molecule` cell
+     (128 synth_molecules graphs) card against a CPU twin (energies,
+     loss, gradients, one AdamW step), energy invariance under a
+     rotation and translation on the card, the step ms; the
+     `minibatch_lg` cell's host side beside the LM drill: a synth_graph
+     of 232,965 nodes and 114,615,892 edges (d_feat 602), its CSRGraph,
+     padded_batch at 1024 seeds and fanout (15, 10) (169,984 nodes,
+     168,960 edges, seeded positions), the CPU twin of one batch; once
+     the LM drill is done, its card side: energies and gradients against
+     the twin, forward and train step ms, peak memory;
+ 21. the MoE LMs (models/moe.py): mixtral-8x7b at full width and 1 layer
+     in float32, card against a CPU twin on two batches of (2, 64) (T
+     128, C 40; the second repeats one token over the first half of each
+     row, so its tokens route alike and must drop pairs): hidden states,
+     aux, loss, gradients, the router's expert ids at tokens away from a
+     near-tie, one AdamW step, prefill and 4 decode steps; its train step
+     at 1 layer (bf16 compute, microbatch 8, B 8, S 128, step p50 and
+     peak memory), prefill (8, 128) and 16 decode tokens at 4 layers;
+     arctic-480b at full width and 1 layer in bf16 (prefill (8, 128): T
+     1024 over 128 experts, C 24; 4 decode tokens; ms and peak memory)
+     and its moe_ffn against a per-expert loop on the card; then the
+     mixtral and nequip drills are checked, and topk at the MoE router's
+     shapes ((128, 8), (1024, 8), (8, 128), (1024, 128), k 2) held
+     bitwise to its plain version;
+ 22. the port's four examples (examples/torch_*.py), each in its own
      process on the card, the four at once: exit 0, their result lines,
      seconds and kernel launches.
 
+Phase 14's ranks also run `compressed_psum` (optim/compression.py) on
+2^24 floats each, on the card and on the CPU in the same gloo group:
+bitwise equal, within n x scale / 2 of the true sum, the carries
+g32 - q x scale.
+
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
-(topk on all but the LM, which runs none of the seven, embedding_bag on
-recsys, train and the examples), and the kernel table sums the sixteen
-paths (the seven serving paths, the offline build, the two updates, the
-train path, the distributed ranks, the router, the baselines, the LM
-and the examples). Prints the kernel table as one JSON
+(topk on all but the LM and the GNN, which run none of the seven,
+embedding_bag on recsys, train and the examples), and the kernel table
+sums the eighteen paths (the seven serving paths, the offline build,
+the two updates, the train path, the distributed ranks, the router, the
+baselines, the LM, the MoE, the GNN and the examples). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
@@ -2734,6 +2765,7 @@ def dist_rank(rank, world, job, dev_kind):
                                     sel_c, gathered_einsum(q_c, blocks_c,
                                                            sel_c))
         tdist.barrier()
+        comp = compression_check(rank, dev)
         gv, gi = tret._guide_topk(g, dataclasses.replace(spec,
                                                          local_topk=False))
         guide_equal = bool(torch.equal(li, gi) and torch.equal(
@@ -2753,9 +2785,64 @@ def dist_rank(rank, world, job, dev_kind):
             json.dump({"ms": ms, "launches": launches, "layout_s": layout_s,
                        "blocks_bytes": int(blocks.nbytes),
                        "p_shard": int(pd.shape[2]),
-                       "guide_equal": guide_equal, "cluster_score": cs}, f)
+                       "guide_equal": guide_equal, "cluster_score": cs,
+                       "compression": comp}, f)
     finally:
         tdist.destroy_process_group()
+
+
+COMPRESS_NUMEL = 1 << 24        # floats a rank, for compressed_psum
+
+
+def compression_check(rank, dev):
+    """compressed_psum over the default (gloo) group on a COMPRESS_NUMEL
+    float tensor of this rank (two steps, the second from the first's
+    carry) on `dev` and again on the CPU: the sums and carries bitwise
+    the CPU's, each sum within n_ranks * scale / 2 (1.001 for the
+    float32 rounding of the sum itself) of the true sum (a float64
+    all_reduce), each carry equal to g32 - q * scale recomputed from the
+    step's inputs. Returns the card's ms of each step and the gates."""
+    import torch.distributed as tdist
+
+    from repro_torch.optim.compression import compressed_psum, ef_init
+
+    world = tdist.get_world_size()
+    gen = torch.Generator().manual_seed(SEED + 30 + rank)
+    g = {"g": torch.randn(COMPRESS_NUMEL, generator=gen)
+         * (1.0 + rank)}
+    e_dev = ef_init({"g": g["g"].to(dev)})
+    e_cpu = ef_init(g)
+    g_dev = {"g": g["g"].to(dev)}
+    out = {"ms": [], "bitwise_cpu": True, "carry_exact": True,
+           "sum_over_bound": 0.0}
+    for _ in range(2):
+        g32 = (g["g"] + e_cpu["g"])
+        sync(dev)
+        t0 = time.perf_counter()
+        s_dev, new_dev = compressed_psum(g_dev, e_dev, None, world)
+        sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        s_cpu, new_cpu = compressed_psum(g, e_cpu, None, world)
+        out["bitwise_cpu"] &= bool(
+            torch.equal(s_dev["g"].cpu().view(torch.int32),
+                        s_cpu["g"].view(torch.int32))
+            and torch.equal(new_dev["g"].cpu().view(torch.int32),
+                            new_cpu["g"].view(torch.int32)))
+        amax = g32.abs().max()
+        tdist.all_reduce(amax, op=tdist.ReduceOp.MAX)
+        scale = amax / 127.0 + 1e-12
+        q = torch.clamp(torch.round(g32 / scale), -127, 127)
+        out["carry_exact"] &= bool(torch.equal(new_cpu["g"],
+                                               g32 - q * scale))
+        true = g32.double()
+        tdist.all_reduce(true)
+        over = float((s_cpu["g"].double() - true).abs().max()
+                     / (world * float(scale) / 2))
+        out["sum_over_bound"] = max(out["sum_over_bound"], over)
+        e_dev, e_cpu = new_dev, new_cpu
+    out["ok"] = (out["bitwise_cpu"] and out["carry_exact"]
+                 and out["sum_over_bound"] <= 1.001)
+    return out
 
 
 def distributed_phase(job, guide, dev):
@@ -2771,7 +2858,9 @@ def distributed_phase(job, guide, dev):
     overlap (the one rank's kd top-k spans every selected slot, the four
     ranks' each their own: two lists of dense candidates, not one).
     Rank 0 also holds cluster_score to its plain version on its own
-    input (cluster_score_case, after its launches are read). Returns (the
+    input (cluster_score_case, after its launches are read), and every
+    rank runs `compression_check` (compressed_psum on the card and on
+    the CPU in the same group; gated here). Returns (the
     summed launches of the ranks' timed steps and guide top-k, the merge
     top-k's input of rank 0, rank 0's cluster_score numbers or None off
     the card)."""
@@ -2844,6 +2933,16 @@ def distributed_phase(job, guide, dev):
         raise AssertionError(f"distributed overlap@10 {overlap} <= 0.9")
     if not all(i["guide_equal"] for i in info):
         raise AssertionError("local_topk guide top-k != the global one")
+    comp = [i["compression"] for i in info]
+    print(f"  compressed_psum ({COMPRESS_NUMEL} floats a rank, {DIST_RANKS} "
+          f"ranks, 2 steps): card ms per rank "
+          f"{[[round(m, 2) for m in c['ms']] for c in comp]}; sums and "
+          f"carries bitwise the CPU ranks' "
+          f"{all(c['bitwise_cpu'] for c in comp)}; carries g32 - q x scale "
+          f"{all(c['carry_exact'] for c in comp)}; largest sum error over "
+          f"n x scale / 2 {max(c['sum_over_bound'] for c in comp):.4f}")
+    if not all(c["ok"] for c in comp):
+        raise AssertionError(f"compressed_psum: {comp}")
     return (launches, torch.from_numpy(res[0]["merge_in"]).to(dev),
             info[0]["cluster_score"])
 
@@ -3375,7 +3474,7 @@ def topk_case(key, x, k):
     b_ms, b_by = bound(4 * B * D + 12 * B * k, B * D)
     return (f"{key} ({B}, {D}) k {k}: ms {graph_ms(lambda: topk(x, k)):.4f} "
             f"plain {cuda_ms(lambda: topk_ref(x, k), 3):.4f} library "
-            f"{graph_ms(lambda: torch.topk(x, k), 5):.4f} bound {b_ms:.4f} "
+            f"{graph_ms(lambda: torch.topk(x, k), 5):.4f} bound {b_ms:.3g} "
             f"({b_by})")
 
 
@@ -3525,18 +3624,30 @@ def _lm_close(name, g, c, **tol):
     return err
 
 
-def _lm_step_close(pg, og, mg, pc, oc, mc, p0):
+def _chunks(*leaves, n=1 << 25):
+    """Aligned flat slices of up to n entries of same-shaped leaves."""
+    flat = [x.reshape(-1) for x in leaves]
+    for lo in range(0, flat[0].numel(), n):
+        yield [x[lo:lo + n] for x in flat]
+
+
+def _lm_step_close(pg, og, mg, pc, oc, mc, p0, weight_decay=None,
+                   kept_floor=LM_UPDATE_KEPT):
     """Holds one AdamW step on the card (params pg, state og, metrics mg)
     to the CPU's (pc, oc, mc) from the same params p0 and zero moments:
     lr and count equal, the moments' relative L2 error within
     LM_GRAD_RTOL (2x for the second), the update as the LM_* constants
     above say, and every other entry within two first-step moves (a
-    near-zero gradient may differ in sign there). Returns (the largest
-    error of (a) over its tolerance, the share (b) held)."""
+    near-zero gradient may differ in sign there), on at least
+    `kept_floor` of the entries. `weight_decay` is the step's (default:
+    TrainConfig's). Leaves are taken in flat slices, so
+    the float64 temporaries stay small. Returns (the largest error of
+    (a) over its tolerance, the share (b) held)."""
     from repro_torch.common import tree as tu
     from repro_torch.configs.base import TrainConfig
 
     tc = TrainConfig()
+    wd = tc.weight_decay if weight_decay is None else weight_decay
     lr = float(mg["lr"])
     if not abs(lr - float(mc["lr"])) <= 1e-6 * abs(float(mc["lr"])):
         raise AssertionError(f"LM step lr: card {lr} CPU {float(mc['lr'])}")
@@ -3555,85 +3666,156 @@ def _lm_step_close(pg, og, mg, pc, oc, mc, p0):
             rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
             if not rel <= rt:
                 raise AssertionError(f"LM step {name}: relative L2 {rel}")
-    # in float64 on the card's side, leaf by leaf
-    for a, c, ma, va, mc_, p in zip(
-            tu.tree_leaves(pg), tu.tree_leaves(pc), tu.tree_leaves(og["mu"]),
-            tu.tree_leaves(og["nu"]), tu.tree_leaves(oc["mu"]),
-            tu.tree_leaves(p0)):
-        dev = a.device
-        p = p.to(dev).double()
-        dt = a.double() - p
-        ma, va, mc_ = ma.double(), va.double(), mc_.to(dev).double()
-        # (a) the card's update from its own moments
-        adam = (ma / c1) / ((va / c2).sqrt() + tc.eps)
-        want = -lr * (adam + tc.weight_decay * p)
-        tol = LM_RECOMPUTE_RTOL * lr * (adam.abs() + tc.weight_decay
-                                        * p.abs()) \
-            + 2 * tiny * (p.abs() + want.abs())
-        over = float(((dt - want).abs() / tol).max())
-        worst = max(worst, over)
-        if over > 1:
-            raise AssertionError(f"LM step: the card's update is off its "
-                                 f"own moments by {over:.3g}x the tolerance")
-        # (b) the card's update against the CPU's
-        dj = c.to(dev).double() - p
-        ulp = tiny * (p.abs() + dj.abs())
-        ok = (((ma - mc_).abs() <= LM_MU_AGREE * mc_.abs()) & (mc_ != 0)) \
-            | ((ma == 0) & (mc_ == 0))
-        err = (dt - dj).abs()
-        bad = ok & (err > LM_UPDATE_RTOL * dj.abs() + ulp)
-        if bool(bad.any()):
-            raise AssertionError(
-                f"LM step: {int(bad.sum())} updates disagree with the CPU's "
-                f"where the moments agree (largest error "
-                f"{float(err[bad].max()):.3g})")
-        if not bool((err[~ok] <= 2 * lr * most + ulp[~ok]).all()):
-            raise AssertionError("LM step: an update is off the CPU's by "
-                                 "more than two first-step moves")
-        kept, total = kept + int(ok.sum()), total + ok.numel()
-        del p, dt, ma, va, mc_, adam, want, tol, dj, ulp, ok, err, bad
-    if not kept >= LM_UPDATE_KEPT * total:
+    # in float64 on the card's side, slice by slice
+    for leaves in zip(tu.tree_leaves(pg), tu.tree_leaves(pc),
+                      tu.tree_leaves(og["mu"]), tu.tree_leaves(og["nu"]),
+                      tu.tree_leaves(oc["mu"]), tu.tree_leaves(p0)):
+        for a, c, ma, va, mc_, p in _chunks(*leaves):
+            dev = a.device
+            p = p.to(dev).double()
+            dt = a.double() - p
+            ma, va, mc_ = ma.double(), va.double(), mc_.to(dev).double()
+            # (a) the card's update from its own moments
+            adam = (ma / c1) / ((va / c2).sqrt() + tc.eps)
+            want = -lr * (adam + wd * p)
+            tol = LM_RECOMPUTE_RTOL * lr * (adam.abs() + wd * p.abs()) \
+                + 2 * tiny * (p.abs() + want.abs())
+            over = float(((dt - want).abs() / tol).max())
+            worst = max(worst, over)
+            if over > 1:
+                raise AssertionError(f"LM step: the card's update is off its "
+                                     f"own moments by {over:.3g}x the "
+                                     f"tolerance")
+            # (b) the card's update against the CPU's
+            dj = c.to(dev).double() - p
+            ulp = tiny * (p.abs() + dj.abs())
+            ok = (((ma - mc_).abs() <= LM_MU_AGREE * mc_.abs()) & (mc_ != 0)) \
+                | ((ma == 0) & (mc_ == 0))
+            err = (dt - dj).abs()
+            bad = ok & (err > LM_UPDATE_RTOL * dj.abs() + ulp)
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"LM step: {int(bad.sum())} updates disagree with the "
+                    f"CPU's where the moments agree (largest error "
+                    f"{float(err[bad].max()):.3g})")
+            if not bool((err[~ok] <= 2 * lr * most + ulp[~ok]).all()):
+                raise AssertionError("LM step: an update is off the CPU's by "
+                                     "more than two first-step moves")
+            kept, total = kept + int(ok.sum()), total + ok.numel()
+            del p, dt, ma, va, mc_, adam, want, tol, dj, ulp, ok, err, bad
+    if not kept >= kept_floor * total:
         raise AssertionError(f"LM step: only {kept / total:.4f} of the "
                              f"entries held to rtol {LM_UPDATE_RTOL}")
     return worst, kept / total
 
 
-def lm_parity(dev):
-    """qwen2-1.5b at full width and depth LM_PARITY_LAYERS in float32 (TF32
-    off), card against a CPU twin from the same init: hidden states, the
-    loss, each gradient leaf (relative L2 error), one AdamW step at
-    LM_SCHED_COUNT (lr, moments and the update, `_lm_step_close`),
-    prefill logits and 4 decode steps. Returns a note."""
+class _MoeRecorder:
+    """Wraps models/moe's router top-k and moe_ffn while it is entered:
+    every top-k's input and indices are kept in `routes`, and the first
+    moe_ffn arguments of each token count in `calls` (the same launches,
+    nothing added)."""
+
+    def __init__(self, keep_calls=True):
+        from repro_torch.models import moe
+        self.mod, self.routes, self.calls = moe, [], {}
+        self.keep_calls = keep_calls
+        self._real = (moe.topk_desc_index_asc, moe.moe_ffn)
+
+    def __enter__(self):
+        real_topk, real_ffn = self._real
+
+        def topk(x, k):
+            v, i = real_topk(x, k)
+            self.routes.append((x, i))
+            return v, i
+
+        def ffn(x, *args, **kw):
+            if self.keep_calls:
+                self.calls.setdefault(x.shape[0], (x,) + args + (kw,))
+            return real_ffn(x, *args, **kw)
+        self.mod.topk_desc_index_asc, self.mod.moe_ffn = topk, ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.topk_desc_index_asc, self.mod.moe_ffn = self._real
+        return False
+
+
+def router_gate(cfg, rec_g, rec_c, gap=1e-6):
+    """The router's expert ids on the card against the CPU's at every
+    token whose top-1/top-2 and top-2/top-3 probability gaps (the CPU's)
+    exceed `gap`. Returns (tokens, compared, mismatches, dropped pairs by
+    the CPU's routing)."""
+    from repro_torch.models.moe import capacity
+
+    tokens = compared = bad = dropped = 0
+    for (pg, ig), (pc, ic) in zip(rec_g.routes, rec_c.routes):
+        s = torch.sort(pc, -1, descending=True).values
+        ok = ((s[:, 0] - s[:, 1]) > gap) & ((s[:, 1] - s[:, 2]) > gap)
+        same = (ig.cpu() == ic).all(-1)
+        tokens += ic.shape[0]
+        compared += int(ok.sum())
+        bad += int((ok & ~same).sum())
+        C = capacity(ic.shape[0], cfg.n_experts, cfg.moe_top_k)
+        load = torch.bincount(ic.reshape(-1), minlength=cfg.n_experts)
+        dropped += int((load - C).clamp(min=0).sum())
+    return tokens, compared, bad, dropped
+
+
+def lm_parity(dev, cfg, batches, decode_steps=4, tol=None,
+              kept_floor=LM_UPDATE_KEPT):
+    """`cfg` (float32, full width, cut in depth; TF32 off), card against a
+    CPU twin from the same init, on each batch ((B, S + 1) token arrays):
+    hidden states, the loss, the aux loss, each gradient leaf (relative L2
+    error) and, for MoE configurations, the router's expert ids at
+    tokens away from a near-tie (`router_gate`, the dropped pairs
+    printed). On the first batch also one AdamW step at LM_SCHED_COUNT
+    (lr, moments and the update, `_lm_step_close`), prefill logits and
+    `decode_steps` decode steps. Hidden states and logits are held at
+    `tol` (default LM_TOL), the update's share at `kept_floor`. Returns
+    (a note, the router counts of each batch)."""
     from repro_torch.common import tree as tu
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tt
     from repro_torch.optim import adamw_init, make_schedule
 
-    cfg = dataclasses.replace(get_config(LM_ARCH, LM_VARIANT),
-                              n_layers=LM_PARITY_LAYERS, dtype="float32",
-                              param_dtype="float32")
     params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                             device=dev)
     cpu_p = tu.tree_map(lambda x: x.cpu(), params)
-    rng = np.random.default_rng(SEED + 7)
-    t = rng.integers(0, cfg.vocab_size, (LM_PARITY_B, LM_PARITY_S + 1))
-    batch = {"tokens": torch.from_numpy(t[:, :-1].astype(np.int32)),
-             "labels": torch.from_numpy(t[:, 1:].astype(np.int32))}
-    gb = {k: v.to(dev) for k, v in batch.items()}
-    errs = {}
-    with torch.no_grad():
-        hg = tt.forward(cfg, params, gb["tokens"])[0]
-        hc = tt.forward(cfg, cpu_p, batch["tokens"])[0]
-    errs["hidden"] = _lm_close("hidden", hg, hc)
-    (_, lg, _), gg = tt.value_and_grad(cfg, params, gb)
-    (_, lc, _), gc = tt.value_and_grad(cfg, cpu_p, batch)
-    errs["loss"] = _lm_close("loss", lg, lc, rtol=1e-5, atol=0)
-    rel = max(float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
-              for a, b in zip(tu.tree_leaves(gg), tu.tree_leaves(gc)))
-    errs["grad_rel_l2"] = rel
-    if not rel <= LM_GRAD_RTOL:
-        raise AssertionError(f"LM gradients: relative L2 error {rel}")
-    del gg, gc
+    errs, routed = {}, []
+    for bi, t in enumerate(batches):
+        batch = {"tokens": torch.from_numpy(t[:, :-1].astype(np.int32)),
+                 "labels": torch.from_numpy(t[:, 1:].astype(np.int32))}
+        gb = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad(), _MoeRecorder() as rg:
+            hg, _, ag = tt.forward(cfg, params, gb["tokens"])
+        with torch.no_grad(), _MoeRecorder() as rc:
+            hc, _, ac = tt.forward(cfg, cpu_p, batch["tokens"])
+        if cfg.moe:
+            routed.append(router_gate(cfg, rg, rc))
+            tokens, compared, bad, dropped = routed[-1]
+            print(f"  batch {bi}: router ids compared at {compared} of "
+                  f"{tokens} tokens (the others within 1e-6 of a tie), "
+                  f"mismatches {bad}; dropped (token, k) pairs {dropped}",
+                  flush=True)
+            if bad:
+                raise AssertionError("LM router: card and CPU route apart")
+        del rg, rc
+        errs[f"hidden_{bi}"] = _lm_close("hidden", hg, hc, **(tol or {}))
+        errs[f"aux_{bi}"] = _lm_close("aux", ag, ac, rtol=1e-5, atol=0)
+        del hg, hc
+        (_, lg, ag), gg = tt.value_and_grad(cfg, params, gb)
+        (_, lc, ac), gc = tt.value_and_grad(cfg, cpu_p, batch)
+        errs[f"loss_{bi}"] = _lm_close("loss", lg, lc, rtol=1e-5, atol=0)
+        rel = max(float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+                  for a, b in zip(tu.tree_leaves(gg), tu.tree_leaves(gc)))
+        errs[f"grad_rel_l2_{bi}"] = rel
+        if not rel <= LM_GRAD_RTOL:
+            raise AssertionError(f"LM gradients: relative L2 error {rel}")
+        del gg, gc
+        if bi:
+            continue
+        first, S = (gb, batch), t.shape[1] - 1
+    gb, batch = first
     step = tt.make_train_step(cfg, make_schedule(*LM_SCHED))
 
     def state(p):
@@ -3641,152 +3823,628 @@ def lm_parity(dev):
             LM_SCHED_COUNT, dtype=torch.int32, device=p["embed"].device))
     pg, og, mg = step(params, state(params), gb)
     pc, oc, mc = step(cpu_p, state(cpu_p), batch)
+    errs["aux_loss_step"] = _lm_close("step aux", mg["aux_loss"],
+                                      mc["aux_loss"], rtol=1e-5, atol=0)
     errs["update_recompute"], errs["update_kept"] = _lm_step_close(
-        pg, og, mg, pc, oc, mc, cpu_p)
+        pg, og, mg, pc, oc, mc, cpu_p, kept_floor=kept_floor)
     del pg, pc, og, oc
     prefill, decode = tt.make_prefill_step(cfg), tt.make_decode_step(cfg)
     lg, kvg = prefill(params, gb["tokens"])
     lc, kvc = prefill(cpu_p, batch["tokens"])
-    errs["prefill_logits"] = _lm_close("prefill logits", lg, lc)
-    S = LM_PARITY_S
-    cg = tt.init_cache(cfg, LM_PARITY_B, S + 8, device=dev)
-    cc = tt.init_cache(cfg, LM_PARITY_B, S + 8, device="cpu")
+    errs["prefill_logits"] = _lm_close("prefill logits", lg, lc,
+                                       **(tol or {}))
+    B = gb["tokens"].shape[0]
+    cg = tt.init_cache(cfg, B, S + 8, device=dev)
+    cc = tt.init_cache(cfg, B, S + 8, device="cpu")
     for n in ("k", "v"):
         cg[n][:, :, :S] = kvg[n]
         cc[n][:, :, :S] = kvc[n]
     tok = lc.argmax(1, keepdim=True).int()
-    for i in range(4):
+    for i in range(decode_steps):
         lg, cg = decode(params, cg, tok.to(dev), S + i)
         lc, cc = decode(cpu_p, cc, tok, S + i)
-        errs[f"decode_{i}"] = _lm_close(f"decode step {i}", lg, lc)
+        errs[f"decode_{i}"] = _lm_close(f"decode step {i}", lg, lc,
+                                        **(tol or {}))
         tok = lc.argmax(1, keepdim=True).int()
     note = (f"LM parity ({cfg.name} full width, {cfg.n_layers} layers, "
-            f"{cfg.param_count()} params, float32, B {LM_PARITY_B} S "
-            f"{LM_PARITY_S}): " + ", ".join(f"{k} {v:.3g}"
-                                            for k, v in errs.items()))
+            f"{cfg.param_count()} params, float32, B {B} S {S}, "
+            f"{len(batches)} batches): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     print(f"  {note}", flush=True)
-    return note
+    del params, cpu_p, cg, cc, kvg, kvc
+    torch.cuda.empty_cache()
+    return note, routed
 
 
-def lm_timing(dev):
-    """qwen2-1.5b full() at all its layers (bf16 compute, float32 params,
-    microbatch 4): the train step's p50 over 5 steps after 2 of warm-up
-    and its peak device memory, prefill (LM_B, LM_S), and decode ms a
-    token with a LM_DECODE_SLOTS-slot cache. Returns a note."""
-    from repro_torch.configs import get_config
+def lm_batch(cfg, B, S, seed):
+    """(B, S + 1) random token ids from `seed`."""
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S + 1))
+
+
+def lm_train_timing(dev, cfg, B, S, steps=7):
+    """cfg's train step (make_train_step's defaults) on one batch of (B,
+    S): ms of each step, the p50 over the steps after 2 of warm-up, and
+    peak device memory. Returns a note."""
     from repro_torch.models import transformer as tt
     from repro_torch.optim import adamw_init
 
-    cfg = get_config(LM_ARCH, LM_VARIANT)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
     opt = adamw_init(params)
     step = tt.make_train_step(cfg)
-    rng = np.random.default_rng(SEED + 8)
-    t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_S + 1))
-                         .astype(np.int32)).to(dev)
+    t = torch.from_numpy(lm_batch(cfg, B, S, SEED + 8).astype(np.int32)).to(dev)
     batch = {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
     ms = []
-    for i in range(7):
+    for _ in range(steps):
         sync(dev)
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
         sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(float(m["loss"])):
-            raise AssertionError("LM loss is not finite")
+            raise AssertionError(f"{cfg.name}: the loss is not finite")
     peak = torch.cuda.max_memory_allocated()
-    del opt
-    prefill, decode = tt.make_prefill_step(cfg), tt.make_decode_step(cfg)
-    pre_ms = cuda_ms(lambda: prefill(params, batch["tokens"]), 3)
-    logits, kv = prefill(params, batch["tokens"])
-    cache = tt.init_cache(cfg, LM_B, LM_DECODE_SLOTS, device=dev)
-    for n in ("k", "v"):
-        cache[n][:, :, :LM_S] = kv[n]
-    tok = logits.argmax(1, keepdim=True).int()
-    sync(dev)
-    t0 = time.perf_counter()
-    n_dec = 16
-    for i in range(n_dec):
-        logits, cache = decode(params, cache, tok, LM_S + i)
-        tok = logits.argmax(1, keepdim=True).int()
-    sync(dev)
-    dec_ms = (time.perf_counter() - t0) * 1e3 / n_dec
-    note = (f"LM timing ({cfg.name} full(), {cfg.n_layers} layers, "
+    note = (f"train step ({cfg.name} full() width, {cfg.n_layers} layers, "
             f"{cfg.param_count()} params, {cfg.dtype} compute, "
-            f"{cfg.param_dtype} params, microbatch {cfg.microbatch}, B "
-            f"{LM_B} S {LM_S}): train step ms p50 "
-            f"{np.percentile(ms[2:], 50):.2f} (steps "
+            f"{cfg.param_dtype} params, microbatch {cfg.microbatch}, B {B} "
+            f"S {S}): ms p50 {np.percentile(ms[2:], 50):.2f} (steps "
             f"{', '.join(f'{x:.1f}' for x in ms)}); peak device memory "
-            f"{peak / 1e9:.2f} GB; prefill ({LM_B}, {LM_S}) "
-            f"{pre_ms:.2f} ms; decode {dec_ms:.2f} ms a token "
-            f"({LM_DECODE_SLOTS}-slot cache, B {LM_B})")
+            f"{peak / 1e9:.2f} GB; aux_loss {float(m['aux_loss']):.4f}")
     print(f"  {note}", flush=True)
-    del params, cache, kv, logits
+    del params, opt, m
     torch.cuda.empty_cache()
     return note
 
 
-def lm_cli_drill(tmp):
-    """`python -m repro_torch.launch.train --arch qwen2-1.5b --variant full
-    --steps 6 --ckpt-every 3 --fail-at 4` on the card, in its own
-    process: it must exit 0 with restarts=1 and steps=7 (0-3, then 3-5
-    after the restore of step 2), its last checkpoint at step 5. Its two
-    checkpoints (params and AdamW moments) are written under `tmp`; the
-    disk must hold them. Returns a note."""
-    from repro_torch.checkpoint import latest_step
+def lm_infer_timing(dev, cfg, B, S, slots, n_dec, params=None):
+    """cfg's prefill of (B, S) (ms, CUDA events over 3 calls) and n_dec
+    greedy decode steps with a `slots`-slot cache (ms a token, host clock
+    after a sync), and peak device memory from the init (or from
+    `params`, made by the caller). Returns a note."""
+    from repro_torch.models import transformer as tt
+
+    if params is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = tt.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+    t = torch.from_numpy(lm_batch(cfg, B, S, SEED + 9)[:, :S]
+                         .astype(np.int32)).to(dev)
+    prefill, decode = tt.make_prefill_step(cfg), tt.make_decode_step(cfg)
+    pre_ms = cuda_ms(lambda: prefill(params, t), 3)
+    logits, kv = prefill(params, t)
+    cache = tt.init_cache(cfg, B, slots, device=dev)
+    for n in ("k", "v"):
+        cache[n][:, :, :kv[n].shape[2]] = kv[n]
+    del kv
+    tok = logits.argmax(1, keepdim=True).int()
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        logits, cache = decode(params, cache, tok, S + i)
+        tok = logits.argmax(1, keepdim=True).int()
+    sync(dev)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    note = (f"inference ({cfg.name} full() width, {cfg.n_layers} layers, "
+            f"{cfg.param_count()} params, {cfg.dtype} compute, "
+            f"{cfg.param_dtype} params): prefill ({B}, {S}) {pre_ms:.2f} ms; "
+            f"decode {dec_ms:.2f} ms a token over {n_dec} ({slots}-slot "
+            f"cache, B {B}); peak device memory {peak / 1e9:.2f} GB")
+    print(f"  {note}", flush=True)
+    del cache, logits
+    return note
+
+
+def lm_phase(dev):
+    """The LM's parity and timings, with the launch counts zeroed just
+    before and read just after (the dense LM runs none of the seven
+    kernels: its matmuls are cuBLAS, its attention plain torch ops, as
+    the reference has no Pallas kernel there). Its train CLI drill runs
+    in `start_drills`' processes. Returns the launches."""
+    from repro_torch import kernels
     from repro_torch.configs import get_config
 
-    ck = os.path.join(tmp, "lm_ckpt")
+    full = get_config(LM_ARCH, LM_VARIANT)
+    kernels.reset_launches()
+    lm_parity(dev, dataclasses.replace(
+        full, n_layers=LM_PARITY_LAYERS, dtype="float32",
+        param_dtype="float32"),
+        [lm_batch(full, LM_PARITY_B, LM_PARITY_S, SEED + 7)])
+    lm_train_timing(dev, full, LM_B, LM_S)
+    lm_infer_timing(dev, full, LM_B, LM_S, LM_DECODE_SLOTS, 16)
+    return dict(kernels.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# the MoE LMs (models/moe.py): mixtral-8x7b and arctic-480b
+# ---------------------------------------------------------------------------
+
+MOE_VARIANT = "full"       # "smoke" for a CPU rehearsal
+MOE_PARITY_B, MOE_PARITY_S = 2, 64            # T 128 tokens, C 40
+# mixtral's card-vs-CPU gate: LM_TOL's rtol with 5x its atol, and the
+# update held where the moments agree on 98 % of the entries (LM_TOL and
+# 99 % failed on 2 of 524,288 hidden entries and at 98.65 % on an H100
+# 80GB HBM3: the experts' 4096- and 14336-long fp32 sums, summed in
+# another order, at a relative L2 error of 2.5e-6)
+MOE_TOL = dict(rtol=1e-4, atol=5e-5)
+MOE_UPDATE_KEPT = 0.98
+MOE_TRAIN_LAYERS, MOE_INFER_LAYERS = 1, 4     # mixtral's depth cuts
+ARCTIC_LAYERS, ARCTIC_DECODE = 1, 4
+# arctic's moe_ffn against the per-expert loop on the card (bf16): every
+# entry within MOE_LOOP_ATOL times the output's largest magnitude (two
+# bf16 ulps there; cuBLAS may round an expert's rows another way when
+# they come in another count), the kept pairs equal
+MOE_LOOP_ATOL = 2 ** -7
+DRILL_ARGS = ["--steps", "6", "--ckpt-every", "3", "--fail-at", "4"]
+
+
+def moe_loop_ref(x, router_w, w_gate, w_up, w_down, top_k):
+    """An independent moe_ffn: the router's top-k by a stable descending
+    sort (ties to the lower expert), then one expert at a time, its
+    routed (token, k) pairs in (token, k) order up to capacity, its
+    SwiGLU (silu in float32) and the gate-weighted sum. Returns (out,
+    kept pairs as a (T, K) bool tensor)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import capacity
+
+    T, d = x.shape
+    E, dt = router_w.shape[-1], x.dtype
+    C = capacity(T, E, top_k)
+    probs = torch.softmax((x @ router_w.to(dt)).float(), dim=-1)
+    eidx = torch.sort(probs, dim=-1, descending=True,
+                      stable=True).indices[:, :top_k]
+    gate = probs.gather(-1, eidx)
+    gate = (gate / (gate.sum(-1, keepdim=True) + 1e-9)).reshape(-1)
+    flat = eidx.reshape(-1)
+    out = torch.zeros_like(x)
+    kept = torch.zeros(T * top_k, dtype=torch.bool, device=x.device)
+    for e in range(E):
+        pairs = torch.nonzero(flat == e).flatten()[:C]
+        kept[pairs] = True
+        tok = pairs // top_k
+        xe = x[tok]
+        h = F.silu((xe @ w_gate[e].to(dt)).float()).to(dt) \
+            * (xe @ w_up[e].to(dt))
+        out.index_add_(0, tok, (h @ w_down[e].to(dt))
+                       * gate[pairs][:, None].to(dt))
+    return out, kept.reshape(T, top_k)
+
+
+def arctic_phase(dev):
+    """arctic-480b full() width at ARCTIC_LAYERS layer(s), bfloat16 params:
+    prefill (LM_B, LM_S) (T 1024 tokens over 128 experts, C 24) and
+    ARCTIC_DECODE decode steps, ms and peak memory; then moe_ffn on the
+    prefill's recorded layer input against `moe_loop_ref` on the card.
+    Returns a note."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tt
+
+    cfg = dataclasses.replace(get_config("arctic-480b", MOE_VARIANT),
+                              n_layers=ARCTIC_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+    with _MoeRecorder() as rec:
+        note = lm_infer_timing(dev, cfg, LM_B, LM_S, LM_DECODE_SLOTS,
+                               ARCTIC_DECODE, params=params)
+    x, rw, wg, wu, wd, kw = rec.calls[LM_B * LM_S]
+    with torch.no_grad():
+        out, _ = moe.moe_ffn(x, rw, wg, wu, wd, **kw)
+        ref, kept = moe_loop_ref(x, rw, wg, wu, wd, kw["top_k"])
+        _, _, eidx = moe.route(x, rw, kw["top_k"])
+        C = moe.capacity(x.shape[0], cfg.n_experts, kw["top_k"])
+        sort_idx, _, valid, _ = moe.dispatch_plan(eidx, cfg.n_experts, C)
+        plan_kept = torch.zeros_like(valid)
+        plan_kept[sort_idx] = valid
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    same_kept = bool(torch.equal(plan_kept.reshape(kept.shape), kept))
+    line = (f"arctic moe_ffn ({tuple(x.shape)} {x.dtype}, C {C}) against "
+            f"the per-expert loop: max |diff| {err:.4g} (tolerance "
+            f"{MOE_LOOP_ATOL} x max |ref| {scale:.4g}); kept pairs equal "
+            f"{same_kept}; dropped pairs {int((~kept).sum())}")
+    print(f"  {line}", flush=True)
+    if not same_kept or not err <= MOE_LOOP_ATOL * scale:
+        raise AssertionError(f"arctic: {line}")
+    del params, rec, x, rw, wg, wu, wd, out, ref
+    torch.cuda.empty_cache()
+    return f"{note}; {line}"
+
+
+# the MoE and GNN drills; start_drills adds the LM's (LM_ARCH, LM_VARIANT)
+MOE_GNN_DRILLS = (("mixtral-8x7b", "smoke"), ("nequip", "full"))
+
+
+def start_drills(tmp):
+    """`python -m repro_torch.launch.train --arch <a> --variant <v>
+    --steps 6 --ckpt-every 3 --fail-at 4` for the LM and each of
+    MOE_GNN_DRILLS, on the card,
+    each in its own process with a thread that collects its output and
+    the time it ended; `finish_drills` checks them. The LM drill writes
+    two 21.3 GB checkpoints under `tmp` (params and AdamW moments): the
+    disk must hold them."""
+    from repro_torch.configs import get_config
+
     need = 3 * 4 * get_config(LM_ARCH, LM_VARIANT).param_count()
     free = shutil.disk_usage(tmp).free
-    print(f"  checkpoints: {need} bytes each, 2 kept (plus one being "
+    print(f"  LM checkpoints: {need} bytes each, 2 kept (plus one being "
           f"written); disk free under {tmp}: {free} bytes", flush=True)
     if free < 2.2 * need:
         raise AssertionError(f"the disk holds {free} bytes, short of the "
                              f"{int(2.2 * need)} the drill's checkpoints need")
-    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            LM_ARCH, "--variant", LM_VARIANT, "--steps", "6",
-            "--ckpt-every", "3", "--fail-at", "4", "--ckpt-dir", ck,
-            *LM_CLI_ARGS]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    out = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
-                         text=True, timeout=900)
-    secs = time.perf_counter() - t0
-    lines = out.stdout.strip().splitlines()
-    print("\n".join(f"  | {ln}" for ln in lines[-4:]))
-    if out.returncode != 0:
-        print(out.stderr[-3000:])
-        raise AssertionError(f"train CLI exited {out.returncode}")
-    done = re.search(r"done: steps=(\d+) restarts=(\d+)", out.stdout)
-    last = latest_step(ck)
-    sizes = {d: sum(os.path.getsize(os.path.join(ck, d, f))
-                    for f in os.listdir(os.path.join(ck, d)))
-             for d in sorted(os.listdir(ck))}
-    note = (f"train CLI drill: exit 0 in {secs:.1f} s; "
-            f"{done.group(0) if done else 'no done line'}; last checkpoint "
-            f"step {last}; checkpoints {sizes}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    drills = {}
+    for arch, variant in ((LM_ARCH, LM_VARIANT), *MOE_GNN_DRILLS):
+        ck = os.path.join(tmp, f"drill_{arch}")
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                arch, "--variant", variant, *DRILL_ARGS, "--ckpt-dir", ck,
+                *LM_CLI_ARGS]
+        d = {"proc": subprocess.Popen(
+            argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), "ck": ck,
+             "t0": time.perf_counter()}
+
+        def collect(d=d):
+            d["out"], d["err"] = d["proc"].communicate()
+            d["secs"] = time.perf_counter() - d["t0"]
+        d["thread"] = threading.Thread(target=collect, daemon=True)
+        d["thread"].start()
+        drills[arch] = d
+    return drills
+
+
+def finish_drills(drills, archs):
+    """Each drill of `archs` must exit 0 with steps=7 restarts=1 (0-3,
+    then 3-5 after the restore of step 2) and its last checkpoint at step
+    5; its checkpoints are then removed."""
+    from repro_torch.checkpoint import latest_step
+
+    for arch in archs:
+        d = drills[arch]
+        d["thread"].join(timeout=900)
+        if d["thread"].is_alive():
+            raise AssertionError(f"train CLI drill --arch {arch} hangs")
+        done = re.search(r"done: steps=(\d+) restarts=(\d+)", d["out"])
+        last = latest_step(d["ck"]) if os.path.isdir(d["ck"]) else None
+        sizes = {c: sum(os.path.getsize(os.path.join(d["ck"], c, f))
+                        for f in os.listdir(os.path.join(d["ck"], c)))
+                 for c in sorted(os.listdir(d["ck"]))} if last else {}
+        print("\n".join(f"  | {ln}" for ln
+                        in d["out"].strip().splitlines()[-2:]))
+        note = (f"train CLI drill --arch {arch}: exit "
+                f"{d['proc'].returncode} in {d['secs']:.1f} s; "
+                f"{done.group(0) if done else 'no done line'}; last "
+                f"checkpoint step {last}; checkpoints {sizes}")
+        print(f"  {note}", flush=True)
+        if d["proc"].returncode != 0 or not done \
+                or done.group(1, 2) != ("7", "1") or last != 5:
+            print(d["err"][-3000:])
+            raise AssertionError(note)
+        shutil.rmtree(d["ck"])
+
+
+def stop_drills(drills):
+    for d in drills.values():
+        if d["proc"].poll() is None:
+            d["proc"].kill()
+        d["thread"].join(timeout=60)
+
+
+def moe_phase(dev):
+    """The MoE path, with the launch counts zeroed just before and read
+    just after: mixtral-8x7b at full width and MOE_PARITY layers in
+    float32, card against CPU on two batches (the second repeats one
+    token over the first half of each row, so its tokens route alike and
+    overflow their experts); the train step at MOE_TRAIN_LAYERS (bf16 compute,
+    the config's microbatch 8); prefill and decode at MOE_INFER_LAYERS;
+    arctic-480b (`arctic_phase`). The router's top-k inputs of every
+    run are kept for `check_moe_topk`. Returns (launches, {(B, E): last
+    probs input})."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+
+    full = get_config("mixtral-8x7b", MOE_VARIANT)
+    kernels.reset_launches()
+    a = lm_batch(full, MOE_PARITY_B, MOE_PARITY_S, SEED + 12)
+    b = lm_batch(full, MOE_PARITY_B, MOE_PARITY_S, SEED + 13)
+    # the first half of each row one token: those positions attend only to
+    # copies of it, so their layer outputs are alike and route alike
+    b[:, :MOE_PARITY_S // 2] = b[0, 0]
+    with _MoeRecorder(keep_calls=False) as rec:
+        _, routed = lm_parity(dev, dataclasses.replace(
+            full, n_layers=1, dtype="float32", param_dtype="float32"),
+            [a, b], tol=MOE_TOL, kept_floor=MOE_UPDATE_KEPT)
+        if not routed[1][3] > 0:
+            raise AssertionError("mixtral: the repeated-token batch dropped "
+                                 "no (token, k) pair")
+        lm_train_timing(dev, dataclasses.replace(
+            full, n_layers=MOE_TRAIN_LAYERS), LM_B, LM_S)
+        lm_infer_timing(dev, dataclasses.replace(
+            full, n_layers=MOE_INFER_LAYERS), LM_B, LM_S, LM_DECODE_SLOTS, 16)
+        arctic_phase(dev)
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  moe path launches {launches}", flush=True)
+    shapes = {tuple(x.shape): x for x, _ in rec.routes if x.is_cuda}
+    return launches, shapes
+
+
+MOE_TOPK_SHAPES = ((128, 8), (1024, 8), (8, 128), (1024, 128))
+
+
+def check_moe_topk(rows, shapes):
+    """topk at the router's shapes (k 2) on the probabilities the MoE runs
+    gave it, bitwise its plain version, beside torch.topk; the notes join
+    the topk row's shapes."""
+    row = next(r for r in rows if r["name"] == "topk")
+    for shape in MOE_TOPK_SHAPES:
+        if shape not in shapes:
+            raise AssertionError(f"no recorded router input of {shape}")
+        note = topk_case("MoE router probs", shapes[shape].contiguous(), 2)
+        print(f"  {note}", flush=True)
+        row["shapes"].append(note)
+
+
+# ---------------------------------------------------------------------------
+# the GNN (models/nequip.py, data/graphs.py, data/sampler.py)
+# ---------------------------------------------------------------------------
+
+GNN_TOL = dict(rtol=1e-4, atol=1e-6)      # energies and loss, card vs CPU
+GNN_GRAD_RTOL = 1e-4                      # relative L2 of each gradient leaf
+GNN_BIG_ATOL = 1e-5                       # x max |E| on minibatch_lg
+GNN_EQUI_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_equivariance.py's
+GNN_BATCHES = 3                           # sampled minibatch_lg batches
+GNN_VARIANT = "full"       # "smoke" for a CPU rehearsal
+GNN_MINIBATCH = None       # a smaller ShapeSpec for a CPU rehearsal
+
+
+def _gnn_cpu(cfg, cpu_p, batch):
+    """The CPU twin of one batch: (energies, loss, gradients)."""
+    from repro_torch.models import nequip as nq
+
+    cb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    with torch.no_grad():
+        ec = nq.forward(cfg, cpu_p, cb)
+    lc, gc = nq.value_and_grad(cfg, cpu_p, cb)
+    return ec, lc, gc
+
+
+def _gnn_pair(name, cfg, params, cpu, batch, dev, atol=None):
+    """Energies, loss and each gradient leaf of one batch on the card
+    against the CPU twin's (`_gnn_cpu`'s). Returns ({name: error}, the
+    card's energies, the batch on the card)."""
+    from repro_torch.common import tree as tu
+    from repro_torch.models import nequip as nq
+
+    ec, lc, gc = cpu
+    gb = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        eg = nq.forward(cfg, params, gb)
+    tol = dict(GNN_TOL)
+    if atol is not None:
+        tol["atol"] = atol * float(ec.abs().max())
+    errs = {"energy": _lm_close(f"{name} energies", eg, ec, **tol)}
+    lg, gg = nq.value_and_grad(cfg, params, gb)
+    errs["loss"] = _lm_close(f"{name} loss", lg, lc, **GNN_TOL)
+    rel = max(float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+              for a, b in zip(tu.tree_leaves(gg), tu.tree_leaves(gc)))
+    errs["grad_rel_l2"] = rel
+    if not rel <= GNN_GRAD_RTOL:
+        raise AssertionError(f"{name} gradients: relative L2 error {rel}")
+    return errs, eg, gb
+
+
+def _rotation(seed):
+    """A random proper rotation (QR of a seeded normal matrix)."""
+    g = np.random.default_rng(seed).standard_normal((3, 3))
+    q, r = np.linalg.qr(g)
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q.astype(np.float32)
+
+
+def _step_ms(fn, n, dev, warmup=2):
+    ms = []
+    for _ in range(warmup + n):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms[warmup:]
+
+
+def gnn_molecule(dev):
+    """nequip full() on the `molecule` cell (128 graphs x 30 nodes, up to
+    64 edges each, synth_molecules): card against a CPU twin (energies,
+    loss, gradients, one AdamW step's update by `_lm_step_close` with the
+    step's weight decay 0), energy invariance under a rotation and a
+    translation on the card, the train step's ms. Returns a note."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.graphs import synth_molecules
+    from repro_torch.models import nequip as nq
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("nequip", GNN_VARIANT)
+    shape = shapes_for("gnn")["molecule"]
+    batch = synth_molecules(SEED + 20, shape.n_graphs, shape.n_nodes,
+                            shape.n_edges, n_species=cfg.n_species)
+    params = nq.init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                            device=dev)
+    cpu_p = tu.tree_map(lambda x: x.cpu(), params)
+    errs, eg, gb = _gnn_pair("molecule", cfg, params,
+                             _gnn_cpu(cfg, cpu_p, batch), batch, dev)
+    step = nq.make_train_step(cfg)
+    lr = torch.tensor(TrainConfig().lr)
+    pg, og, mg = step(params, adamw_init(params), gb)
+    pc, oc, mc = step(cpu_p, adamw_init(cpu_p),
+                      {k: torch.from_numpy(np.array(v))
+                       for k, v in batch.items()})
+    errs["update_recompute"], errs["update_kept"] = _lm_step_close(
+        pg, og, dict(mg, lr=lr), pc, oc, dict(mc, lr=lr), cpu_p,
+        weight_decay=0.0)
+    R = torch.from_numpy(_rotation(SEED + 21)).to(dev)
+    tr = torch.tensor([1.5, -2.0, 0.25], device=dev)
+    with torch.no_grad():
+        er = nq.forward(cfg, params, dict(gb, positions=gb["positions"]
+                                          @ R.T + tr))
+    errs["rotated"] = _lm_close("molecule rotated energies", er, eg.cpu(),
+                                **GNN_EQUI_TOL)
+    opt = adamw_init(params)
+
+    def one():
+        nonlocal params, opt
+        params, opt, _ = step(params, opt, gb)
+    ms = _step_ms(one, 5, dev)
+    note = (f"nequip molecule ({cfg.name} full(): {cfg.n_layers} layers, C "
+            f"{cfg.d_hidden}; {shape.n_graphs} graphs, "
+            f"{len(batch['species'])} nodes, {len(batch['edge_src'])} edges) "
+            f"card vs CPU: " + ", ".join(f"{k} {v:.3g}"
+                                         for k, v in errs.items())
+            + f"; train step ms p50 {np.percentile(ms, 50):.2f}")
     print(f"  {note}", flush=True)
-    if not done or done.group(1, 2) != ("7", "1") or last != 5:
-        raise AssertionError(f"train CLI drill: {note}")
-    shutil.rmtree(ck)
     return note
 
 
-def lm_phase(tmp, dev):
-    """The three LM parts, with the launch counts zeroed just before and
-    read just after (the LM runs none of the seven kernels: its matmuls
-    are cuBLAS, its attention plain torch ops, as the reference has no
-    Pallas kernel there). Returns the launches."""
+def _sampled_pad(shape):
+    """The padded (nodes, edges) of a fanout-sampled batch, as the
+    reference's dry run sizes them (rounded up to 512)."""
+    n = nodes = shape.batch_nodes
+    edges = 0
+    for f in shape.fanout:
+        edges += n * f
+        n *= f
+        nodes += n
+    return -(-nodes // 512) * 512, -(-edges // 512) * 512
+
+
+def gnn_minibatch_host():
+    """The `minibatch_lg` cell's host side (it runs beside the train CLI
+    drills): a synth_graph of 232,965 nodes and 114,615,892 edges with
+    d_feat 602, its CSRGraph, GNN_BATCHES padded batches of 1024 seeds at
+    fanout (15, 10) (positions drawn as synth_graph draws them: the
+    sampler carries none), seeded params, and the CPU twin of the first
+    batch. Returns a dict for `gnn_minibatch`."""
+    from repro_torch.configs import get_config, shapes_for
+    from repro_torch.data.graphs import synth_graph
+    from repro_torch.data.sampler import CSRGraph, padded_batch
+    from repro_torch.models import nequip as nq
+
+    cfg = get_config("nequip", GNN_VARIANT)
+    shape = GNN_MINIBATCH or shapes_for("gnn")["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = synth_graph(SEED + 22, shape.n_nodes, shape.n_edges,
+                    d_feat=shape.d_feat)
+    synth_s = time.perf_counter() - t0
+    csr = CSRGraph.from_edges(g.pop("edge_src"), g.pop("edge_dst"),
+                              shape.n_nodes)
+    build_s = time.perf_counter() - t0
+    targets = np.tanh(g["positions"]).sum(1).astype(np.float32)
+    max_nodes, max_edges = _sampled_pad(shape)
+    rng = np.random.default_rng(SEED + 23)
+    batches, sample_ms = [], []
+    for i in range(GNN_BATCHES):
+        seeds = rng.choice(shape.n_nodes, shape.batch_nodes, replace=False)
+        t1 = time.perf_counter()
+        b = padded_batch(csr, g["node_feat"], seeds, shape.fanout, rng,
+                         max_nodes=max_nodes, max_edges=max_edges,
+                         targets=targets)
+        sample_ms.append((time.perf_counter() - t1) * 1e3)
+        b["positions"] = (3.0 * np.random.default_rng(SEED + 24 + i)
+                          .standard_normal((max_nodes, 3))).astype(np.float32)
+        batches.append(b)
+    del g, csr
+    cpu_p = nq.init_params(cfg, torch.Generator().manual_seed(5),
+                           d_feat=shape.d_feat, device="cpu")
+    t1 = time.perf_counter()
+    cpu = _gnn_cpu(cfg, cpu_p, batches[0])
+    return {"cfg": cfg, "shape": shape, "batches": batches, "params": cpu_p,
+            "cpu": cpu, "cpu_s": time.perf_counter() - t1,
+            "synth_s": synth_s, "build_s": build_s, "sample_ms": sample_ms,
+            "pad": (max_nodes, max_edges)}
+
+
+def gnn_minibatch(dev, host):
+    """The `minibatch_lg` cell on the card from `gnn_minibatch_host`'s
+    state: the first batch's energies and gradients against the CPU twin,
+    forward and train step ms p50 and peak device memory. Returns a
+    note."""
+    from repro_torch.common import tree as tu
+    from repro_torch.models import nequip as nq
+    from repro_torch.optim import adamw_init
+
+    cfg, shape, batches = host["cfg"], host["shape"], host["batches"]
+    fill = [(int(b["node_mask"].sum()), int(b["edge_mask"].sum()))
+            for b in batches]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tu.tree_map(lambda x: x.to(dev), host["params"])
+    errs, _, _ = _gnn_pair("minibatch_lg", cfg, params, host["cpu"],
+                           batches[0], dev, atol=GNN_BIG_ATOL)
+    dev_b = [{k: torch.from_numpy(np.array(v)).to(dev) for k, v in b.items()}
+             for b in batches]
+    with torch.no_grad():
+        fwd_ms = _step_ms(lambda: nq.forward(cfg, params, dev_b[0]), 3, dev,
+                          warmup=1)
+    step, opt = nq.make_train_step(cfg), adamw_init(params)
+    it = iter(range(1 << 30))
+    losses = []
+
+    def one():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, dev_b[next(it) % len(dev_b)])
+        losses.append(float(m["loss"]))
+    step_ms = _step_ms(one, 5, dev, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError("minibatch_lg: a loss is not finite")
+    max_nodes, max_edges = host["pad"]
+    note = (f"nequip minibatch_lg ({shape.n_nodes} nodes, {shape.n_edges} "
+            f"edges, d_feat {shape.d_feat}; padded {max_nodes} nodes, "
+            f"{max_edges} edges; filled {fill}): synth_graph "
+            f"{host['synth_s']:.2f} s, host build with the CSR "
+            f"{host['build_s']:.2f} s; sampler ms "
+            f"{[round(x, 1) for x in host['sample_ms']]}; the CPU twin "
+            f"{host['cpu_s']:.1f} s; card vs CPU: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; forward ms p50 {np.percentile(fwd_ms, 50):.2f}; train "
+            f"step ms p50 {np.percentile(step_ms, 50):.2f} (steps "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)}); peak device memory "
+            f"{peak / 1e9:.2f} GB")
+    print(f"  {note}", flush=True)
+    del params, opt, dev_b
+    torch.cuda.empty_cache()
+    return note
+
+
+def gnn_phase(dev, drills):
+    """The GNN path, with the launch counts zeroed just before and read
+    just after (nequip runs none of the seven kernels: its gathers,
+    scatters and einsums are plain torch ops, as the reference has no
+    Pallas kernel there): the molecule cell, then minibatch_lg's host
+    side beside the LM's train CLI drill, whose card memory (about 59
+    GB) must be free again before minibatch_lg's card side. Returns the
+    launches."""
     from repro_torch import kernels
 
     kernels.reset_launches()
-    lm_parity(dev)
-    lm_timing(dev)
-    lm_cli_drill(tmp)
+    gnn_molecule(dev)
+    host = gnn_minibatch_host()
+    finish_drills(drills, [LM_ARCH])
+    gnn_minibatch(dev, host)
+    print(f"  gnn path launches {kernels.LAUNCHES}", flush=True)
     return dict(kernels.LAUNCHES)
 
 
@@ -3930,6 +4588,10 @@ PATH_KERNELS = {
     "baselines": ("cluster_score", "topk", "bin_overlap", "lstm_sequence"),
     # cuBLAS matmuls and plain torch attention: none of the seven
     "lm": (),
+    # the router's top-k of mixtral and arctic; the experts are cuBLAS
+    "moe": ("topk",),
+    # nequip's gathers, scatters and einsums are plain torch ops
+    "gnn": (),
     # quickstart and serve (memory store, "dot" tail, selector training),
     # the recsys example
     "examples": ("cluster_score", "lstm_sequence", "topk", "bin_overlap",
@@ -4153,8 +4815,30 @@ def main():
                                      prefix="chip_smoke_lm_") as tmp:
         with phase(f"lm: {LM_ARCH} card vs CPU at full width and "
                    f"{LM_PARITY_LAYERS} layers; the train step, prefill and "
-                   f"decode at all layers; the train CLI drill"):
-            paths["lm"] = lm_phase(tmp, dev)
+                   f"decode at all layers"):
+            paths["lm"] = lm_phase(dev)
+        # the three train CLI drills run in their own processes beside
+        # the GNN phase (its host side, while the LM drill holds the card)
+        # and the MoE phase
+        drills = start_drills(tmp)
+        try:
+            with phase("gnn: nequip full() on the molecule cell, "
+                       "minibatch_lg's host side beside the train CLI "
+                       "drills, then its card side"):
+                paths["gnn"] = gnn_phase(dev, drills)
+            with phase(f"moe: mixtral-8x7b card vs CPU at full width and 1 "
+                       f"layer; its train step at {MOE_TRAIN_LAYERS}, "
+                       f"prefill and decode at {MOE_INFER_LAYERS}; "
+                       f"arctic-480b at {ARCTIC_LAYERS}"):
+                paths["moe"], moe_shapes = moe_phase(dev)
+            with phase("train CLI drills: mixtral-8x7b smoke and nequip "
+                       "full"):
+                finish_drills(drills, [a for a, _ in MOE_GNN_DRILLS])
+        finally:
+            stop_drills(drills)
+    with phase("kernels vs plain versions at the MoE router's shapes"):
+        check_moe_topk(rows, moe_shapes)
+        del moe_shapes
     with phase("examples: the port's four, each in its own process, at "
                "once"):
         paths["examples"] = examples_phase()

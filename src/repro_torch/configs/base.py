@@ -1,5 +1,5 @@
 """The system configs: copies of repro.configs.base.CluSDConfig,
-RecsysConfig, TransformerConfig and TrainConfig, with the same fields,
+RecsysConfig, TransformerConfig, NequIPConfig and TrainConfig, with the same fields,
 defaults and derived values."""
 
 import dataclasses
@@ -68,6 +68,23 @@ class TransformerConfig:
         inactive = self.n_layers * (self.n_experts - self.moe_top_k) * 3 \
             * d * self.moe_d_ff
         return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class NequIPConfig:
+    name: str
+    family: str = "gnn"
+    n_layers: int = 5
+    d_hidden: int = 32          # channels per irrep order
+    l_max: int = 2
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    d_feat: int = 0             # raw input node feature dim (0 = species one-hot)
+    n_species: int = 32
+    readout_dim: int = 1        # per-node energy head
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+    msg_impl: str = "pjit"      # pjit | owner_shard_map (the mesh's)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,8 @@ compute on the same index, selector and quantizer.
   selector_from_numpy(params, selector=) -> LSTM/RNN/MLP selector
   pq_from_numpy(codebooks, codes, rotation, nsub) -> PQ
   recsys_params_from_numpy(cfg, params) -> recsys params (fused tables)
-  transformer_params_from_numpy(cfg, params) -> dense LM params
+  transformer_params_from_numpy(cfg, params) -> LM params (dense or MoE)
+  nequip_params_from_numpy(cfg, params, d_feat=0) -> NequIP params
 """
 
 import numpy as np
@@ -122,20 +123,14 @@ def recsys_params_from_numpy(cfg, params, *, device=None):
     return out
 
 
-def transformer_params_from_numpy(cfg, params, *, device=None):
-    """A JAX transformer params tree as numpy ({"embed", "lm_head",
-    "final_norm", "layers": {"wq", ...}}, every layer leaf stacked over
-    L) -> the port's tree of the same structure, each leaf a tensor of
-    the template's dtype on `device` (None: the card). Shapes are checked
-    against repro_torch.models.transformer.param_template(cfg)."""
-    from repro_torch.models import transformer as tf
-    dev = resolve_device(device)
-
+def _tree_from_numpy(template, params, dev, what):
+    """A numpy params tree -> tensors of the template's (a nested dict of
+    Leafs) dtypes on `dev`, keys and shapes checked against it."""
     def conv(tmpl, src, path):
         if isinstance(tmpl, dict):
             missing = sorted(set(tmpl) - set(src))
             if missing:
-                raise KeyError(f"transformer params missing {path}{missing}")
+                raise KeyError(f"{what} params missing {path}{missing}")
             return {k: conv(tmpl[k], src[k], f"{path}{k}/")
                     for k in sorted(tmpl)}
         a = np.asarray(src, np.float32)
@@ -144,4 +139,26 @@ def transformer_params_from_numpy(cfg, params, *, device=None):
                              f"{tmpl.shape}")
         return torch.from_numpy(np.array(a, order="C")).to(
             device=dev, dtype=getattr(torch, str(tmpl.dtype)))
-    return conv(tf.param_template(cfg), params, "")
+    return conv(template, params, "")
+
+
+def transformer_params_from_numpy(cfg, params, *, device=None):
+    """A JAX transformer params tree as numpy ({"embed", "lm_head",
+    "final_norm", "layers": {"wq", ...}}, every layer leaf stacked over
+    L; MoE configurations also "router", "moe_wg", "moe_wu", "moe_wd")
+    -> the port's tree of the same structure, each leaf a tensor of the
+    template's dtype on `device` (None: the card). Shapes are checked
+    against repro_torch.models.transformer.param_template(cfg)."""
+    from repro_torch.models import transformer as tf
+    return _tree_from_numpy(tf.param_template(cfg), params,
+                            resolve_device(device), "transformer")
+
+
+def nequip_params_from_numpy(cfg, params, d_feat=0, *, device=None):
+    """A JAX NequIP params tree as numpy ({"embed", "layers": {...},
+    "readout_w", "readout_w2"}) -> the port's tree on `device` (None: the
+    card), checked against repro_torch.models.nequip.param_template(cfg,
+    d_feat)."""
+    from repro_torch.models import nequip as nq
+    return _tree_from_numpy(nq.param_template(cfg, d_feat), params,
+                            resolve_device(device), "nequip")

@@ -1,5 +1,5 @@
-"""End-to-end training driver of the port (LM and recsys archs; select
-one with --arch). Runs on the CUDA card unless `--device cpu` is given.
+"""End-to-end training driver of the port (LM, recsys and GNN archs;
+select one with --arch). Runs on the CUDA card unless `--device cpu` is given.
 
 Runs inside the fault-tolerant restartable loop: periodic async
 checkpoints (the JAX package's npz layout, so either package resumes the
@@ -23,6 +23,7 @@ import torch
 from repro_torch.common.metrics import MetricLogger
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainConfig
+from repro_torch.data.graphs import synth_molecules
 from repro_torch.data.pipeline import Prefetcher, lm_synthetic_batches
 from repro_torch.data.recsys_stream import RecsysStream
 from repro_torch.device import resolve_device
@@ -78,12 +79,36 @@ def _recsys(cfg, args, tc, dev):
     return lambda: model.train_tree(params), step_fn, batches_at
 
 
+def _gnn(cfg, tc, dev):
+    from repro_torch.models import nequip as model
+    step = model.make_train_step(cfg, tc)
+
+    def init():       # the same draws at every call
+        return model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    def batches_at(start):
+        def gen():
+            s = start
+            while True:
+                yield synth_molecules(1234 + s % 16, 8, 12, 32,
+                                      n_species=cfg.n_species)
+                s += 1
+        return iter(Prefetcher(gen(), device=dev))
+
+    def step_fn(state, batch):
+        p, o, m = step(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, dict(sorted(m.items()))
+
+    return init, step_fn, batches_at
+
+
 def main(argv=None):
     # __doc__ IS the epilog: the module docstring and --help never drift
     ap = argparse.ArgumentParser(
         description="Fault-tolerant end-to-end model training driver of "
-                    "the port (LM/recsys archs; the CluSD selector has its "
-                    "own driver: repro_torch.launch.train_selector).",
+                    "the port (LM/recsys/GNN archs; the CluSD selector has "
+                    "its own driver: repro_torch.launch.train_selector).",
         epilog=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--variant", default="smoke")
@@ -111,8 +136,8 @@ def main(argv=None):
         init_params, step_fn, batches_at = _lm(cfg, args, tc, sched, dev)
     elif cfg.family == "recsys":
         init_params, step_fn, batches_at = _recsys(cfg, args, tc, dev)
-    else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    else:  # gnn
+        init_params, step_fn, batches_at = _gnn(cfg, tc, dev)
 
     def init_state():
         params = init_params()

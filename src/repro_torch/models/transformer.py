@@ -1,19 +1,23 @@
-"""Decoder-only transformer LM, dense configurations: GQA + RoPE (+ QKV
-bias, SWA), a loop over stacked layer params with each layer recomputed
-in the backward (`cfg.remat`), chunked cross-entropy so full logits are
-never held for the backward. The JAX package's `repro.models.transformer`
-for qwen2-1.5b / qwen2.5-32b / deepseek-67b.
+"""Decoder-only transformer LM: GQA + RoPE (+ QKV bias, SWA, MoE with a
+dense residual), a loop over stacked layer params with each layer
+recomputed in the backward (`cfg.remat`), chunked cross-entropy so full
+logits are never held for the backward. The JAX package's
+`repro.models.transformer` for arctic-480b / mixtral-8x7b / qwen2-1.5b /
+deepseek-67b / qwen2.5-32b.
 
 Params are a nested dict of tensors in the JAX layout: "embed" (V, d),
 "lm_head" (d, V), "final_norm" (d,), and "layers" with every leaf
-stacked over the L layers ("wq" (L, d, Hq*hd), ...), so checkpoints and
+stacked over the L layers ("wq" (L, d, Hq*hd), ...; MoE configurations
+add "router" (L, d, E) and the experts' "moe_wg"/"moe_wu" (L, E, d, f)
+and "moe_wd" (L, E, f, d)), so checkpoints and
 `repro_torch.convert.transformer_params_from_numpy` carry across leaf
 for leaf. The step functions are functional: (params, opt_state, batch)
 -> (params, opt_state, metrics) over such dicts.
 
-Not here yet: MoE configurations (`cfg.moe`; models/moe.py is queued in
-ROADMAP.md) raise NotImplementedError, and the sharding annotations
-(`logical`, `_gather_weights`, `param_shardings`) wait for the mesh.
+The MoE layer is `models/moe.moe_ffn`, the dispatch JAX takes when no
+mesh is set. Not here yet: the sharded dispatches and the sharding
+annotations (`logical`, `_gather_weights`, `param_shardings`), which
+wait for the mesh.
 """
 
 import dataclasses
@@ -24,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import tree as tu
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, swiglu
 
@@ -36,19 +41,11 @@ class Leaf:
     init: str = "normal"  # normal | ones | zeros
 
 
-def _dense_only(cfg):
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a MoE configuration; the port's MoE layer "
-            f"(models/moe.py) is queued in ROADMAP.md")
-
-
 def _dt(name):
     return getattr(torch, str(name))
 
 
 def param_template(cfg):
-    _dense_only(cfg)
     d, hd = cfg.d_model, cfg.hd
     L, Hq, Hkv = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
     pdt = cfg.param_dtype
@@ -59,47 +56,41 @@ def param_template(cfg):
         "wk": Leaf((L, d, Hkv * hd), pdt),
         "wv": Leaf((L, d, Hkv * hd), pdt),
         "wo": Leaf((L, Hq * hd, d), pdt),
-        "ffn_wg": Leaf((L, d, cfg.d_ff), pdt),
-        "ffn_wu": Leaf((L, d, cfg.d_ff), pdt),
-        "ffn_wd": Leaf((L, cfg.d_ff, d), pdt),
     }
     if cfg.qkv_bias:
         lay["bq"] = Leaf((L, Hq * hd), pdt, "zeros")
         lay["bk"] = Leaf((L, Hkv * hd), pdt, "zeros")
         lay["bv"] = Leaf((L, Hkv * hd), pdt, "zeros")
+    if cfg.moe:
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        lay["router"] = Leaf((L, d, E), pdt)
+        lay["moe_wg"] = Leaf((L, E, d, f), pdt)
+        lay["moe_wu"] = Leaf((L, E, d, f), pdt)
+        lay["moe_wd"] = Leaf((L, E, f, d), pdt)
+    if not cfg.moe or cfg.dense_residual:
+        lay["ffn_wg"] = Leaf((L, d, cfg.d_ff), pdt)
+        lay["ffn_wu"] = Leaf((L, d, cfg.d_ff), pdt)
+        lay["ffn_wd"] = Leaf((L, cfg.d_ff, d), pdt)
     return {"embed": Leaf((cfg.vocab_size, d), pdt),
             "lm_head": Leaf((d, cfg.vocab_size), pdt),
             "final_norm": Leaf((d,), pdt, "ones"),
             "layers": lay}
 
 
-def _template_leaves(cfg):
-    """[(keystr path, Leaf)] in the flatten order (sorted keys)."""
-    out = []
-
-    def walk(t, prefix):
-        for k in sorted(t):
-            if isinstance(t[k], dict):
-                walk(t[k], f"{prefix}[{k!r}]")
-            else:
-                out.append((f"{prefix}[{k!r}]", t[k]))
-    walk(param_template(cfg), "")
-    return out
-
-
-def init_params(cfg, generator=None, *, device=None):
-    """Random parameters by the JAX package's rules (normal * fan_in **
-    -0.5 with fan_in the leaf's second-to-last dim, ones for norms, zeros
-    for biases), drawn leaf by leaf in flatten order from `generator`
-    (default: one seeded 0 on `device`), placed on `device` (None: the
-    card). The draws cannot equal jax.random's: tests take their params
-    from JAX through convert.transformer_params_from_numpy."""
+def init_from_template(template, generator=None, *, device=None):
+    """Random parameters of a template (a nested dict of Leafs) by the JAX
+    package's rules (normal * fan_in ** -0.5 with fan_in the leaf's
+    second-to-last dim, ones for norms, zeros for biases), drawn leaf by
+    leaf in flatten order from `generator` (default: one seeded 0 on
+    `device`), placed on `device` (None: the card). The draws cannot
+    equal jax.random's: tests take their params from JAX through
+    `convert`."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     gdev = generator.device
     leaves = []
-    for _, leaf in _template_leaves(cfg):
+    for leaf in tu.tree_leaves(template):
         dt = _dt(leaf.dtype)
         if leaf.init == "ones":
             x = torch.ones(leaf.shape, dtype=dt, device=dev)
@@ -111,7 +102,12 @@ def init_params(cfg, generator=None, *, device=None):
             x = torch.randn(leaf.shape, generator=generator, device=gdev)
             x = x.mul_(fan_in ** -0.5).to(device=dev, dtype=dt)
         leaves.append(x)
-    return tu.tree_unflatten_like(param_template(cfg), leaves)
+    return tu.tree_unflatten_like(template, leaves)
+
+
+def init_params(cfg, generator=None, *, device=None):
+    """init_from_template over param_template(cfg)."""
+    return init_from_template(param_template(cfg), generator, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +125,25 @@ def _qkv(cfg, h, lp):
     return q, k, v
 
 
+def _ffn(cfg, h2, lp):
+    """The layer's FFN on h2 (..., d): the MoE over the flattened tokens
+    plus, without MoE or with a dense residual, the dense SwiGLU.
+    Returns (out of h2's shape, the MoE aux loss or 0.0)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h2.device)
+    out = 0.
+    if cfg.moe:
+        mo, aux = moe_lib.moe_ffn(
+            h2.reshape(-1, h2.shape[-1]), lp["router"], lp["moe_wg"],
+            lp["moe_wu"], lp["moe_wd"], top_k=cfg.moe_top_k)
+        out = out + mo.reshape(h2.shape)
+    if not cfg.moe or cfg.dense_residual:
+        out = out + swiglu(h2, lp["ffn_wg"], lp["ffn_wu"], lp["ffn_wd"])
+    return out, aux
+
+
 def _layer(cfg, x, lp, positions):
     """One transformer layer (train/prefill). x: (B, S, d). Returns (x,
-    (k, v)), k/v cut to the last window for SWA configurations."""
+    (k, v), aux), k/v cut to the last window for SWA configurations."""
     B, S, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = rmsnorm(x, lp["ln1"])
@@ -141,12 +153,12 @@ def _layer(cfg, x, lp, positions):
     v = v.reshape(B, S, Hkv, hd)
     attn = attention(q, k, v, causal=True, window=cfg.sliding_window)
     x = x + attn.reshape(B, S, Hq * hd) @ lp["wo"].to(x.dtype)
-    h2 = rmsnorm(x, lp["ln2"])
-    x = x + swiglu(h2, lp["ffn_wg"], lp["ffn_wu"], lp["ffn_wd"])
+    out, aux = _ffn(cfg, rmsnorm(x, lp["ln2"]), lp)
+    x = x + out
     if cfg.sliding_window and S > cfg.sliding_window:
         k = k[:, -cfg.sliding_window:]
         v = v[:, -cfg.sliding_window:]
-    return x, (k, v)
+    return x, (k, v), aux
 
 
 def _layer_slices(params, cd):
@@ -165,30 +177,31 @@ def _layer_slices(params, cd):
 
 def forward(cfg, params, tokens, *, return_kv=False):
     """tokens: (B, S) -> (hidden (B, S, d), (k, v) stacked (L, B, S', Hkv,
-    hd) or None, aux 0.0). With cfg.remat and grad enabled, each layer is
-    recomputed in the backward."""
-    _dense_only(cfg)
+    hd) or None, the mean over layers of the MoE aux loss (0.0 without
+    MoE)). With cfg.remat and grad enabled, each layer is recomputed in
+    the backward."""
     B, S = tokens.shape
     cd = _dt(cfg.dtype)
     x = params["embed"][tokens.long()].to(cd)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     names = sorted(params["layers"])
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
     for lp in _layer_slices(params, cd):
         if cfg.remat and torch.is_grad_enabled():
             def body(x, *ws):
                 return _layer(cfg, x, dict(zip(names, ws)), positions)
-            x, (k, v) = checkpoint(body, x, *(lp[n] for n in names),
-                                   use_reentrant=False)
+            x, (k, v), aux = checkpoint(body, x, *(lp[n] for n in names),
+                                        use_reentrant=False)
         else:
-            x, (k, v) = _layer(cfg, x, lp, positions)
+            x, (k, v), aux = _layer(cfg, x, lp, positions)
+        auxs.append(aux)
         if return_kv:
             ks.append(k)
             vs.append(v)
     x = rmsnorm(x, params["final_norm"])
     kv = (torch.stack(ks), torch.stack(vs)) if return_kv else None
-    return x, kv, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, kv, torch.stack(auxs).mean()
 
 
 def _chunk_xent(hc, yc, lm_head):
@@ -274,7 +287,6 @@ def make_train_step(cfg, schedule=None, train_cfg=None):
     adamw_update with the train config's settings."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim import adamw_update
-    _dense_only(cfg)
     tc = train_cfg or TrainConfig()
     sched = schedule or (lambda step: tc.lr)
 
@@ -293,7 +305,6 @@ def make_train_step(cfg, schedule=None, train_cfg=None):
 def init_cache(cfg, batch, seq_len, device=None):
     """Zero KV cache {"k", "v"} of (L, batch, W, Hkv, hd) in cfg.dtype; SWA
     configurations keep a ring of W = min(seq_len, window) slots."""
-    _dense_only(cfg)
     W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
     shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.hd)
     dev = resolve_device(device)
@@ -304,7 +315,6 @@ def init_cache(cfg, batch, seq_len, device=None):
 def make_prefill_step(cfg):
     """fn(params, tokens (B, S)) -> (last-position logits (B, V) float32,
     cache {"k", "v"} of (L, B, S', Hkv, hd), S' the window for SWA)."""
-    _dense_only(cfg)
 
     @torch.no_grad()
     def prefill(params, tokens):
@@ -318,8 +328,8 @@ def make_prefill_step(cfg):
 def make_decode_step(cfg):
     """fn(params, cache, tokens (B, 1), pos) -> (logits (B, V) float32,
     new cache). `pos` is the write position (the cache holds `pos` valid
-    entries): slot pos % W under SWA, else min(pos, W - 1)."""
-    _dense_only(cfg)
+    entries): slot pos % W under SWA, else min(pos, W - 1). The MoE runs
+    on the batch's B tokens (capacity(B, E, K) slots an expert)."""
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
@@ -349,8 +359,7 @@ def make_decode_step(cfg):
             vc = torch.where(onehot, v.to(vc.dtype), vc)
             out = decode_attention(q, kc, vc, cache_len)
             x = x + out.reshape(B, 1, Hq * hd) @ lp["wo"].to(cd)
-            h2 = rmsnorm(x, lp["ln2"])
-            x = x + swiglu(h2, lp["ffn_wg"], lp["ffn_wu"], lp["ffn_wd"])
+            x = x + _ffn(cfg, rmsnorm(x, lp["ln2"]), lp)[0]
             nk.append(kc)
             nv.append(vc)
         x = rmsnorm(x, params["final_norm"])

@@ -365,3 +365,33 @@ def dist_worker(rank, world, store_path, n_data, job_path, out_dir):
                  global_i=gi.numpy())
     finally:
         tdist.destroy_process_group()
+
+
+def compression_worker(rank, world, store_path, job_path, out_dir):
+    """One gloo rank of a `torch.multiprocessing.spawn` (a FileStore at
+    `store_path`): runs the port's compressed_psum twice (the second
+    from the first's carry) on its slice [rank] of every "g_*" and
+    "e_*" array of the job (an .npz), and saves the sums and carries to
+    `out_dir`/rank<r>.npz."""
+    import os
+
+    import torch.distributed as tdist
+
+    from repro_torch.optim.compression import compressed_psum
+
+    torch.set_num_threads(1)
+    tdist.init_process_group("gloo", store=tdist.FileStore(store_path, world),
+                             rank=rank, world_size=world)
+    try:
+        job = dict(np.load(job_path))
+        names = sorted(k[2:] for k in job if k.startswith("g_"))
+        g = {n: torch.from_numpy(job["g_" + n][rank]) for n in names}
+        e = {n: torch.from_numpy(job["e_" + n][rank]) for n in names}
+        out = {}
+        for step in (0, 1):
+            s, e = compressed_psum(g, e, None, world)
+            out.update({f"s{step}_{n}": s[n].numpy() for n in names})
+            out.update({f"e{step}_{n}": e[n].numpy() for n in names})
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        tdist.destroy_process_group()

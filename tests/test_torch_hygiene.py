@@ -39,7 +39,13 @@ missing = sorted({"repro_torch.index.update", "repro_torch.launch",
                   "repro_torch.data.pipeline", "repro_torch.runtime.fault",
                   "repro_torch.models.layers", "repro_torch.models.attention",
                   "repro_torch.models.transformer",
-                  "repro_torch.launch.train"} - set(names))
+                  "repro_torch.launch.train", "repro_torch.models.moe",
+                  "repro_torch.models.nequip", "repro_torch.data.graphs",
+                  "repro_torch.data.sampler", "repro_torch.configs.shapes",
+                  "repro_torch.configs.mixtral_8x7b",
+                  "repro_torch.configs.arctic_480b",
+                  "repro_torch.configs.nequip",
+                  "repro_torch.optim.compression"} - set(names))
 from repro_torch.core.fusion import fuse_topk_merge  # noqa: F401
 print(len(names), bad + missing)
 """
@@ -78,8 +84,11 @@ def no_card(monkeypatch):
 
 
 def test_entry_points_with_default_device_raise_without_a_card(no_card):
-    from repro_torch.configs import clusd_msmarco
+    from repro_torch.configs import clusd_msmarco, get_config
+    from repro_torch.convert import (nequip_params_from_numpy,
+                                     transformer_params_from_numpy)
     from repro_torch.core import clusd, kmeans, quant
+    from repro_torch.models import moe, nequip
     from repro_torch.core.sparse import SparseIndex
     from repro_torch.device import resolve_device
     from repro_torch.engine import RetrievalEngine
@@ -136,6 +145,13 @@ def test_entry_points_with_default_device_raise_without_a_card(no_card):
                             X[:, :2], None),
         lambda: serve.main(["--index-dir", "no-such-index"]),
         lambda: serve.main([]),
+        lambda: nequip.init_params(get_config("nequip", "smoke")),
+        lambda: moe.moe_ffn(X[:8, :4], X[:4, :2], X[:8].reshape(2, 4, 8),
+                            X[:8].reshape(2, 4, 8), X[:8].reshape(2, 8, 4),
+                            top_k=2),
+        lambda: nequip_params_from_numpy(get_config("nequip", "smoke"), {}),
+        lambda: transformer_params_from_numpy(
+            get_config("mixtral-8x7b", "smoke"), {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

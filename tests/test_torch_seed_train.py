@@ -268,10 +268,14 @@ def test_train_cli_runs_recsys_and_refuses_unported_archs(tmp_path):
                     "3", "--batch", "16", "--ckpt-dir", str(tmp_path / "r"),
                     "--device", "cpu"])
     assert rc == 0 and "done: steps=3 restarts=0" in out
-    for arch in ("nequip", "mixtral-8x7b"):
+    # every arch of the registry is ported; an unknown arch or variant
+    # is refused before anything runs
+    for argv in (["--arch", "no-such-arch"],
+                 ["--arch", "nequip", "--variant", "medium"]):
         with pytest.raises(KeyError):
-            _cli(["--arch", arch, "--steps", "1", "--ckpt-dir",
-                  str(tmp_path / arch), "--device", "cpu"])
+            _cli(argv + ["--steps", "1", "--ckpt-dir",
+                         str(tmp_path / "refused"), "--device", "cpu"])
+    assert not (tmp_path / "refused").exists()
     from repro_torch.configs import get_config
     assert get_config(ARCH).family == "lm"
     assert dataclasses.replace(get_config(ARCH, "smoke"),

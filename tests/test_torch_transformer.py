@@ -340,18 +340,3 @@ def test_templates_counts_and_init_follow_jax():
     std = float(p["layers"]["ffn_wd"].std())
     assert abs(std * tc.d_ff ** 0.5 - 1.0) < 0.05
 
-
-def test_moe_configurations_are_refused():
-    from repro.configs import get_config as jget
-    from repro_torch.configs import TransformerConfig, get_config
-    from repro_torch.models import transformer as tt
-
-    with pytest.raises(KeyError):
-        get_config("mixtral-8x7b")
-    moe = TransformerConfig(**dataclasses.asdict(
-        jget("mixtral-8x7b", "smoke")))
-    for fn in (lambda: tt.param_template(moe),
-               lambda: tt.make_train_step(moe),
-               lambda: tt.init_cache(moe, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="models/moe.py"):
-            fn()
