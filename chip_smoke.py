@@ -9,9 +9,10 @@ Phases, each printed with its seconds:
      sm_90a (one nvcc per source, all at once), with -Xptxas -v output;
   3. the state at the paper's widths (configs/clusd_msmarco.py `full()`:
      dim 768, N 8192, vocab 30522, k_sparse 1000, n 32, H 32, PQ nsub 96),
-     cut to 2^20 synthetic docs (cap 256), built on the card by the
-     port's own build side; a sha256 of the built state shows that one
-     seed builds one state;
+     cut to 2^20 synthetic docs (cap 256; the corpus made on a thread
+     during phase 2, from the recipe the directories carry), built on
+     the card by the port's own build side; a sha256 of the built state
+     shows that one seed builds one state;
   4. two index directories written by the port's `write_index`: v2 (PQ
      code shards, 8 shards) and v1 (float32 blocks at the full widths,
      8 shards, 6.4 GB, with the PQ under pq/), and one DiskClusterStore
@@ -28,17 +29,18 @@ Phases, each printed with its seconds:
      their main-path inputs; then one batch through `clusd.retrieve`
      with each of the "rnn" and "mlp" selectors (seeded params), card
      against CPU; then DiskStore serving: `RetrievalEngine(cfg, index,
-     store=DiskStore(...))` answers the 1024 queries from the block file
+     store=DiskStore(...))` answers the first 256 queries (the host
+     stores' cut, HOST_STORE_QUERIES) from the block file
      through the block cache and the "dot" tail (cluster_score), with one
      profiled batch and card-vs-CPU parity on 16 queries;
   6. v2 serving: `IndexReader.open(v2, verify="size").engine()` answers
      the 1024 queries, then torch.profiler over one more steady batch;
-  7. v1 serving: the same 1024 queries through the v1 directory — the
+  7. v1 serving: the first 256 queries through the v1 directory — the
      "dot" tail and the cluster_score kernel, about 4 GB of unique float
      blocks per batch — then one profiled batch;
   8. reloads: `reload_index()` on the v1 engine while a second thread
-     keeps serving (0 failed batches, reloads 1, cache cleared, I/O
-     counters kept, ids equal to a fresh engine's), then
+     keeps serving batches of 64 (0 failed batches, reloads 1, cache
+     cleared, I/O counters kept, ids equal to a fresh engine's), then
      `reload_selector()` (the cache is kept); then the v1 directory with
      its quantizer: `RetrievalEngine(*IndexReader.open(v1).load_index())`
      serves the 1024 queries from the device PQStore (the ADC kernels),
@@ -70,9 +72,10 @@ Phases, each printed with its seconds:
      the other's bags are bitwise), and the word's zero fill timed;
  12. the update paths (the corpus embeddings were staged to a file
      after the state build):
-     a. `build_index_offline` over an np.memmap of that file in shards of
-        2^17 rows (one shard on the card at a time), its spans and peak
-        device memory gated below the bound derived in `offline_phase`
+     a. `build_index_offline` over an np.memmap of that file's first
+        2^19 rows in shards of 2^17 (one shard on the card at a time),
+        its spans and peak device memory gated below the bound derived
+        in `offline_phase`
         (beside the in-RAM build_index's peak), every doc in the cluster
         table once; `write_index` v2 from the memmap training its PQ
         (`train_pq_stream`, nsub 96), one batch of 256 served from it;
@@ -82,7 +85,7 @@ Phases, each printed with its seconds:
         copy's parity; the same delta committed on the CPU to a copy must
         give the same files (upsert codes may differ only at near-ties);
      c. a re-clustering delta (seed 1, thresholds 0) on the v1 directory
-        committed on the card while a second thread serves two batches,
+        committed on the card while a second thread serves two batches of 64,
         `reload_index()` to generation 1 (ids equal a fresh engine's, no
         deleted id served, the neighbor graph equal a CPU one), then
         `compact_index` in place, a full verify and `reload_index()` to
@@ -173,7 +176,8 @@ Phases, each printed with its seconds:
      (128 synth_molecules graphs) card against a CPU twin (energies,
      loss, gradients, one AdamW step), energy invariance under a
      rotation and translation on the card, the step ms; the
-     `minibatch_lg` cell's host side beside the LM drill: a synth_graph
+     `minibatch_lg` cell's host side, made in a process of its own
+     (GnnHostJob, on the CPU) that starts after phase 3: a synth_graph
      of 232,965 nodes and 114,615,892 edges (d_feat 602), its CSRGraph,
      padded_batch at 1024 seeds and fanout (15, 10) (169,984 nodes,
      168,960 edges, seeded positions), the CPU twin of one batch; once
@@ -194,8 +198,29 @@ Phases, each printed with its seconds:
      shapes ((128, 8), (1024, 8), (8, 128), (1024, 128), k 2) held
      bitwise to its plain version;
  22. the port's four examples (examples/torch_*.py), each in its own
-     process on the card, the four at once: exit 0, their result lines,
-     seconds and kernel launches.
+     process on the card, the four at once, started with the drills of
+     19: exit 0, their result lines, seconds and kernel launches;
+ 23. the mesh (models/{sharding,collectives,nequip_sharded}.py,
+     launch/mesh.py, the sharded LM steps and MoE dispatches, elastic
+     restore): 4 processes (torch.multiprocessing, spawn) on the one card
+     in a gloo group, after this process has made the one-rank
+     references: (a) qwen2-1.5b at full width and 2 layers in float32 on
+     2 x 2, one train step (each rank draws its slice of phase 18's init)
+     against the one-rank step (loss 1e-4, params 5e-4), prefill (8, 128)
+     and 4 decode tokens against its logits; (b) mixtral-8x7b at full
+     width and 1 layer in float32, tp_shard_map, 2 x 2, one train step
+     against the one-rank step that runs each data shard's rows as a
+     microbatch (so its MoE drops per shard as the mesh does), the
+     per-shard dropped pairs beside the global count; (e) (b)'s params
+     saved from 2 x 2 and restored on 1 x 4 and on a (4,) data mesh, each
+     slice bitwise; (c) arctic-480b at full width and 1 layer in bf16,
+     ep_shard_map on 1 x 4 (32 experts a rank, the ranks drawing phase
+     21's init in turn), prefill and 4 decode tokens against phase 21's
+     logits on the rows its router sent clear of a tie; (d) nequip on
+     phase 20's minibatch_lg batch over 4 owner shards, energies and
+     gradients against phase 20's card; each step's ms, peak memory and
+     bytes through the collectives printed; then (f) topk at the ranks'
+     per-shard router shapes bitwise its plain version beside torch.topk.
 
 Phase 14's ranks also run `compressed_psum` (optim/compression.py) on
 2^24 floats each, on the card and on the CPU in the same gloo group:
@@ -206,9 +231,9 @@ Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
 (topk on all but the LM and the GNN, which run none of the seven,
 embedding_bag on recsys, train and the examples), and the kernel table
-sums the eighteen paths (the seven serving paths, the offline build,
+sums the nineteen paths (the seven serving paths, the offline build,
 the two updates, the train path, the distributed ranks, the router, the
-baselines, the LM, the MoE, the GNN and the examples). Prints the kernel table as one JSON
+baselines, the LM, the MoE, the GNN, the examples and the mesh ranks). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
@@ -237,23 +262,32 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
 N_DOCS = 1 << 20          # the one cut: 8.8M MS MARCO passages -> 2^20
+TOPIC_NOISE = 0.5         # the corpus recipe's, written into each directory
 NSUB = 96                 # PQ: dsub 8, 96 bytes per passage
 N_SHARDS = 8
 N_QUERIES = 1024
+# v1 and DiskStore, the host stores (about 10 s a batch of 256 through
+# the host block cache), serve a quarter of the queries, and the v1
+# reload and update drills serve batches of 64 (about 2000 unique blocks
+# where 256 queries read about 5000): their depth cut to keep the script
+# inside its time once phase 23 (the mesh) runs
+HOST_STORE_QUERIES = 256
+HOST_DRILL_BATCH = 64
 MAX_BATCH = 256
 PARITY_QUERIES = 16
 PARITY_GAP = 1e-5
 # recsys phase: wide_deep full(), the serve_p99 and serve_bulk batch
 # sizes (timed batches of each) and the retrieval_cand shape
 RECSYS_SIZE = "full"
-RECSYS_SERVE_BATCHES = {512: 32, 262144: 6}
+RECSYS_SERVE_BATCHES = {512: 32, 262144: 3}
 RECSYS_CANDIDATES = 1_000_000      # in N 4096 clusters x cap 256 slots
 RECSYS_CLUSTERS, RECSYS_CAP = 4096, 256
 RECSYS_QUERIES = 64
 RECSYS_PARITY_ROWS, RECSYS_PARITY_QUERIES = 16, 4
-# update phases: the offline build's shard, the deltas' churn (about 1 %
-# of the 2^20 docs), the PQ writer's read chunk
-OFFLINE_SHARD_DOCS = 1 << 17
+# update phases: the offline build's docs (the first half of the staged
+# corpus: its depth cut) and shard, the deltas' churn (about 1 % of the
+# 2^20 docs), the PQ writer's read chunk
+OFFLINE_DOCS, OFFLINE_SHARD_DOCS = 1 << 19, 1 << 17
 UPDATE_UPSERTS, UPDATE_DELETES = 10000, 5000
 PQ_CHUNK_DOCS = 1 << 14
 BUILD_INDEX_PEAK = 0               # the in-RAM build_index's, set on the card
@@ -471,12 +505,13 @@ def build_state(cfg, dev, n_queries):
     from repro_torch.core.features import feature_dim
     from repro_torch.core.lstm import LSTMSelector
     from repro_torch.core.quant import train_pq
-    from repro_torch.data import synth_corpus, synth_queries
+    from repro_torch.data import recipe_corpus, synth_queries
 
     g = torch.Generator().manual_seed(SEED)
     t0 = time.perf_counter()
-    corpus = synth_corpus(SEED, cfg.n_docs, cfg.dim, cfg.vocab,
-                          topic_noise=0.5)
+    # the directories' recipe: the update, train and serve CLIs, run in
+    # this process, regenerate their queries from the same kept corpus
+    corpus = recipe_corpus(corpus_extra(cfg)["corpus"])
     qs = synth_queries(SEED + 1, corpus, n_queries)
     print(f"  synthetic corpus + queries: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -546,10 +581,10 @@ def write_dirs(cfg, index, pq, corpus, tmp):
 
 def corpus_extra(cfg):
     """The synthetic-corpus recipe a directory carries under `extra`, from
-    which the update CLI regenerates queries."""
+    which the update, train and serve CLIs regenerate queries."""
     return {"corpus": {"kind": "synthetic", "seed": SEED,
                        "n_docs": cfg.n_docs, "dim": cfg.dim,
-                       "vocab": cfg.vocab}}
+                       "vocab": cfg.vocab, "topic_noise": TOPIC_NOISE}}
 
 
 def check_results(cfg, ids, scores, n):
@@ -921,10 +956,12 @@ def profile_call(fn, dev, n_dev, n_host, spans=None):
 
 
 def reload_phase(eng, path, qs, dev):
-    """reload_index() while a second thread serves, then reload_selector()."""
+    """reload_index() while a second thread serves, then reload_selector();
+    batches of HOST_DRILL_BATCH queries."""
     from repro_torch.index import IndexReader
 
-    q_next = queries(qs, 0, MAX_BATCH)
+    B = HOST_DRILL_BATCH
+    q_next = queries(qs, 0, B)
     before = eng.stats()
     failures, served = [], []
     started = threading.Event()
@@ -933,8 +970,7 @@ def reload_phase(eng, path, qs, dev):
         for i in range(2):
             try:
                 started.set()
-                eng.retrieve(*queries(qs, i * MAX_BATCH,
-                                      (i + 1) * MAX_BATCH))
+                eng.retrieve(*queries(qs, i * B, (i + 1) * B))
                 served.append(i)
             except Exception as e:      # counted and raised below
                 failures.append(repr(e))
@@ -1619,17 +1655,20 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb,
 
 def offline_phase(cfg, emb_path, doc_terms, doc_weights, selector, qs, tmp,
                   dev):
-    """build_index_offline over an np.memmap of the corpus, its peak
-    device memory gated by the bound below, then a v2 write from the
-    memmap whose PQ the writer trains (train_pq_stream) and one served
-    batch. Returns the launch counts of the run."""
+    """build_index_offline over an np.memmap of the corpus's first
+    OFFLINE_DOCS rows, its peak device memory gated by the bound below,
+    then a v2 write from the memmap whose PQ the writer trains
+    (train_pq_stream) and one served batch. Returns the launch counts of
+    the run."""
     from repro_torch import kernels
     from repro_torch.index import IndexReader, build_index_offline, write_index
     from repro_torch.obs import Tracer
 
     on_card = torch.device(dev).type == "cuda"
+    cfg = dataclasses.replace(cfg, n_docs=min(OFFLINE_DOCS, cfg.n_docs))
     D, dim, N = cfg.n_docs, cfg.dim, cfg.n_clusters
     mm = np.memmap(emb_path, np.float32, "r", shape=(D, dim))
+    doc_terms, doc_weights = doc_terms[:D], doc_weights[:D]
     init = np.sort(torch.randperm(D, generator=torch.Generator().manual_seed(
         SEED))[:N].numpy())
     tracer = Tracer(sample_rate=1.0)
@@ -1665,7 +1704,7 @@ def offline_phase(cfg, emb_path, doc_terms, doc_weights, selector, qs, tmp,
     members = np.sort(cd[cd >= 0])
     totals = tracer.span_totals("build_index")
     print(f"  build_index_offline over the {D} x {dim} memmap "
-          f"({os.path.getsize(emb_path)} bytes), shards of "
+          f"({D * dim * 4} bytes), shards of "
           f"{OFFLINE_SHARD_DOCS}: {build_s:.2f} s; spans (ms) "
           f"{json.dumps({k: v['ms'] for k, v in totals.items()})}")
     print(f"  peak device memory {peak / 1e9:.3f} GB against the bound "
@@ -1686,8 +1725,7 @@ def offline_phase(cfg, emb_path, doc_terms, doc_weights, selector, qs, tmp,
     t0 = time.perf_counter()
     man = write_index(out, cfg, index, mm, n_shards=N_SHARDS,
                       format_version=2, pq_nsub=NSUB,
-                      chunk_docs=PQ_CHUNK_DOCS, extra=corpus_extra(cfg),
-                      tracer=tracer)
+                      chunk_docs=PQ_CHUNK_DOCS, tracer=tracer)
     totals = tracer.span_totals("write_index")
     print(f"  write_index v2 from the memmap, PQ nsub {NSUB} trained by "
           f"train_pq_stream in {PQ_CHUNK_DOCS}-row reads: "
@@ -1846,14 +1884,16 @@ def update_v1_phase(v1_dir, qs, dev):
     serves the v1 directory, reload_index() to generation 1 (gated
     against a fresh engine, deleted ids and a CPU neighbor graph), then
     compact_index in place, a full verify and reload_index() to
-    generation 2. Returns the launch counts of the run."""
+    generation 2; batches of HOST_DRILL_BATCH queries. Returns the launch
+    counts of the run."""
     from repro_torch import kernels
     from repro_torch.core import kmeans as km
     from repro_torch.index import (IndexReader, compact_index,
                                    write_index_delta)
     from repro_torch.launch.update_index import synth_delta
 
-    q_next = queries(qs, 0, MAX_BATCH)
+    B = HOST_DRILL_BATCH
+    q_next = queries(qs, 0, B)
     eng = IndexReader.open(v1_dir, verify="size").engine(
         max_batch=MAX_BATCH, device=dev)
     t0 = time.perf_counter()
@@ -1870,8 +1910,7 @@ def update_v1_phase(v1_dir, qs, dev):
         for i in range(2):
             try:
                 started.set()
-                eng.retrieve(*queries(qs, i * MAX_BATCH,
-                                      (i + 1) * MAX_BATCH))
+                eng.retrieve(*queries(qs, i * B, (i + 1) * B))
                 served.append(i)
             except Exception as e:      # counted and raised below
                 failures.append(repr(e))
@@ -3898,11 +3937,13 @@ def lm_train_timing(dev, cfg, B, S, steps=7):
     return note
 
 
-def lm_infer_timing(dev, cfg, B, S, slots, n_dec, params=None):
+def lm_infer_timing(dev, cfg, B, S, slots, n_dec, params=None, record=None):
     """cfg's prefill of (B, S) (ms, CUDA events over 3 calls) and n_dec
     greedy decode steps with a `slots`-slot cache (ms a token, host clock
     after a sync), and peak device memory from the init (or from
-    `params`, made by the caller). Returns a note."""
+    `params`, made by the caller). With a `record` dict, the prefill's
+    tokens and logits and each decode step's tokens and logits go into it
+    (on the host). Returns a note."""
     from repro_torch.models import transformer as tt
 
     if params is None:
@@ -3920,10 +3961,17 @@ def lm_infer_timing(dev, cfg, B, S, slots, n_dec, params=None):
         cache[n][:, :, :kv[n].shape[2]] = kv[n]
     del kv
     tok = logits.argmax(1, keepdim=True).int()
+    if record is not None:
+        record.update(tokens=t.cpu(), prefill=logits.cpu(), dec_tokens=[],
+                      decode=[])
     sync(dev)
     t0 = time.perf_counter()
     for i in range(n_dec):
+        if record is not None:
+            record["dec_tokens"].append(tok.cpu())
         logits, cache = decode(params, cache, tok, S + i)
+        if record is not None:
+            record["decode"].append(logits.cpu())
         tok = logits.argmax(1, keepdim=True).int()
     sync(dev)
     dec_ms = (time.perf_counter() - t0) * 1e3 / n_dec
@@ -3975,6 +4023,7 @@ MOE_TOL = dict(rtol=1e-4, atol=5e-5)
 MOE_UPDATE_KEPT = 0.98
 MOE_TRAIN_LAYERS, MOE_INFER_LAYERS = 1, 4     # mixtral's depth cuts
 ARCTIC_LAYERS, ARCTIC_DECODE = 1, 4
+ARCTIC_SEED = 3
 # arctic's moe_ffn against the per-expert loop on the card (bf16): every
 # entry within MOE_LOOP_ATOL times the output's largest magnitude (two
 # bf16 ulps there; cuBLAS may round an expert's rows another way when
@@ -4030,11 +4079,18 @@ def arctic_phase(dev):
                               n_layers=ARCTIC_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
-                            device=dev)
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        ARCTIC_SEED), device=dev)
+    ref = {}
     with _MoeRecorder() as rec:
         note = lm_infer_timing(dev, cfg, LM_B, LM_S, LM_DECODE_SLOTS,
-                               ARCTIC_DECODE, params=params)
+                               ARCTIC_DECODE, params=params, record=ref)
+    # phase 23's reference: the tokens, logits and, at each logits row's
+    # token, the router's probabilities
+    pre = [x for x, _ in rec.routes if x.shape[0] == LM_B * LM_S][-1]
+    ref["probs"] = [pre[LM_S - 1::LM_S].cpu()] + [
+        x.cpu() for x, _ in rec.routes if x.shape[0] == LM_B][-ARCTIC_DECODE:]
+    MESH_REFS["arctic"] = ref
     x, rw, wg, wu, wd, kw = rec.calls[LM_B * LM_S]
     with torch.no_grad():
         out, _ = moe.moe_ffn(x, rw, wg, wu, wd, **kw)
@@ -4063,27 +4119,29 @@ def arctic_phase(dev):
 MOE_GNN_DRILLS = (("mixtral-8x7b", "smoke"), ("nequip", "full"))
 
 
-def start_drills(tmp):
+def start_drills(tmp, specs):
     """`python -m repro_torch.launch.train --arch <a> --variant <v>
-    --steps 6 --ckpt-every 3 --fail-at 4` for the LM and each of
-    MOE_GNN_DRILLS, on the card,
+    --steps 6 --ckpt-every 3 --fail-at 4` for each (arch, variant) of
+    `specs`, on the card,
     each in its own process with a thread that collects its output and
     the time it ended; `finish_drills` checks them. The LM drill writes
     two 21.3 GB checkpoints under `tmp` (params and AdamW moments): the
     disk must hold them."""
     from repro_torch.configs import get_config
 
-    need = 3 * 4 * get_config(LM_ARCH, LM_VARIANT).param_count()
-    free = shutil.disk_usage(tmp).free
-    print(f"  LM checkpoints: {need} bytes each, 2 kept (plus one being "
-          f"written); disk free under {tmp}: {free} bytes", flush=True)
-    if free < 2.2 * need:
-        raise AssertionError(f"the disk holds {free} bytes, short of the "
-                             f"{int(2.2 * need)} the drill's checkpoints need")
+    if (LM_ARCH, LM_VARIANT) in specs:
+        need = 3 * 4 * get_config(LM_ARCH, LM_VARIANT).param_count()
+        free = shutil.disk_usage(tmp).free
+        print(f"  LM checkpoints: {need} bytes each, 2 kept (plus one being "
+              f"written); disk free under {tmp}: {free} bytes", flush=True)
+        if free < 2.2 * need:
+            raise AssertionError(f"the disk holds {free} bytes, short of "
+                                 f"the {int(2.2 * need)} the drill's "
+                                 f"checkpoints need")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="2")
     drills = {}
-    for arch, variant in ((LM_ARCH, LM_VARIANT), *MOE_GNN_DRILLS):
+    for arch, variant in specs:
         ck = os.path.join(tmp, f"drill_{arch}")
         argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
                 arch, "--variant", variant, *DRILL_ARGS, "--ckpt-dir", ck,
@@ -4132,8 +4190,9 @@ def finish_drills(drills, archs):
         shutil.rmtree(d["ck"])
 
 
-def stop_drills(drills):
-    for d in drills.values():
+def stop_procs(procs):
+    """Kill what is left of start_drills' or start_examples' processes."""
+    for d in procs.values():
         if d["proc"].poll() is None:
             d["proc"].kill()
         d["thread"].join(timeout=60)
@@ -4179,17 +4238,21 @@ def moe_phase(dev):
 
 
 MOE_TOPK_SHAPES = ((128, 8), (1024, 8), (8, 128), (1024, 128))
+# phase 23's per-shard router inputs: mixtral's (B/2 x S, 8) on 2 x 2,
+# arctic's prefill and decode on 1 x 4
+MESH_TOPK_SHAPES = ((512, 8), (1024, 128), (8, 128))
 
 
-def check_moe_topk(rows, shapes):
+def check_moe_topk(rows, shapes, want=MOE_TOPK_SHAPES,
+                   key="MoE router probs"):
     """topk at the router's shapes (k 2) on the probabilities the MoE runs
     gave it, bitwise its plain version, beside torch.topk; the notes join
     the topk row's shapes."""
     row = next(r for r in rows if r["name"] == "topk")
-    for shape in MOE_TOPK_SHAPES:
+    for shape in want:
         if shape not in shapes:
             raise AssertionError(f"no recorded router input of {shape}")
-        note = topk_case("MoE router probs", shapes[shape].contiguous(), 2)
+        note = topk_case(key, shapes[shape].contiguous(), 2)
         print(f"  {note}", flush=True)
         row["shapes"].append(note)
 
@@ -4205,6 +4268,7 @@ GNN_EQUI_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_equivariance.py's
 GNN_BATCHES = 3                           # sampled minibatch_lg batches
 GNN_VARIANT = "full"       # "smoke" for a CPU rehearsal
 GNN_MINIBATCH = None       # a smaller ShapeSpec for a CPU rehearsal
+GNN_HOST_THREADS = 3       # torch threads of the minibatch_lg host process
 
 
 def _gnn_cpu(cfg, cpu_p, batch):
@@ -4218,10 +4282,11 @@ def _gnn_cpu(cfg, cpu_p, batch):
     return ec, lc, gc
 
 
-def _gnn_pair(name, cfg, params, cpu, batch, dev, atol=None):
+def _gnn_pair(name, cfg, params, cpu, batch, dev, atol=None, keep=None):
     """Energies, loss and each gradient leaf of one batch on the card
-    against the CPU twin's (`_gnn_cpu`'s). Returns ({name: error}, the
-    card's energies, the batch on the card)."""
+    against the CPU twin's (`_gnn_cpu`'s); with a `keep` dict, the card's
+    gradients go into it. Returns ({name: error}, the card's energies, the
+    batch on the card)."""
     from repro_torch.common import tree as tu
     from repro_torch.models import nequip as nq
 
@@ -4240,6 +4305,8 @@ def _gnn_pair(name, cfg, params, cpu, batch, dev, atol=None):
     errs["grad_rel_l2"] = rel
     if not rel <= GNN_GRAD_RTOL:
         raise AssertionError(f"{name} gradients: relative L2 error {rel}")
+    if keep is not None:
+        keep["grads"] = tu.tree_map(lambda g: g.cpu(), gg)
     return errs, eg, gb
 
 
@@ -4376,6 +4443,62 @@ def gnn_minibatch_host():
             "pad": (max_nodes, max_edges)}
 
 
+def _gnn_host_proc(out, variant, minibatch, threads):
+    """GnnHostJob's process: gnn_minibatch_host's state saved to `out`."""
+    global GNN_VARIANT, GNN_MINIBATCH
+    GNN_VARIANT, GNN_MINIBATCH = variant, minibatch
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    host = gnn_minibatch_host()
+    host["proc_s"] = time.perf_counter() - t0
+    # the batches as tensors: torch.load reads their storages whole, where
+    # pickled numpy arrays took about 10 s to load
+    host["batches"] = [{k: torch.from_numpy(np.ascontiguousarray(v))
+                        for k, v in b.items()} for b in host["batches"]]
+    torch.save(host, out + ".part")
+    os.replace(out + ".part", out)
+
+
+class GnnHostJob:
+    """gnn_minibatch_host in a process of its own (spawn, on the CPU with
+    GNN_HOST_THREADS threads), started after the state build so that its
+    graph, sampler and CPU twin (about 120 s of host work) run beside the
+    retrieval phases; `result()` waits for it and loads its state,
+    `stop()` ends it and removes its file."""
+
+    def __init__(self):
+        import torch.multiprocessing as mp
+
+        self.dir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"),
+                                    prefix="chip_smoke_gnn_")
+        self.out = os.path.join(self.dir, "host.pt")
+        self.proc = mp.get_context("spawn").Process(
+            target=_gnn_host_proc, args=(self.out, GNN_VARIANT,
+                                         GNN_MINIBATCH, GNN_HOST_THREADS),
+            daemon=True)
+        self.proc.start()
+
+    def result(self, timeout=900):
+        t0 = time.perf_counter()
+        self.proc.join(timeout)
+        if self.proc.is_alive() or self.proc.exitcode != 0 or \
+                not os.path.exists(self.out):
+            raise AssertionError(f"the minibatch_lg host process failed "
+                                 f"(exit code {self.proc.exitcode})")
+        host = torch.load(self.out, weights_only=False)
+        host["batches"] = [{k: v.numpy() for k, v in b.items()}
+                           for b in host["batches"]]
+        host["wait_s"] = time.perf_counter() - t0
+        os.remove(self.out)
+        return host
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join(60)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def gnn_minibatch(dev, host):
     """The `minibatch_lg` cell on the card from `gnn_minibatch_host`'s
     state: the first batch's energies and gradients against the CPU twin,
@@ -4391,8 +4514,13 @@ def gnn_minibatch(dev, host):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = tu.tree_map(lambda x: x.to(dev), host["params"])
-    errs, _, _ = _gnn_pair("minibatch_lg", cfg, params, host["cpu"],
-                           batches[0], dev, atol=GNN_BIG_ATOL)
+    keep = {}
+    errs, eg, _ = _gnn_pair("minibatch_lg", cfg, params, host["cpu"],
+                            batches[0], dev, atol=GNN_BIG_ATOL, keep=keep)
+    # phase 23's reference: the batch, the params, the card's energies and
+    # gradients
+    MESH_REFS["gnn"] = {"batch": batches[0], "params": host["params"],
+                        "energy": eg.cpu(), "grads": keep["grads"]}
     dev_b = [{k: torch.from_numpy(np.array(v)).to(dev) for k, v in b.items()}
              for b in batches]
     with torch.no_grad():
@@ -4417,7 +4545,9 @@ def gnn_minibatch(dev, host):
             f"{host['synth_s']:.2f} s, host build with the CSR "
             f"{host['build_s']:.2f} s; sampler ms "
             f"{[round(x, 1) for x in host['sample_ms']]}; the CPU twin "
-            f"{host['cpu_s']:.1f} s; card vs CPU: "
+            f"{host['cpu_s']:.1f} s (its process {host.get('proc_s', 0):.1f}"
+            f" s beside the earlier phases, waited for and loaded in "
+            f"{host.get('wait_s', 0):.1f} s); card vs CPU: "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f"; forward ms p50 {np.percentile(fwd_ms, 50):.2f}; train "
             f"step ms p50 {np.percentile(step_ms, 50):.2f} (steps "
@@ -4429,23 +4559,588 @@ def gnn_minibatch(dev, host):
     return note
 
 
-def gnn_phase(dev, drills):
+def gnn_phase(dev, drills, host_job):
     """The GNN path, with the launch counts zeroed just before and read
     just after (nequip runs none of the seven kernels: its gathers,
     scatters and einsums are plain torch ops, as the reference has no
-    Pallas kernel there): the molecule cell, then minibatch_lg's host
-    side beside the LM's train CLI drill, whose card memory (about 59
-    GB) must be free again before minibatch_lg's card side. Returns the
-    launches."""
+    Pallas kernel there): the molecule cell beside the LM's train CLI
+    drill, then minibatch_lg's host side from `host_job` (a GnnHostJob)
+    and, once the drill has freed the card's memory (about 59 GB), its
+    card side. Returns the launches."""
     from repro_torch import kernels
 
     kernels.reset_launches()
     gnn_molecule(dev)
-    host = gnn_minibatch_host()
+    host = host_job.result()
     finish_drills(drills, [LM_ARCH])
     gnn_minibatch(dev, host)
     print(f"  gnn path launches {kernels.LAUNCHES}", flush=True)
     return dict(kernels.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# the mesh (models/sharding.py, launch/mesh.py, models/collectives.py, the
+# sharded LM steps and MoE dispatches, models/nequip_sharded.py, elastic
+# restore)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_REFS = {}             # the references phases 20-21 leave for phase 23
+# tests/test_distributed.py's gates of a sharded step against one device
+MESH_LOSS_ATOL, MESH_PARAM_ATOL = 1e-4, 5e-4
+# (a)'s logits against the one-rank step's: the tolerance phase 21 holds
+# full-width float32 sums added in another order to (LM_TOL's atol 1e-5
+# failed at a few logits below 0.05 in magnitude, max |diff| 1.51e-05, on
+# an H100 80GB HBM3 at 700.00 W: the tensor-parallel sums of wo, ffn_wd
+# and the vocabulary's max and exponentials)
+MESH_TOL = MOE_TOL
+# arctic on 1 x 4 in bfloat16 against phase 21's single card: each logits
+# row whose token the single card routed clear of a tie (its top-1/top-2
+# and top-2/top-3 router logits, bf16, at least ARCTIC_MESH_GAP apart:
+# eight bf16 ulps of a logit of 1) within ARCTIC_MESH_TOL x the step's
+# max |logit| (a bf16 ulp of a logit of 4 is 2^-6: the model-axis
+# all-reduces of wo, ffn_wd and the experts add four bf16 partial sums
+# where one matmul rounds once); at least half of all the rows clear
+ARCTIC_MESH_TOL, ARCTIC_MESH_GAP = 2 ** -6, 2 ** -4
+
+
+def _mesh_rules(mesh):
+    """BASE_RULES less the axes the mesh lacks (a (4,) data mesh keeps
+    "data" alone)."""
+    from repro_torch.models.sharding import BASE_RULES
+    return {k: tuple(a for a in v if a in mesh.shape) or None
+            for k, v in BASE_RULES.items() if v}
+
+
+def _mesh_timed(dev, fn):
+    """(fn(), ms on the host clock between two syncs, peak device memory
+    of this process in GB, {kind: bytes} the collectives returned)."""
+    from repro_torch.models import collectives as coll
+
+    card = torch.device(dev).type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    coll.reset_traffic()
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 1e9 if card else 0.0,
+            dict(coll.TRAFFIC))
+
+
+def _mesh_ref(job, name):
+    return np.load(os.path.join(job, name + ".npy"), mmap_mode="r")
+
+
+def _mesh_params_diff(params, shardings, job, prefix, dev):
+    """max |params - the reference's slice| over every leaf (the
+    reference's leaves saved whole as <prefix><i>.npy)."""
+    from repro_torch.common import tree as tu
+
+    worst = 0.0
+    for i, (p, sh) in enumerate(zip(tu.tree_leaves(params),
+                                    tu.tree_leaves(shardings))):
+        ref = np.array(sh.shard(_mesh_ref(job, f"{prefix}{i}")))
+        d = (p.float() - torch.from_numpy(ref).to(dev).float()).abs().max()
+        worst = max(worst, float(d))
+    return worst
+
+
+def _mesh_lm_step(rank, mesh, cfg, job, tag, dev, seed):
+    """One sharded train step of `cfg` from the init of `seed` on `mesh`:
+    each rank draws its slice of the init, steps on its rows of
+    <tag>_tokens, and holds the loss and its params to the one-rank
+    step's. Returns (result dict, new params, shardings)."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init
+
+    with sh.rules_ctx({}, mesh=mesh):
+        psh = tt.param_shardings(cfg, mesh)
+        params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed), device=dev, shardings=psh)
+        rows = sh.named_sharding(mesh, "batch", None)
+        t = np.asarray(_mesh_ref(job, f"{tag}_tokens"))
+        batch = {"tokens": rows.shard(t[:, :-1]), "labels": rows.shard(
+            t[:, 1:])}
+        batch = {k: torch.from_numpy(np.array(v, np.int32)).to(dev)
+                 for k, v in batch.items()}
+        step = tt.make_train_step(cfg)
+        (p2, _, m), ms, peak, traffic = _mesh_timed(
+            dev, lambda: step(params, adamw_init(params), batch))
+        del params
+        ref = json.load(open(os.path.join(job, f"{tag}_ref.json")))
+        res = {"step_ms": ms, "peak_gb": peak, "traffic": traffic,
+               "loss": float(m["loss"]), "ref_loss": ref["loss"],
+               "grad_norm": float(m["grad_norm"]),
+               "ref_grad_norm": ref["grad_norm"],
+               "aux": float(m["aux_loss"]), "ref_aux": ref["aux_loss"],
+               "param_diff": _mesh_params_diff(p2, psh, job, f"{tag}_p",
+                                               dev)}
+    return res, p2, psh
+
+
+def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None):
+    """Prefill of ref["tokens"] and decode steps fed ref["dec_tokens"]
+    (this rank's rows) on `mesh`: each step's logits against the
+    reference's rows (each row's max |diff|, and with `tol` whether the
+    step is allclose at it), with the prefill and per-token ms."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tt
+
+    with sh.rules_ctx({}, mesh=mesh), torch.no_grad():
+        rows = sh.named_sharding(mesh, "batch")
+        tok = torch.as_tensor(rows.shard(np.asarray(ref["tokens"]))).to(dev)
+        B, S = tok.shape
+        prefill, decode = tt.make_prefill_step(cfg), tt.make_decode_step(cfg)
+        (out, ms, peak, traffic) = _mesh_timed(dev, lambda: prefill(params,
+                                                                    tok))
+        logits, kv = out
+        Bg = B * mesh.axis_size(sh.spec_axes(sh.spec("batch")[0]))
+        csh = tt.cache_shardings(cfg, mesh, Bg, slots)
+        cache = {k: csh[k].shard(tt.init_cache(cfg, Bg, slots, device=dev)[
+            k]).clone() for k in ("k", "v")}
+        for k in cache:
+            cache[k][:, :, :kv[k].shape[2]] = kv[k]
+        del kv
+        got = [logits]
+        sync(dev)
+        t0 = time.perf_counter()
+        for i, dt in enumerate(ref["dec_tokens"]):
+            lg, cache = decode(params, cache, torch.as_tensor(rows.shard(
+                np.asarray(dt))).to(dev), S + i)
+            got.append(lg)
+        sync(dev)
+        dec_ms = (time.perf_counter() - t0) * 1e3 / len(ref["dec_tokens"])
+        idx = rows.shard(np.arange(Bg))
+        diffs, close = [], []
+        for g, r in zip(got, [ref["prefill"]] + list(ref["decode"])):
+            r = torch.as_tensor(np.asarray(r)[idx]).float()
+            diffs.append((g.float().cpu() - r).abs().amax(1).tolist())
+            if tol is not None:
+                close.append(bool(torch.allclose(g.float().cpu(), r, **tol)))
+        return {"prefill_ms": ms, "decode_ms": dec_ms, "peak_gb": peak,
+                "prefill_traffic": traffic, "row_diff": diffs,
+                "close": close, "rows": [int(i) for i in idx]}
+
+
+def _mesh_elastic(rank, p2, psh, cfg, job, dev):
+    """The (b) params saved from 2 x 2 (every rank gathers, rank 0
+    writes), restored on 1 x 4 and on a (4,) data mesh; each restored
+    slice bitwise the global leaf's slice under the new sharding."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.common import tree as tu
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tt
+
+    ck = os.path.join(job, "elastic")
+    t0 = time.perf_counter()
+    save_checkpoint(ck, 1, p2, shardings=psh)
+    save_s = time.perf_counter() - t0
+    targets = {}
+    for shape, axes in (((1, 4), ("data", "model")), ((4,), ("data",))):
+        m = make_debug_mesh(shape, axes)
+        with sh.rules_ctx(_mesh_rules(m), mesh=m):
+            nsh = tt.param_shardings(cfg, m)
+        t0 = time.perf_counter()
+        got, _ = restore_checkpoint(ck, 1, tt.abstract_params(cfg), nsh,
+                                    device=dev)
+        targets[shape] = (nsh, got, time.perf_counter() - t0)
+    equal = {str(k): True for k in targets}
+    for i, (p, s) in enumerate(zip(tu.tree_leaves(p2), tu.tree_leaves(psh))):
+        whole = s.gather(p)
+        for shape, (nsh, got, _) in targets.items():
+            want = tu.tree_leaves(nsh)[i].shard(whole)
+            equal[str(shape)] &= bool(torch.equal(tu.tree_leaves(got)[i],
+                                                  want))
+        del whole
+    torch.distributed.barrier()
+    if rank == 0:
+        shutil.rmtree(ck)
+    return {"save_s": save_s, "restore_s": {str(k): v[2] for k, v in
+                                            targets.items()},
+            "bitwise": equal}
+
+
+def _mesh_gnn(rank, mesh, job, dev):
+    """nequip full() on phase 20's minibatch_lg batch, owner-sharded over
+    the 2 x 2 mesh's 4 ranks: energies and gradients against phase 20's
+    single card, the forward's and one train step's ms, the bytes
+    gathered per layer."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.models import nequip_sharded as nqs
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("nequip", GNN_VARIANT)
+    ref = torch.load(os.path.join(job, "gnn_ref.pt"))
+    axes = ("data", "model")
+    b = {k: np.asarray(_mesh_ref(job, f"gnn_b_{k}")) for k in ref["batch"]}
+    es, ed, em = nqs.shard_edges_by_owner(b.pop("edge_src"),
+                                          b.pop("edge_dst"),
+                                          b.pop("edge_mask"),
+                                          len(b["positions"]), mesh.size)
+    b.update(edge_src_sharded=es, edge_dst_sharded=ed, edge_mask_sharded=em)
+    batch = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in b.items()}
+    params = tu.tree_map(lambda x: x.to(dev), ref["params"])
+    with torch.no_grad():
+        e, fwd_ms, _, traffic = _mesh_timed(
+            dev, lambda: nqs.forward_sharded(cfg, params, batch, mesh, axes))
+    ref_e = ref["energy"]
+    e_close = bool(torch.allclose(
+        e.cpu(), ref_e, rtol=GNN_TOL["rtol"],
+        atol=GNN_BIG_ATOL * float(ref_e.abs().max())))
+    (loss, grads), _, _, _ = _mesh_timed(
+        dev, lambda: nqs.value_and_grad_sharded(cfg, params, batch, mesh,
+                                                axes))
+    rel = max(float((g.cpu() - r).norm() / r.norm().clamp(min=1e-30))
+              for g, r in zip(tu.tree_leaves(grads),
+                              tu.tree_leaves(ref["grads"])))
+    step = nqs.make_train_step_sharded(cfg, mesh, axes)
+    (params, _, m), step_ms, peak, step_traffic = _mesh_timed(
+        dev, lambda: step(params, adamw_init(params), batch))
+    n_loc = -(-len(b["positions"]) // mesh.size)
+    layer_bytes = n_loc * mesh.size * cfg.d_hidden * 9 * 4
+    return {"energy_diff": float((e.cpu() - ref_e).abs().max()),
+            "energy_scale": float(ref_e.abs().max()),
+            "energy_close": e_close,
+            "grad_rel_l2": rel, "fwd_ms": fwd_ms, "step_ms": step_ms,
+            "peak_gb": peak,
+            "fwd_traffic": traffic, "step_traffic": step_traffic,
+            "layer_gather_bytes": layer_bytes, "e_loc": int(es.shape[1]),
+            "n_loc": n_loc, "loss": float(m["loss"])}
+
+
+def mesh_rank(rank, world, job, dev_kind, settings):
+    """One of phase 23's gloo ranks on the card (a process of its own; a
+    FileStore in the job directory): (a) qwen2 on 2 x 2, (b) mixtral's
+    TP MoE on 2 x 2, (e) the elastic restore of (b)'s params, (c) arctic's
+    EP MoE on 1 x 4, (d) nequip owner-sharded on 2 x 2, with the kernel
+    launch counts zeroed before (a) and read after (d). Rank 0 saves the
+    router's per-shard top-k inputs. `settings` carries the parent's
+    module settings (a spawned process imports this module afresh).
+    Writes rank<r>.json."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from repro_torch import kernels
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tt
+
+    dev = torch.device(dev_kind)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    globals().update(settings)
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(os.path.join(job, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        t_all = time.perf_counter()
+        m22 = make_debug_mesh((2, 2), ("data", "model"))
+        m14 = make_debug_mesh((1, 4), ("data", "model"))
+        out = {"rank": rank, "coords": m22.coords}
+        kernels.reset_launches()
+        # (a) the dense LM
+        cfg = dataclasses.replace(
+            get_config(LM_ARCH, LM_VARIANT), n_layers=LM_PARITY_LAYERS,
+            dtype="float32", param_dtype="float32", microbatch=0)
+        out["a"], p2, _ = _mesh_lm_step(rank, m22, cfg, job, "a", dev, 1)
+        del p2
+        with sh.rules_ctx({}, mesh=m22):
+            params = tt.init_params(cfg, torch.Generator(device=dev)
+                                    .manual_seed(1), device=dev,
+                                    shardings=tt.param_shardings(cfg, m22))
+        out["a"].update(_mesh_infer(m22, cfg, params, torch.load(
+            os.path.join(job, "a_infer.pt")), dev, LM_S + 8, tol=MESH_TOL))
+        del params
+        torch.cuda.empty_cache()
+        # (b) mixtral's TP MoE and (e) the elastic restore of its params
+        cfg = dataclasses.replace(
+            get_config("mixtral-8x7b", MOE_VARIANT), n_layers=1,
+            dtype="float32", param_dtype="float32", microbatch=0,
+            moe_impl="tp_shard_map")
+        with _MoeRecorder(keep_calls=False) as rec:
+            out["b"], p2, psh = _mesh_lm_step(rank, m22, cfg, job, "b", dev,
+                                              1)
+        route = rec.routes[0]                 # the step's forward
+        C = moe.capacity(route[1].shape[0], cfg.n_experts, cfg.moe_top_k)
+        out["b"]["dropped"] = int((~moe.dispatch_plan(
+            route[1], cfg.n_experts, C)[2]).sum())
+        out["b"]["router_shape"] = list(route[0].shape)
+        if rank == 0:
+            np.save(os.path.join(job, "topk_b.npy"), route[0].cpu().numpy())
+        del rec
+        out["e"] = _mesh_elastic(rank, p2, psh, cfg, job, dev)
+        del p2
+        torch.cuda.empty_cache()
+        # (c) arctic's EP MoE on 1 x 4, each rank's init in turn
+        cfg = dataclasses.replace(
+            get_config("arctic-480b", MOE_VARIANT), n_layers=ARCTIC_LAYERS,
+            moe_impl="ep_shard_map")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with sh.rules_ctx({}, mesh=m14):
+            psh = tt.param_shardings(cfg, m14)
+            for r in range(world):
+                if r == rank:
+                    params = tt.init_params(
+                        cfg, torch.Generator(device=dev).manual_seed(
+                            ARCTIC_SEED), device=dev, shardings=psh)
+                    sync(dev)
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                tdist.barrier()
+        init_peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if dev.type == "cuda" else 0.0
+        with _MoeRecorder(keep_calls=False) as rec:
+            out["c"] = _mesh_infer(m14, cfg, params, torch.load(
+                os.path.join(job, "c_infer.pt")), dev, LM_DECODE_SLOTS)
+        out["c"]["init_peak_gb"] = init_peak
+        out["c"]["params_gb"] = sum(p.numel() * p.element_size()
+                                    for p in tu.tree_leaves(params)) / 1e9
+        if rank == 0:
+            for x, _ in rec.routes:
+                np.save(os.path.join(job, f"topk_c_{x.shape[0]}.npy"),
+                        x.cpu().numpy())
+        del params, rec
+        torch.cuda.empty_cache()
+        # (d) nequip owner-sharded
+        out["d"] = _mesh_gnn(rank, m22, job, dev)
+        sync(dev)
+        out["launches"] = dict(kernels.LAUNCHES)
+        out["seconds"] = time.perf_counter() - t_all
+        with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _mesh_ref_step(cfg, tag, job, dev, seed, B, S):
+    """The one-rank reference of a sharded step: `cfg`'s train step from
+    the init of `seed` on (B, S + 1) tokens; saves the tokens, every new
+    param leaf whole (<tag>_p<i>.npy) and the metrics. Returns the
+    metrics and the step's peak device memory in GB."""
+    from repro_torch.common import tree as tu
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw_init
+
+    t = lm_batch(cfg, B, S, SEED + 30)
+    np.save(os.path.join(job, f"{tag}_tokens.npy"), t)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    batch = {"tokens": torch.from_numpy(t[:, :-1].astype(np.int32)).to(dev),
+             "labels": torch.from_numpy(t[:, 1:].astype(np.int32)).to(dev)}
+    with _MoeRecorder(keep_calls=False) as rec:
+        p2, _, m = tt.make_train_step(cfg)(params, adamw_init(params), batch)
+    del params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, p in enumerate(tu.tree_leaves(p2)):
+        np.save(os.path.join(job, f"{tag}_p{i}.npy"), p.cpu().numpy())
+    ref = {k: float(m[k]) for k in ("loss", "aux_loss", "grad_norm")}
+    if cfg.moe:
+        from repro_torch.models import moe
+
+        # each microbatch's forward (the remat recomputes route again)
+        n_mb = cfg.microbatch or 1
+        per = len(rec.routes) // n_mb
+        ids = [rec.routes[i * per][1] for i in range(n_mb)]
+
+        def dropped(x):
+            C = moe.capacity(x.shape[0], cfg.n_experts, cfg.moe_top_k)
+            return int((~moe.dispatch_plan(x, cfg.n_experts, C)[2]).sum())
+        ref["dropped_per_microbatch"] = [dropped(x) for x in ids]
+        ref["dropped_global"] = dropped(torch.cat(ids))
+    with open(os.path.join(job, f"{tag}_ref.json"), "w") as f:
+        json.dump(ref, f)
+    del p2
+    torch.cuda.empty_cache()
+    return ref, peak
+
+
+def _mesh_ref_infer(cfg, job, dev, seed):
+    """(a)'s one-rank prefill of (LM_B, LM_S) tokens and 4 greedy decode
+    steps from the init of `seed`, saved for the ranks."""
+    from repro_torch.models import transformer as tt
+
+    params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    rec = {}
+    lm_infer_timing(dev, cfg, LM_B, LM_S, LM_S + 8, 4, params=params,
+                    record=rec)
+    torch.save(rec, os.path.join(job, "a_infer.pt"))
+    del params
+    torch.cuda.empty_cache()
+
+
+def mesh_phase(dev, job):
+    """Phase 23: the references on the card in this process (qwen2's and
+    mixtral's one-rank steps, qwen2's prefill and decode; arctic's and
+    nequip's from phases 21 and 20), then MESH_RANKS processes
+    (torch.multiprocessing, spawn) on the one card in a gloo group run
+    `mesh_rank`; a rank that raises fails the phase. Gates: (a) and (b)
+    loss within MESH_LOSS_ATOL and every param within MESH_PARAM_ATOL of
+    the one-rank step ((b)'s reference steps each data shard's rows as a
+    microbatch, so its MoE drops per shard as the sharded one does), (a)'s
+    logits at MESH_TOL; (c) the rows routed clear within ARCTIC_MESH_TOL
+    x max |logit|; (d) energies allclose at GNN_TOL's rtol and
+    GNN_BIG_ATOL x max |E|, gradients within GNN_GRAD_RTOL relative L2;
+    (e) bitwise. Returns (launches
+    summed over the ranks, {shape: rank 0's router top-k input})."""
+    import torch.multiprocessing as tmp
+
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg_a = dataclasses.replace(
+        get_config(LM_ARCH, LM_VARIANT), n_layers=LM_PARITY_LAYERS,
+        dtype="float32", param_dtype="float32", microbatch=0)
+    ref_a, peak_a = _mesh_ref_step(cfg_a, "a", job, dev, 1, LM_B, LM_S)
+    _mesh_ref_infer(cfg_a, job, dev, 1)
+    cfg_b = dataclasses.replace(
+        get_config("mixtral-8x7b", MOE_VARIANT), n_layers=1, dtype="float32",
+        param_dtype="float32", microbatch=2)
+    ref_b, peak_b = _mesh_ref_step(cfg_b, "b", job, dev, 1, LM_B, LM_S)
+    torch.save(MESH_REFS["arctic"], os.path.join(job, "c_infer.pt"))
+    g = MESH_REFS["gnn"]
+    for k, v in g["batch"].items():          # np.load-ed by each rank
+        np.save(os.path.join(job, f"gnn_b_{k}.npy"), v)
+    torch.save(dict(g, batch=sorted(g["batch"])),
+               os.path.join(job, "gnn_ref.pt"))
+    ref_s = time.perf_counter() - t0
+    print(f"  one-rank references in {ref_s:.2f} s: qwen2 step (peak "
+          f"{peak_a:.2f} GB) {ref_a}; mixtral step by data-shard "
+          f"microbatches (peak {peak_b:.2f} GB) {ref_b}", flush=True)
+    torch.cuda.empty_cache()
+    settings = {k: globals()[k] for k in (
+        "LM_ARCH", "LM_VARIANT", "LM_PARITY_LAYERS", "LM_S",
+        "LM_DECODE_SLOTS", "MOE_VARIANT", "ARCTIC_LAYERS", "GNN_VARIANT")}
+    t0 = time.perf_counter()
+    tmp.spawn(mesh_rank, args=(MESH_RANKS, job, str(dev), settings),
+              nprocs=MESH_RANKS, join=True)
+    print(f"  {MESH_RANKS} ranks spawned, ran and joined in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    res = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(job, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    fails = []
+
+    def per_rank(part, key, fmt="{:.2f}"):
+        return "[" + ", ".join(fmt.format(r[part][key]) for r in res) + "]"
+    for part, name in (("a", f"(a) {LM_ARCH} {LM_PARITY_LAYERS} layers "
+                              f"float32, 2 x 2"),
+                       ("b", "(b) mixtral-8x7b 1 layer float32 "
+                             "tp_shard_map, 2 x 2")):
+        rr = [r[part] for r in res]
+        loss_d = max(abs(x["loss"] - x["ref_loss"]) for x in rr)
+        pd = max(x["param_diff"] for x in rr)
+        gn = max(abs(x["grad_norm"] - x["ref_grad_norm"])
+                 / x["ref_grad_norm"] for x in rr)
+        print(f"  {name}: train step ms per rank {per_rank(part, 'step_ms')}"
+              f", peak GB {per_rank(part, 'peak_gb')}; loss |diff| "
+              f"{loss_d:.3g} (gate {MESH_LOSS_ATOL}), params max |diff| "
+              f"{pd:.3g} (gate {MESH_PARAM_ATOL}), grad norm "
+              f"{rr[0]['grad_norm']:.4f} (relative diff {gn:.3g}); bytes "
+              f"per step per rank {rr[0]['traffic']}", flush=True)
+        if not (loss_d < MESH_LOSS_ATOL and pd < MESH_PARAM_ATOL):
+            fails.append(name)
+    a = [r["a"] for r in res]
+    worst = max(max(max(d) for d in x["row_diff"]) for x in a)
+    close = all(all(x["close"]) for x in a)
+    print(f"  (a) prefill ({LM_B}, {LM_S}) ms per rank "
+          f"{per_rank('a', 'prefill_ms')}, decode ms a token "
+          f"{per_rank('a', 'decode_ms')}; logits max |diff| over prefill "
+          f"and 4 decode steps {worst:.3g}, allclose(rtol "
+          f"{MESH_TOL['rtol']}, atol {MESH_TOL['atol']}) at every step on "
+          f"every rank {close}", flush=True)
+    if not close:
+        fails.append("(a) logits")
+    b = [r["b"] for r in res]
+    print(f"  (b) dropped (token, k) pairs per shard "
+          f"{[x['dropped'] for x in b]} (each model rank of a data shard "
+          f"routes alike; router input {b[0]['router_shape']}); the one-rank "
+          f"step over all {LM_B * LM_S} tokens at global capacity would "
+          f"drop {ref_b['dropped_global']}; the one-rank reference's "
+          f"microbatches (one a data shard) drop "
+          f"{ref_b['dropped_per_microbatch']}", flush=True)
+    c = [r["c"] for r in res]
+    arc = MESH_REFS["arctic"]
+    steps = [arc["prefill"]] + list(arc["decode"])
+    clear_rows, bad = [], []
+    for si, (logits, probs) in enumerate(zip(steps, arc["probs"])):
+        # the router's softmax in float32 of bf16 logits: log-ratios of
+        # the probabilities are the logits' gaps
+        lp = probs.double().log().sort(-1, descending=True).values
+        clear = ((lp[:, 0] - lp[:, 1] >= ARCTIC_MESH_GAP)
+                 & (lp[:, 1] - lp[:, 2] >= ARCTIC_MESH_GAP))
+        tol = ARCTIC_MESH_TOL * float(logits.float().abs().max())
+        diff = torch.tensor(c[0]["row_diff"][si])
+        clear_rows.append(int(clear.sum()))
+        bad.append(int(((diff > tol) & clear).sum()))
+        if si == 0:
+            arc_worst = [float(diff.max()), tol]
+    print(f"  (c) arctic-480b 1 layer bf16 ep_shard_map, 1 x 4: params "
+          f"{per_rank('c', 'params_gb')} GB a rank (init peak "
+          f"{per_rank('c', 'init_peak_gb')} GB, the ranks' inits in turn); "
+          f"prefill ({LM_B}, {LM_S}) ms {per_rank('c', 'prefill_ms')}, "
+          f"decode ms a token {per_rank('c', 'decode_ms')}, peak GB "
+          f"{per_rank('c', 'peak_gb')}; logits rows per step clear of a "
+          f"router tie {clear_rows} of {LM_B}, over tolerance {bad}; prefill "
+          f"max |diff| {arc_worst[0]:.4g} (tolerance {arc_worst[1]:.4g}); "
+          f"all-reduce bytes of the prefill per rank "
+          f"{c[0]['prefill_traffic']}", flush=True)
+    if any(bad) or 2 * sum(clear_rows) < LM_B * len(steps):
+        fails.append("(c) arctic logits")
+    d = [r["d"] for r in res]
+    print(f"  (d) nequip minibatch_lg on 4 owner shards (n_loc "
+          f"{d[0]['n_loc']}, E_loc {d[0]['e_loc']}): energies max |diff| "
+          f"{max(x['energy_diff'] for x in d):.3g}, allclose(rtol "
+          f"{GNN_TOL['rtol']}, atol {GNN_BIG_ATOL} x max |E| "
+          f"{d[0]['energy_scale']:.4g}) on every rank "
+          f"{all(x['energy_close'] for x in d)}; gradients relative L2 "
+          f"{max(x['grad_rel_l2'] for x in d):.3g} (gate {GNN_GRAD_RTOL}); "
+          f"forward ms {per_rank('d', 'fwd_ms')}, train step ms "
+          f"{per_rank('d', 'step_ms')}, peak GB {per_rank('d', 'peak_gb')}; "
+          f"all-gather bytes a layer {d[0]['layer_gather_bytes']} (the "
+          f"forward's collectives {d[0]['fwd_traffic']}, a step's "
+          f"{d[0]['step_traffic']})", flush=True)
+    if not (all(x["energy_close"] for x in d)
+            and max(x["grad_rel_l2"] for x in d) <= GNN_GRAD_RTOL):
+        fails.append("(d) nequip")
+    e = [r["e"] for r in res]
+    print(f"  (e) elastic restore of (b)'s params: saved from 2 x 2 in "
+          f"{e[0]['save_s']:.2f} s, restored in "
+          f"{[x['restore_s'] for x in e]} s; each slice bitwise "
+          f"{[x['bitwise'] for x in e]}", flush=True)
+    if not all(all(x["bitwise"].values()) for x in e):
+        fails.append("(e) elastic restore")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    print(f"  mesh path launches {launches}; ranks' seconds "
+          f"{[round(r['seconds'], 1) for r in res]}", flush=True)
+    if fails:
+        raise AssertionError(f"mesh phase: {fails}")
+    shapes = {}
+    for f in sorted(os.listdir(job)):
+        if f.startswith("topk_"):
+            x = torch.from_numpy(np.load(os.path.join(job, f))).to(dev)
+            shapes[tuple(x.shape)] = x
+    return launches, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -4469,42 +5164,53 @@ sys.exit(rc)
 """
 
 
-def examples_phase():
+def start_examples():
     """The port's four examples, each in its own process on the card
-    (their default device), all four at once: exit 0, the last result
-    lines and seconds printed, and each process's kernel launches
-    (printed by the runner after the example) summed. Returns the
-    launches."""
+    (their default device), all four at once, each with a thread that
+    collects its output and the time it ended (they run beside the train
+    CLI drills and the GNN phase); `finish_examples` checks them."""
     # two intra-op threads each: the four share the host's eight cores
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="2")
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-c", _EXAMPLE_RUNNER,
-         os.path.join(ROOT, "examples", f"{name}.py")], env=env, cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in EXAMPLES}
+    examples = {}
+    for name in EXAMPLES:
+        d = {"proc": subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE_RUNNER,
+             os.path.join(ROOT, "examples", f"{name}.py")], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)}
+
+        def collect(d=d):
+            d["out"], d["err"] = d["proc"].communicate()
+            d["secs"] = time.perf_counter() - t0
+        d["thread"] = threading.Thread(target=collect, daemon=True)
+        d["thread"].start()
+        examples[name] = d
+    return examples
+
+
+def finish_examples(examples):
+    """Each example must exit 0: the last result lines and seconds
+    printed, and each process's kernel launches (printed by the runner
+    after the example) summed. Returns the launches."""
     total = {}
-    try:
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=600)
-            secs = time.perf_counter() - t0
-            lines = stdout.strip().splitlines()
-            launches = json.loads(lines[-1].split(" ", 1)[1]) \
-                if lines and lines[-1].startswith("KERNEL_LAUNCHES") else {}
-            print(f"  {name}: exit {proc.returncode}, done {secs:.1f} s "
-                  f"after the four started; launches {launches}")
-            print("\n".join(f"  | {ln}" for ln in lines[-5:-1]), flush=True)
-            if proc.returncode != 0 or not launches:
-                print(stderr[-3000:])
-                raise AssertionError(f"example {name} failed")
-            for k, v in launches.items():
-                total[k] = total.get(k, 0) + v
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    for name, d in examples.items():
+        d["thread"].join(timeout=600)
+        if d["thread"].is_alive():
+            raise AssertionError(f"example {name} hangs")
+        lines = d["out"].strip().splitlines()
+        launches = json.loads(lines[-1].split(" ", 1)[1]) \
+            if lines and lines[-1].startswith("KERNEL_LAUNCHES") else {}
+        print(f"  {name}: exit {d['proc'].returncode}, done "
+              f"{d['secs']:.1f} s after the four started; launches "
+              f"{launches}")
+        print("\n".join(f"  | {ln}" for ln in lines[-5:-1]), flush=True)
+        if d["proc"].returncode != 0 or not launches:
+            print(d["err"][-3000:])
+            raise AssertionError(f"example {name} failed")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
     return total
 
 def parity(name, make_engine, qs, dev, atol):
@@ -4592,6 +5298,9 @@ PATH_KERNELS = {
     "moe": ("topk",),
     # nequip's gathers, scatters and einsums are plain torch ops
     "gnn": (),
+    # the ranks' MoE routers (mixtral on 2 x 2, arctic on 1 x 4); the rest
+    # is cuBLAS, plain torch ops and gloo collectives
+    "mesh": ("topk",),
     # quickstart and serve (memory store, "dot" tail, selector training),
     # the recsys example
     "examples": ("cluster_score", "lstm_sequence", "topk", "bin_overlap",
@@ -4614,6 +5323,7 @@ def main():
               file=sys.stderr)
         return 2
     from repro_torch.configs import clusd_msmarco
+    from repro_torch.data import recipe_corpus
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4634,13 +5344,30 @@ def main():
         print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
               f"device {kind} x{torch.cuda.device_count()}")
 
+    cfg = dataclasses.replace(clusd_msmarco.full(), n_docs=N_DOCS)
+    # the directories' corpus (a single-threaded numpy loop, about 45 s) is
+    # made on a thread while nvcc builds the kernels; build_state takes it
+    # from recipe_corpus's keeping
+    corpus_job = threading.Thread(target=recipe_corpus, args=(
+        corpus_extra(cfg)["corpus"],), daemon=True)
+    corpus_job.start()
     with phase("kernel build (nvcc, sm_90a)"):
         for name, log in build.build_all().items():
             print(f"--- {name}.cu: {log['seconds']:.2f} s -> {log['so']}")
             for ln in ptxas_summary(log["ptxas"]):
                 print(f"  {ln}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cleanup = []        # stops the processes the phases start in the back
+    try:
+        return run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup)
+    finally:
+        for stop in reversed(cleanup):
+            stop()
 
-    cfg = dataclasses.replace(clusd_msmarco.full(), n_docs=N_DOCS)
+
+def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
+    """Phases 3-23 (see the module docstring); each process started in the
+    back adds its stop to `cleanup`. Returns 0."""
     print(f"config: dim {cfg.dim} N {cfg.n_clusters} cap {cfg.cluster_cap} "
           f"vocab {cfg.vocab} max_postings {cfg.max_postings} k_sparse "
           f"{cfg.k_sparse} bins {cfg.bins} n {cfg.n_candidates} H "
@@ -4648,10 +5375,10 @@ def main():
           f"{cfg.theta} max_selected {cfg.max_selected} k_final "
           f"{cfg.k_final} fusion {cfg.fusion} n_docs {cfg.n_docs} "
           f"nsub {NSUB}")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="chip_smoke_") as tmp:
         with phase("state build"):
+            corpus_job.join()
             index, pq, corpus, qs = build_state(cfg, dev, N_QUERIES)
             print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f}"
                   f" GB allocated, peak "
@@ -4666,6 +5393,9 @@ def main():
             print(f"  staged the embeddings to a file: "
                   f"{os.path.getsize(emb_path)} bytes in "
                   f"{time.perf_counter() - t0:.2f} s")
+        # phase 20's minibatch_lg host side, in its own process from here
+        gnn_host = GnnHostJob()
+        cleanup.append(gnn_host.stop)
         with phase("index directories (write_index v2, v1 float32 with "
                    "pq/) and the DiskClusterStore file"):
             dirs, blocks = write_dirs(cfg, index, pq, corpus, tmp)
@@ -4705,10 +5435,10 @@ def main():
             index._stores.clear()
         # the DiskStore's "dot" tail scores float blocks summed in another
         # order on the card, so atol 1e-6 as for v1
-        with phase(f"DiskStore serving: {N_QUERIES} queries + 1 profiled "
-                   f"batch + parity on {PARITY_QUERIES}"):
+        with phase(f"DiskStore serving: {HOST_STORE_QUERIES} queries + 1 "
+                   f"profiled batch + parity on {PARITY_QUERIES}"):
             paths["disk"], eng = serve_disk(cfg, index, blocks, qs,
-                                            N_QUERIES, dev)
+                                            HOST_STORE_QUERIES, dev)
             eng.close()
             del eng
             parity("disk", disk_engine(cfg, index, blocks), qs, dev, 1e-6)
@@ -4719,9 +5449,10 @@ def main():
             paths["v2"], eng_v2 = serve_path("v2", dirs["v2"], qs, N_QUERIES,
                                              dev)
             eng_v2.close()
-        with phase(f"v1 serving: {N_QUERIES} queries + 1 profiled batch"):
-            paths["v1"], eng_v1 = serve_path("v1", dirs["v1"], qs, N_QUERIES,
-                                             dev)
+        with phase(f"v1 serving: {HOST_STORE_QUERIES} queries + 1 profiled "
+                   f"batch"):
+            paths["v1"], eng_v1 = serve_path("v1", dirs["v1"], qs,
+                                             HOST_STORE_QUERIES, dev)
         with phase("reloads on the v1 engine"):
             reload_phase(eng_v1, dirs["v1"], qs, dev)
             eng_v1.close()
@@ -4817,15 +5548,16 @@ def main():
                    f"{LM_PARITY_LAYERS} layers; the train step, prefill and "
                    f"decode at all layers"):
             paths["lm"] = lm_phase(dev)
-        # the three train CLI drills run in their own processes beside
-        # the GNN phase (its host side, while the LM drill holds the card)
-        # and the MoE phase
-        drills = start_drills(tmp)
+        # the three train CLI drills and the four examples run in their
+        # own processes beside the GNN phase (its molecule cell, while the
+        # LM drill holds the card) and the MoE phase
+        drills = start_drills(tmp, [(LM_ARCH, LM_VARIANT), *MOE_GNN_DRILLS])
+        examples = start_examples()
         try:
             with phase("gnn: nequip full() on the molecule cell, "
-                       "minibatch_lg's host side beside the train CLI "
-                       "drills, then its card side"):
-                paths["gnn"] = gnn_phase(dev, drills)
+                       "minibatch_lg's host side from its process, then its "
+                       "card side"):
+                paths["gnn"] = gnn_phase(dev, drills, gnn_host)
             with phase(f"moe: mixtral-8x7b card vs CPU at full width and 1 "
                        f"layer; its train step at {MOE_TRAIN_LAYERS}, "
                        f"prefill and decode at {MOE_INFER_LAYERS}; "
@@ -4834,14 +5566,31 @@ def main():
             with phase("train CLI drills: mixtral-8x7b smoke and nequip "
                        "full"):
                 finish_drills(drills, [a for a, _ in MOE_GNN_DRILLS])
+            with phase("examples: the port's four, each in its own "
+                       "process, started at once beside the drills"):
+                paths["examples"] = finish_examples(examples)
         finally:
-            stop_drills(drills)
+            stop_procs(drills)
+            stop_procs(examples)
     with phase("kernels vs plain versions at the MoE router's shapes"):
         check_moe_topk(rows, moe_shapes)
         del moe_shapes
-    with phase("examples: the port's four, each in its own process, at "
-               "once"):
-        paths["examples"] = examples_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="chip_smoke_mesh_") as tmp:
+        with phase(f"mesh: {MESH_RANKS} gloo ranks on the card; {LM_ARCH} "
+                   f"and mixtral-8x7b (tp_shard_map) train steps on 2 x 2, "
+                   f"arctic-480b (ep_shard_map) prefill and decode on 1 x 4, "
+                   f"nequip minibatch_lg on 4 owner shards, elastic "
+                   f"restore"):
+            paths["mesh"], mesh_shapes = mesh_phase(dev, tmp)
+    MESH_REFS.clear()
+    with phase("kernels vs plain versions at the mesh router's per-shard "
+               "shapes"):
+        check_moe_topk(rows, mesh_shapes, MESH_TOPK_SHAPES,
+                       "MoE router probs, one shard")
+        del mesh_shapes
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in paths["v2"]}
     print(f"  launches over the {len(paths)} paths: {launches}")

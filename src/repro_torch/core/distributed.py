@@ -27,7 +27,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import bins as bins_lib
 from repro_torch.core import features as feat_lib
@@ -38,6 +37,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.bin_overlap import ops as bin_overlap_ops
 from repro_torch.kernels.cluster_score import cluster_score
 from repro_torch.kernels.topk.ops import MAX_K
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import make_mesh as make_named_mesh
+from repro_torch.models import collectives as coll
 
 
 @dataclasses.dataclass
@@ -185,53 +187,40 @@ def shard_postings_by_owner(bidx: BlockedIndex, n_shards):
 # the mesh and its gathers
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class ServeMesh:
-    """This rank's place in a (data, model) grid of ranks: rank r is at
-    (r // n_model, r % n_model). `model_group` is the process group of
-    the rank's model axis (None for a single model rank)."""
-    n_data: int
-    n_model: int
-    data: int = 0
-    model: int = 0
-    model_group: object = None
+class ServeMesh(Mesh):
+    """This rank's place in a (data, model) grid of ranks, the two-axis
+    case of `launch.mesh.Mesh`: rank r is at (r // n_model, r % n_model).
+    `model_group` is the process group of the rank's model axis (None
+    for a single model rank)."""
 
-    @property
-    def shape(self):
-        return {"data": self.n_data, "model": self.n_model}
+    def __init__(self, n_data, n_model, data=0, model=0, model_group=None,
+                 groups=None):
+        groups = dict(groups or {})
+        if model_group is not None:
+            groups[("model",)] = model_group
+        super().__init__((n_data, n_model), ("data", "model"),
+                         data * n_model + model, groups)
+
+    n_data = property(lambda self: self.shape["data"])
+    n_model = property(lambda self: self.shape["model"])
+    data = property(lambda self: self.coords["data"])
+    model = property(lambda self: self.coords["model"])
+    model_group = property(lambda self: self._groups.get(("model",)))
 
 
 def make_mesh(n_data, n_model):
     """The ServeMesh of this rank in an initialized default process group
-    of n_data * n_model ranks; every rank makes every model group, as
-    `dist.new_group` requires. A 1 x 1 mesh needs no group."""
-    if n_data * n_model == 1:
-        return ServeMesh(1, 1)
-    if not dist.is_initialized():
-        raise RuntimeError("a mesh of more than one rank needs an "
-                           "initialized torch.distributed process group")
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if world != n_data * n_model:
-        raise ValueError(f"world size {world} != {n_data} x {n_model}")
-    group = None
-    for d in range(n_data):
-        g = dist.new_group([d * n_model + m for m in range(n_model)])
-        if rank // n_model == d:
-            group = g
-    return ServeMesh(n_data, n_model, rank // n_model, rank % n_model, group)
+    of n_data * n_model ranks (`launch.mesh.make_mesh` over ("data",
+    "model")). A 1 x 1 mesh needs no group."""
+    m = make_named_mesh((n_data, n_model), ("data", "model"))
+    return ServeMesh(n_data, n_model, m.coords["data"], m.coords["model"],
+                     groups=m._groups)
 
 
 def all_gather_rank_major(t, group):
     """(n_ranks,) + t.shape: t of every rank of `group`, in rank order. A
-    gloo group gathers CUDA tensors through host memory."""
-    n = dist.get_world_size(group)
-    stage = t.device.type == "cuda" and \
-        dist.get_backend(group) == dist.Backend.GLOO
-    src = (t.cpu() if stage else t).contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    out = torch.stack(parts)
-    return out.to(t.device) if stage else out
+    gloo group gathers CUDA tensors through pinned host memory."""
+    return torch.stack(coll.all_gather_group(t, group))
 
 
 def _gather_model(t, mesh):

@@ -9,6 +9,7 @@ seed gives the same corpus and queries, returned as numpy arrays.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -54,6 +55,23 @@ def synth_corpus(seed, n_docs, dim, vocab, n_topics=None, doc_terms=16,
         w = rng.lognormal(0.0, 0.5, doc_terms).astype(np.float32)
         dt[d], dw[d] = terms, w
     return Corpus(emb, dt, dw, topic, vocab)
+
+
+def recipe_corpus(recipe):
+    """The corpus of an index directory's synthetic recipe (its manifest's
+    extra["corpus"]: seed, n_docs, dim, vocab, and topic_noise where it
+    is not synth_corpus's default). The last one is kept, so that the
+    update, train and serve CLIs run in one process, and the caller that
+    wrote the directory, make it once (about 45 s at 2^20 docs): treat
+    its arrays as read-only."""
+    return _recipe_corpus(int(recipe["seed"]), int(recipe["n_docs"]),
+                          int(recipe["dim"]), int(recipe["vocab"]),
+                          float(recipe.get("topic_noise", 0.55)))
+
+
+@functools.lru_cache(maxsize=1)
+def _recipe_corpus(seed, n_docs, dim, vocab, topic_noise):
+    return synth_corpus(seed, n_docs, dim, vocab, topic_noise=topic_noise)
 
 
 def synth_queries(seed, corpus: Corpus, n_queries, q_terms=8,

@@ -88,8 +88,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.data import mrr_at, recall_at, synth_queries
-from repro_torch.launch.train_selector import _synthetic_corpus
+from repro_torch.data import (mrr_at, recall_at, recipe_corpus, synth_corpus,
+                              synth_queries)
 
 
 def _np(x):
@@ -278,8 +278,7 @@ def serve_from_index(args, dev):
     if meta is None or meta.get("kind") != "synthetic":
         raise SystemExit("index lacks synthetic-corpus metadata; cannot "
                          "regenerate queries for quality evaluation")
-    corpus = _synthetic_corpus(meta["seed"], meta["n_docs"], meta["dim"],
-                               meta["vocab"])
+    corpus = recipe_corpus(meta)
     test_q = synth_queries(9, corpus, args.queries)
 
     if args.hosts:
@@ -377,7 +376,7 @@ def serve_built(args, dev):
     cfg = _apply_hybrid_flags(cfg, args)
 
     print(f"building corpus + index on {dev} ...", flush=True)
-    corpus = _synthetic_corpus(0, cfg.n_docs, cfg.dim, cfg.vocab)
+    corpus = synth_corpus(0, cfg.n_docs, cfg.dim, cfg.vocab)
     index = cl.build_index(cfg, corpus.embeddings, corpus.doc_terms,
                            corpus.doc_weights,
                            generator=torch.Generator().manual_seed(0),

@@ -54,7 +54,6 @@ JAX package's numpy generator, so the label sets equal the JAX CLI's.
 
 import argparse
 import dataclasses
-import functools
 import json
 import time
 
@@ -63,7 +62,7 @@ import torch
 
 from repro_torch import index as index_lib
 from repro_torch import train as train_lib
-from repro_torch.data import synth_corpus, synth_queries
+from repro_torch.data import recipe_corpus, synth_queries
 
 
 def _parse_pos_weight(s):
@@ -86,21 +85,12 @@ def _ints(s):
     return [int(x) for x in s.split(",") if x]
 
 
-@functools.lru_cache(maxsize=1)
-def _synthetic_corpus(seed, n_docs, dim, vocab):
-    """The corpus of a directory's recipe; the last one is kept, so that
-    main() run again in one process (a --resume after a run) does not
-    regenerate it (about 40 s at 2^20 docs)."""
-    return synth_corpus(seed, n_docs, dim, vocab)
-
-
 def _corpus_queries(reader, args):
     meta = reader.manifest.get("extra", {}).get("corpus")
     if meta is None or meta.get("kind") != "synthetic":
         raise SystemExit("index lacks synthetic-corpus metadata; cannot "
                          "regenerate training/holdout queries")
-    corpus = _synthetic_corpus(meta["seed"], meta["n_docs"], meta["dim"],
-                               meta["vocab"])
+    corpus = recipe_corpus(meta)
     train_q = synth_queries(args.seed + 21, corpus, args.train_queries)
     hold_q = synth_queries(args.seed + 22, corpus, args.holdout_queries)
     return corpus, train_q, hold_q

@@ -177,15 +177,13 @@ def _synthetic_queries(reader, n_queries):
     """Regenerate evaluation queries from the index's synthetic-corpus
     recipe (the original generation-0 corpus is enough: queries are just
     vectors + terms)."""
-    from repro_torch.data import synth_corpus, synth_queries
+    from repro_torch.data import recipe_corpus, synth_queries
     meta = reader.manifest.get("extra", {}).get("corpus")
     if meta is None or meta.get("kind") != "synthetic":
         raise SystemExit("index lacks synthetic-corpus metadata; cannot "
                          "generate queries (--serve-queries/--check-parity "
                          "need it)")
-    corpus = synth_corpus(meta["seed"], meta["n_docs"], meta["dim"],
-                          meta["vocab"])
-    return synth_queries(9, corpus, n_queries)
+    return synth_queries(9, recipe_corpus(meta), n_queries)
 
 
 def _serve(engine, qs, n, batch):

@@ -8,6 +8,8 @@ function."""
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.sharding import logical
+
 
 def _chunk_attend(q, k, v, q_start, *, causal, window):
     """q: (B, C, Hkv, G, hd); k/v: (B, S, Hkv, hd) -> (B, C, Hkv, G, hd)."""
@@ -59,6 +61,8 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     Hq = q.shape[2]
     G = Hq // Hkv
     q = q.reshape(B, Hkv, G, hd)
+    k_cache = logical(k_cache, "batch", "seq_kv", "kv_heads", "head_dim")
+    v_cache = logical(v_cache, "batch", "seq_kv", "kv_heads", "head_dim")
     scores = torch.einsum("bhgd,bshd->bhgs", q, k_cache) / (hd ** 0.5)
     kpos = torch.arange(S, device=q.device)[None, None, None, :]
     scores = torch.where(kpos < cache_len, scores.float(), -1e30)

@@ -1,10 +1,11 @@
 """Shared layers: RMSNorm, SwiGLU, MLPs, rotary embeddings (the JAX
-package's `repro.models.layers`, without its sharding annotations, which
-wait for the mesh)."""
+package's `repro.models.layers`, with its sharding annotation)."""
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import logical
 
 
 def rmsnorm(x, gamma, eps=1e-6):
@@ -21,6 +22,7 @@ def swiglu(x, w_gate, w_up, w_down):
     h = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
     h = F.silu(h.float()).to(x.dtype) * u
+    h = logical(h, "batch", "seq", "ff_act")
     return h @ w_down.to(x.dtype)
 
 

@@ -1,7 +1,10 @@
 """Mixture-of-experts FFN with sort-based capacity dispatch (GShard-style
-token dropping): the JAX package's `repro.models.moe.moe_ffn`, the path
-it takes when no mesh is set. The sharded dispatches
-(`moe_ffn_ep_shardmap`, `moe_ffn_tp_shardmap`) wait for the mesh.
+token dropping): the JAX package's `repro.models.moe`. `moe_ffn` is the
+path it takes when no mesh is set; `moe_ffn_ep_shardmap` (experts split
+over the model axis) and `moe_ffn_tp_shardmap` (every expert's d_ff
+split over it) are its sharded dispatches over a `launch.mesh.Mesh`:
+each rank routes its own tokens with its own capacity, and one
+all-reduce of (T_local, d) over the model axis combines the ranks.
 
 Active-FLOP faithful: expert compute is E x C x (3 d f) ~= tokens * top_k *
 capacity_factor * ffn_flops — never the dense all-experts product.
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.fusion import topk_desc_index_asc
 from repro_torch.device import resolve_device
+from repro_torch.models import collectives as coll
 
 CAPACITY_FACTOR = 1.25
 
@@ -108,3 +112,91 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k, device=None):
     out = torch.zeros((T, d), dtype=dt, device=x.device) \
         .index_add(0, token_id, back)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# the sharded dispatches: tokens never move. Activations are replicated
+# over the model axis, so every (data, model) rank dispatches ITS tokens
+# to ITS experts (EP) or to its d_ff slice of every expert (TP) locally,
+# and one all-reduce of (T_local, d) over the model axis combines them.
+# ---------------------------------------------------------------------------
+
+def moe_ffn_ep_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k,
+                        mesh, batch_axes=("data",), model_axis="model"):
+    """x: this rank's (T_local, d) tokens; router_w (d, E) whole; this
+    rank's experts' weights (E / n_model, d, f) and (E / n_model, f, d).
+    The reference's function up to per-shard capacity dropping."""
+    return _moe_shardmap(x, router_w, w_gate, w_up, w_down, top_k=top_k,
+                         mesh=mesh, batch_axes=batch_axes,
+                         model_axis=model_axis, mode="ep")
+
+
+def moe_ffn_tp_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k,
+                        mesh, batch_axes=("data",), model_axis="model"):
+    """Few experts (mixtral's 8): every rank holds all experts with the
+    d_ff axis split, (E, d, f / n_model) and (E, f / n_model, d); the
+    down-projection's partial sums ride the one all-reduce EP uses."""
+    return _moe_shardmap(x, router_w, w_gate, w_up, w_down, top_k=top_k,
+                         mesh=mesh, batch_axes=batch_axes,
+                         model_axis=model_axis, mode="tp")
+
+
+def _moe_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k, mesh,
+                  batch_axes, model_axis, mode):
+    """Returns (this rank's out (T_local, d), the aux loss averaged over
+    the last batch axis). The routing runs on every model rank alike, so
+    the router's gradient is whole there; the tokens and gates enter the
+    expert region by copy_to, whose backward sums the ranks' parts."""
+    if top_k > 2:
+        raise ValueError(f"top_k={top_k}: the combine is exact for top_k "
+                         f"<= 2 only")
+    E = router_w.shape[-1]
+    nm = mesh.axis_size(model_axis)
+    if mode == "ep":
+        assert E % nm == 0, (E, nm)
+    T_l, d = x.shape
+    E_loc = w_gate.shape[0]                       # E/nm (ep) or E (tp)
+    if E_loc != (E // nm if mode == "ep" else E):
+        raise ValueError(f"{mode}: {E_loc} experts on a rank of {nm}, "
+                         f"{E} in all")
+    C = capacity(T_l, E, top_k)
+    dt = x.dtype
+
+    probs, gate, eidx = route(x, router_w, top_k)
+    me = probs.mean(0)
+    ce = F.one_hot(eidx, E).float().sum(1).mean(0)
+    aux = E * torch.sum(me * ce)
+    if batch_axes:
+        aux = coll.pmean(aux, mesh, batch_axes[-1])
+
+    if mode == "ep":
+        # keep the (token, k) pairs this model rank's experts own; the
+        # others sort into bucket E_loc, past every kept slot
+        local_e = eidx - mesh.axis_index(model_axis) * E_loc
+        mine = (local_e >= 0) & (local_e < E_loc)
+        flat_e = torch.where(mine, local_e, E_loc)
+        sort_idx, dest, valid, token_id = dispatch_plan(flat_e, E_loc + 1, C)
+        valid = valid & (flat_e.reshape(-1)[sort_idx] < E_loc)
+        dest = torch.where(valid, dest, E_loc * C)
+    else:
+        sort_idx, dest, valid, token_id = dispatch_plan(eidx, E, C)
+
+    x_in = coll.copy_to(x, mesh, model_axis)
+    gate_in = coll.copy_to(gate, mesh, model_axis)
+    gathered = torch.where(valid[:, None], x_in[token_id], 0)
+    buf = torch.zeros((E_loc * C + 1, d), dtype=dt, device=x.device) \
+        .index_add(0, dest, gathered)
+    ein = buf[:-1].reshape(E_loc, C, d)
+    h = torch.bmm(ein, w_gate.to(dt))
+    u = torch.bmm(ein, w_up.to(dt))
+    h = F.silu(h.float()).to(dt) * u
+    eo = torch.bmm(h, w_down.to(dt))
+
+    rows = torch.cat([eo.reshape(E_loc * C, d),
+                      torch.zeros((1, d), dtype=dt, device=x.device)])
+    back = rows[dest] * gate_in.reshape(-1)[sort_idx][:, None].to(dt)
+    out = torch.zeros((T_l, d), dtype=dt, device=x.device) \
+        .index_add(0, token_id, back)
+    # ep: the expert ranks' outputs; tp: the d_ff partial sums
+    return coll.all_reduce(out, mesh, model_axis), aux
+

@@ -1,6 +1,6 @@
 """NequIP — E(3)-equivariant interatomic potential [arXiv:2101.03164]: the
 JAX package's `repro.models.nequip`, the single-device forward (the
-owner-sharded one waits for the mesh).
+owner-sharded one is `models.nequip_sharded`).
 
 Irreps are kept in *Cartesian* form — l=0 scalars (N, C), l=1 vectors
 (N, C, 3), l=2 traceless-symmetric matrices stored in an orthonormal
@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import tree as tu
-from repro_torch.models.transformer import Leaf, init_from_template
+from repro_torch.models.transformer import (Leaf, abstract_from_template,
+                                            init_from_template,
+                                            shardings_from_template)
 
 # ---------------------------------------------------------------------------
 # l=2 basis: 5 orthonormal traceless-symmetric 3x3 matrices (Frobenius o.n.)
@@ -172,24 +174,34 @@ def param_template(cfg, d_feat=0):
     C, L = cfg.d_hidden, cfg.n_layers
     pdt = cfg.param_dtype
     f_in = d_feat if d_feat else cfg.n_species
+    lay3 = ("layers", None, None)
     return {
-        "embed": Leaf((f_in, C), pdt),
+        "embed": Leaf((f_in, C), pdt, (None, None)),
         "layers": {
-            "radial_w1": Leaf((L, cfg.n_rbf, RADIAL_HIDDEN), pdt),
-            "radial_b1": Leaf((L, RADIAL_HIDDEN), pdt, "zeros"),
-            "radial_w2": Leaf((L, RADIAL_HIDDEN, N_PATHS * C), pdt),
-            "self0": Leaf((L, C, C), pdt),
-            "self1": Leaf((L, C, C), pdt),
-            "self2": Leaf((L, C, C), pdt),
-            "skip0": Leaf((L, C, C), pdt),
-            "skip1": Leaf((L, C, C), pdt),
-            "skip2": Leaf((L, C, C), pdt),
-            "gate_w": Leaf((L, C, 2 * C), pdt),
-            "gate_b": Leaf((L, 2 * C), pdt, "zeros"),
+            "radial_w1": Leaf((L, cfg.n_rbf, RADIAL_HIDDEN), pdt, lay3),
+            "radial_b1": Leaf((L, RADIAL_HIDDEN), pdt, ("layers", None),
+                              "zeros"),
+            "radial_w2": Leaf((L, RADIAL_HIDDEN, N_PATHS * C), pdt, lay3),
+            "self0": Leaf((L, C, C), pdt, lay3),
+            "self1": Leaf((L, C, C), pdt, lay3),
+            "self2": Leaf((L, C, C), pdt, lay3),
+            "skip0": Leaf((L, C, C), pdt, lay3),
+            "skip1": Leaf((L, C, C), pdt, lay3),
+            "skip2": Leaf((L, C, C), pdt, lay3),
+            "gate_w": Leaf((L, C, 2 * C), pdt, lay3),
+            "gate_b": Leaf((L, 2 * C), pdt, ("layers", None), "zeros"),
         },
-        "readout_w": Leaf((C, 16), pdt),
-        "readout_w2": Leaf((16, 1), pdt),
+        "readout_w": Leaf((C, 16), pdt, (None, None)),
+        "readout_w2": Leaf((16, 1), pdt, (None, None)),
     }
+
+
+def abstract_params(cfg, d_feat=0):
+    return abstract_from_template(param_template(cfg, d_feat))
+
+
+def param_shardings(cfg, mesh, d_feat=0):
+    return shardings_from_template(param_template(cfg, d_feat), mesh)
 
 
 def init_params(cfg, generator=None, d_feat=0, *, device=None):

@@ -14,30 +14,53 @@ and "moe_wd" (L, E, f, d)), so checkpoints and
 for leaf. The step functions are functional: (params, opt_state, batch)
 -> (params, opt_state, metrics) over such dicts.
 
-The MoE layer is `models/moe.moe_ffn`, the dispatch JAX takes when no
-mesh is set. Not here yet: the sharded dispatches and the sharding
-annotations (`logical`, `_gather_weights`, `param_shardings`), which
-wait for the mesh.
+Each leaf carries its logical axes (`Leaf.axes`), and `param_shardings`
+/ `cache_shardings` turn them into placements on a mesh. Without a mesh
+the MoE layer is `models/moe.moe_ffn`. With a mesh installed
+(`models.sharding.rules_ctx(rules, mesh)`) every function here takes and
+returns this rank's slices, as `param_shardings` and `cache_shardings`
+place them, and runs the reference's sharded program over
+torch.distributed:
+
+  * tensor parallelism over "model": `wq`/`bq` by heads and `wo` by rows
+    (then an all-reduce), `ffn_wg`/`ffn_wu` by columns and `ffn_wd` by
+    rows, `embed` and `lm_head` by vocabulary (a masked lookup and a
+    vocab-parallel chunked cross-entropy); a rank's q heads read the kv
+    heads h // (Hq / Hkv) of their global numbers;
+  * the batch over "data", FSDP of the "embed_w" dimension over "data"
+    (`_gather_weights` all-gathers a layer's weights where they are
+    used; the backward reduce-scatters their gradients);
+  * the MoE by `moe_ffn_ep_shardmap` or `moe_ffn_tp_shardmap`
+    (`cfg.moe_impl`), each rank routing its own tokens;
+  * AdamW on the local slices, clipped by the global norm.
+
+A mesh of more than one rank needs an initialized process group; no
+sharded function falls back to the one-device program.
 """
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import tree as tu
 from repro_torch.device import resolve_device
+from repro_torch.models import collectives as coll
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding as sh
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, swiglu
+from repro_torch.models.sharding import logical, named_sharding
 
 
 @dataclasses.dataclass
 class Leaf:
-    """Parameter leaf spec: shape, dtype name and init rule."""
+    """Parameter leaf spec: shape, dtype name, logical sharding axes and
+    init rule."""
     shape: Tuple[int, ...]
     dtype: Any
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"  # normal | ones | zeros
 
 
@@ -45,69 +68,276 @@ def _dt(name):
     return getattr(torch, str(name))
 
 
+def _expert_parallel(cfg) -> bool:
+    # EP when the expert count can cover a 16-way model axis, else TP
+    # within each expert
+    return cfg.moe and cfg.n_experts % 16 == 0
+
+
 def param_template(cfg):
     d, hd = cfg.d_model, cfg.hd
     L, Hq, Hkv = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
     pdt = cfg.param_dtype
     lay = {
-        "ln1": Leaf((L, d), pdt, "ones"),
-        "ln2": Leaf((L, d), pdt, "ones"),
-        "wq": Leaf((L, d, Hq * hd), pdt),
-        "wk": Leaf((L, d, Hkv * hd), pdt),
-        "wv": Leaf((L, d, Hkv * hd), pdt),
-        "wo": Leaf((L, Hq * hd, d), pdt),
+        "ln1": Leaf((L, d), pdt, ("layers", "embed"), "ones"),
+        "ln2": Leaf((L, d), pdt, ("layers", "embed"), "ones"),
+        "wq": Leaf((L, d, Hq * hd), pdt, ("layers", "embed_w", "heads_w")),
+        "wk": Leaf((L, d, Hkv * hd), pdt, ("layers", "embed_w", None)),
+        "wv": Leaf((L, d, Hkv * hd), pdt, ("layers", "embed_w", None)),
+        "wo": Leaf((L, Hq * hd, d), pdt, ("layers", "heads_w", "embed_w")),
     }
     if cfg.qkv_bias:
-        lay["bq"] = Leaf((L, Hq * hd), pdt, "zeros")
-        lay["bk"] = Leaf((L, Hkv * hd), pdt, "zeros")
-        lay["bv"] = Leaf((L, Hkv * hd), pdt, "zeros")
+        lay["bq"] = Leaf((L, Hq * hd), pdt, ("layers", "heads_w"), "zeros")
+        lay["bk"] = Leaf((L, Hkv * hd), pdt, ("layers", None), "zeros")
+        lay["bv"] = Leaf((L, Hkv * hd), pdt, ("layers", None), "zeros")
     if cfg.moe:
         E, f = cfg.n_experts, cfg.moe_d_ff
-        lay["router"] = Leaf((L, d, E), pdt)
-        lay["moe_wg"] = Leaf((L, E, d, f), pdt)
-        lay["moe_wu"] = Leaf((L, E, d, f), pdt)
-        lay["moe_wd"] = Leaf((L, E, f, d), pdt)
+        ep = _expert_parallel(cfg)
+        eax = ("layers", "experts", "embed_w", None) if ep \
+            else ("layers", None, "embed_w", "ff_w")
+        dax = ("layers", "experts", None, "embed_w") if ep \
+            else ("layers", None, "ff_w", "embed_w")
+        lay["router"] = Leaf((L, d, E), pdt, ("layers", None, None))
+        lay["moe_wg"] = Leaf((L, E, d, f), pdt, eax)
+        lay["moe_wu"] = Leaf((L, E, d, f), pdt, eax)
+        lay["moe_wd"] = Leaf((L, E, f, d), pdt, dax)
     if not cfg.moe or cfg.dense_residual:
-        lay["ffn_wg"] = Leaf((L, d, cfg.d_ff), pdt)
-        lay["ffn_wu"] = Leaf((L, d, cfg.d_ff), pdt)
-        lay["ffn_wd"] = Leaf((L, cfg.d_ff, d), pdt)
-    return {"embed": Leaf((cfg.vocab_size, d), pdt),
-            "lm_head": Leaf((d, cfg.vocab_size), pdt),
-            "final_norm": Leaf((d,), pdt, "ones"),
+        lay["ffn_wg"] = Leaf((L, d, cfg.d_ff), pdt,
+                             ("layers", "embed_w", "ff_w"))
+        lay["ffn_wu"] = Leaf((L, d, cfg.d_ff), pdt,
+                             ("layers", "embed_w", "ff_w"))
+        lay["ffn_wd"] = Leaf((L, cfg.d_ff, d), pdt,
+                             ("layers", "ff_w", "embed_w"))
+    # vocab-sharded over 'model'; rows replicated (row-FSDP on these two
+    # tables would gather a whole lm_head per loss chunk)
+    return {"embed": Leaf((cfg.vocab_size, d), pdt, ("vocab", "embed")),
+            "lm_head": Leaf((d, cfg.vocab_size), pdt, ("embed", "vocab")),
+            "final_norm": Leaf((d,), pdt, ("embed",), "ones"),
             "layers": lay}
 
 
-def init_from_template(template, generator=None, *, device=None):
+def _is_leaf(x):
+    return isinstance(x, Leaf)
+
+
+def abstract_from_template(template):
+    """Meta tensors of each Leaf's shape and dtype (no storage)."""
+    return tu.tree_map(lambda l: torch.empty(l.shape, dtype=_dt(l.dtype),
+                                             device="meta"), template)
+
+
+def shardings_from_template(template, mesh):
+    """The NamedSharding of each Leaf's logical axes on `mesh` under the
+    installed rules."""
+    return tu.tree_map(lambda l: named_sharding(mesh, *l.axes), template)
+
+
+def abstract_params(cfg):
+    return abstract_from_template(param_template(cfg))
+
+
+def param_shardings(cfg, mesh):
+    return shardings_from_template(param_template(cfg), mesh)
+
+
+def init_from_template(template, generator=None, *, device=None,
+                       shardings=None):
     """Random parameters of a template (a nested dict of Leafs) by the JAX
     package's rules (normal * fan_in ** -0.5 with fan_in the leaf's
     second-to-last dim, ones for norms, zeros for biases), drawn leaf by
     leaf in flatten order from `generator` (default: one seeded 0 on
     `device`), placed on `device` (None: the card). The draws cannot
     equal jax.random's: tests take their params from JAX through
-    `convert`."""
+    `convert`.
+
+    With `shardings` (a tree of NamedShardings, `param_shardings`) each
+    leaf is drawn whole and only this rank's slice is kept, so every
+    rank of a mesh holds its slice of one and the same init, one whole
+    leaf at a time."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     gdev = generator.device
+    places = [None] * len(tu.tree_leaves(template)) if shardings is None \
+        else tu.tree_leaves(shardings)
     leaves = []
-    for leaf in tu.tree_leaves(template):
+    for leaf, place in zip(tu.tree_leaves(template), places):
         dt = _dt(leaf.dtype)
+        shape = leaf.shape if place is None else place.local_shape(
+            leaf.shape)
         if leaf.init == "ones":
-            x = torch.ones(leaf.shape, dtype=dt, device=dev)
+            x = torch.ones(shape, dtype=dt, device=dev)
         elif leaf.init == "zeros":
-            x = torch.zeros(leaf.shape, dtype=dt, device=dev)
+            x = torch.zeros(shape, dtype=dt, device=dev)
         else:
             fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 \
                 else leaf.shape[-1]
             x = torch.randn(leaf.shape, generator=generator, device=gdev)
-            x = x.mul_(fan_in ** -0.5).to(device=dev, dtype=dt)
+            x = x.mul_(fan_in ** -0.5)
+            if place is not None:
+                x = place.shard(x)
+            x = x.to(device=dev, dtype=dt, copy=place is not None)
         leaves.append(x)
     return tu.tree_unflatten_like(template, leaves)
 
 
-def init_params(cfg, generator=None, *, device=None):
+def init_params(cfg, generator=None, *, device=None, shardings=None):
     """init_from_template over param_template(cfg)."""
-    return init_from_template(param_template(cfg), generator, device=device)
+    return init_from_template(param_template(cfg), generator, device=device,
+                              shardings=shardings)
+
+
+# ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+# replicated over the tensor-parallel axes but read there only for this
+# rank's own q heads: their gradients are partial sums over those axes
+_PARTIAL_OVER_TP = ("wk", "wv", "bk", "bv")
+
+# the logical axes of each layer weight where it is used (the reference's
+# _gather_weights): the "embed_w" (FSDP) dimension whole, "model" kept
+_USE_AXES = {
+    "wq": ("embed", "heads_w"), "wk": ("embed", None),
+    "wv": ("embed", None), "wo": ("heads_w", "embed"),
+    "ffn_wg": ("embed", "ff_w"), "ffn_wu": ("embed", "ff_w"),
+    "ffn_wd": ("ff_w", "embed"),
+}
+
+
+@dataclasses.dataclass
+class _Plan:
+    """How the installed mesh and rules split the LM on this rank: the
+    tensor-parallel axes `tp` (those of "heads_w", which "ff_w", "vocab"
+    and "heads" must share), the batch axes, this rank's index and the
+    axes' sizes, and the params' shardings."""
+    mesh: Any
+    tp: Tuple[str, ...]
+    batch: Tuple[str, ...]
+    nm: int
+    mi: int
+    nd: int
+    shardings: dict
+
+
+def _mesh_plan(cfg):
+    """The _Plan of the installed mesh, or None without one."""
+    mesh = sh.current_mesh()
+    if mesh is None:
+        return None
+    tp = sh.spec_axes(sh.spec("heads_w")[0])
+    for name in ("ff_w", "vocab", "heads", "ff_act") + (
+            ("experts",) if cfg.moe and _expert_parallel(cfg) else ()):
+        if sh.spec_axes(sh.spec(name)[0]) != tp:
+            raise NotImplementedError(
+                f"rules put {name!r} on {sh.spec(name)[0]} and heads_w on "
+                f"{tp}: the sharded LM splits them over one set of axes")
+    for name in ("seq", "seq_kv", "kv_heads", "head_dim", "embed",
+                 "layers"):
+        if sh.spec(name)[0] is not None:
+            raise NotImplementedError(f"rules shard {name!r}")
+    batch = sh.spec_axes(sh.spec("batch")[0])
+    return _Plan(mesh, tp, batch, mesh.axis_size(tp), mesh.axis_index(tp),
+                 mesh.axis_size(batch), param_shardings(cfg, mesh))
+
+
+def _enter(plan, x):
+    """Into the tensor-parallel region: identity, the backward sums."""
+    return x if plan is None else coll.copy_to(x, plan.mesh, plan.tp)
+
+
+def _exit(plan, x):
+    """Out of it: the ranks' partial sums added (backward: identity)."""
+    return x if plan is None else coll.all_reduce(x, plan.mesh, plan.tp)
+
+
+def _use_axes(cfg, name):
+    ep = cfg.moe and _expert_parallel(cfg)
+    if name in ("moe_wg", "moe_wu"):
+        return ("experts", "embed", None) if ep else (None, "embed", "ff_w")
+    if name == "moe_wd":
+        return ("experts", None, "embed") if ep else (None, "ff_w", "embed")
+    return _USE_AXES.get(name)
+
+
+def _gather_weights(cfg, lp, plan):
+    """FSDP: each layer weight all-gathered, where it is used, over the
+    mesh axes of the dimensions its storage splits and its use does not
+    (the "embed_w" rows over "data"); the "model" shards stay. The
+    backward reduce-scatters the gradients."""
+    if plan is None:
+        return lp
+    g = dict(lp)
+    for k, w in lp.items():
+        use = _use_axes(cfg, k)
+        if use is None:
+            continue
+        have = plan.shardings["layers"][k].spec[1:]
+        want = sh.spec(*use)
+        for dim, (h, u) in enumerate(zip(have, want)):
+            if h == u:
+                continue
+            if u is not None:
+                raise NotImplementedError(f"{k}: storage {have}, use {want}")
+            w = coll.all_gather(w, plan.mesh, sh.spec_axes(h), dim)
+        g[k] = w
+    return g
+
+
+def _local_kv(cfg, plan, k, v, hq_local):
+    """The kv heads a rank's q heads read: global q head h reads kv head
+    h // (Hq / Hkv). Contiguous kv heads when the rank's heads cover
+    whole groups, else one kv head per q head."""
+    if plan is None or plan.nm == 1:
+        return k, v
+    rep = cfg.n_heads // cfg.n_kv_heads
+    first = plan.mi * hq_local
+    if hq_local % rep == 0:
+        lo = first // rep
+        return (k[:, :, lo:lo + hq_local // rep],
+                v[:, :, lo:lo + hq_local // rep])
+    idx = torch.arange(first, first + hq_local, device=k.device) // rep
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _complete_grads(grads, plan):
+    """Each gradient summed over the mesh axes its computation is split
+    on and its backward has not summed yet: the batch axes (less those a
+    reduce-scatter summed, the leaf's own storage axes) and, for the
+    leaves in _PARTIAL_OVER_TP, the tensor-parallel axes."""
+    paths = tu.leaf_paths(grads)
+    leaves = [g for _, g in paths]
+    by_axes = {}
+    for i, ((path, g), s) in enumerate(zip(paths, tu.tree_leaves(
+            plan.shardings))):
+        have = {a for e in s.spec for a in sh.spec_axes(e)}
+        axes = set(plan.batch) - have
+        if path.split("'")[-2] in _PARTIAL_OVER_TP:
+            axes |= set(plan.tp) - have
+        axes = tuple(a for a in plan.mesh.axis_names if a in axes)
+        by_axes.setdefault((axes, g.dtype), []).append(i)
+    for (axes, _), idx in by_axes.items():
+        if axes:
+            for i, t in zip(idx, coll.all_reduce_many(
+                    [leaves[i] for i in idx], plan.mesh, axes)):
+                leaves[i] = t
+    return tu.tree_unflatten_like(grads, leaves)
+
+
+def _global_norm(grads, plan):
+    """The norm of the whole gradient: each leaf's float32 sum of squares
+    summed over the axes its storage splits (not over those it is
+    replicated on)."""
+    by_axes = {}
+    for g, s in zip(tu.tree_leaves(grads), tu.tree_leaves(plan.shardings)):
+        axes = s.sharded_axes()
+        sq = torch.sum(torch.square(g.float()))
+        by_axes[axes] = sq if axes not in by_axes else by_axes[axes] + sq
+    total = None
+    for axes, sq in sorted(by_axes.items()):
+        sq = coll.all_reduce_many([sq], plan.mesh, axes)[0]
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------
@@ -125,40 +355,81 @@ def _qkv(cfg, h, lp):
     return q, k, v
 
 
-def _ffn(cfg, h2, lp):
+def _moe_dispatch(cfg, flat, lp, plan):
+    """The MoE on flat (T, d) tokens: the reference's mesh branch (EP or TP
+    over "model" by cfg.moe_impl, the batch axes from the rules) when a
+    mesh with a "model" axis is installed and moe_impl asks for it, else
+    the one-device `moe_ffn`, which a mesh of more than one rank
+    refuses (its capacity is global)."""
+    mesh = None if plan is None else plan.mesh
+    if (cfg.moe_impl in ("ep_shard_map", "tp_shard_map")
+            and mesh is not None and "model" in mesh.shape):
+        rules = sh.current_rules() or {}
+        batch = rules.get("batch", ("data",))
+        batch_axes = tuple(batch) if batch else ()  # () = replicated batch
+        ep_ok = _expert_parallel(cfg) and cfg.moe_impl == "ep_shard_map"
+        if ep_ok != _expert_parallel(cfg):
+            raise ValueError(
+                f"moe_impl {cfg.moe_impl!r} with {cfg.n_experts} experts: "
+                f"the params are laid out for expert parallelism")
+        fn = (moe_lib.moe_ffn_ep_shardmap if ep_ok
+              else moe_lib.moe_ffn_tp_shardmap)
+        return fn(flat, lp["router"], lp["moe_wg"], lp["moe_wu"],
+                  lp["moe_wd"], top_k=cfg.moe_top_k, mesh=mesh,
+                  batch_axes=batch_axes)
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(
+            f"moe_impl {cfg.moe_impl!r} on a mesh of {mesh.size} ranks: "
+            f"the port shards the MoE by 'ep_shard_map' or 'tp_shard_map'")
+    return moe_lib.moe_ffn(flat, lp["router"], lp["moe_wg"], lp["moe_wu"],
+                           lp["moe_wd"], top_k=cfg.moe_top_k)
+
+
+def _ffn(cfg, h2, lp, plan=None):
     """The layer's FFN on h2 (..., d): the MoE over the flattened tokens
     plus, without MoE or with a dense residual, the dense SwiGLU.
     Returns (out of h2's shape, the MoE aux loss or 0.0)."""
     aux = torch.zeros((), dtype=torch.float32, device=h2.device)
     out = 0.
     if cfg.moe:
-        mo, aux = moe_lib.moe_ffn(
-            h2.reshape(-1, h2.shape[-1]), lp["router"], lp["moe_wg"],
-            lp["moe_wu"], lp["moe_wd"], top_k=cfg.moe_top_k)
+        mo, aux = _moe_dispatch(cfg, h2.reshape(-1, h2.shape[-1]), lp, plan)
         out = out + mo.reshape(h2.shape)
     if not cfg.moe or cfg.dense_residual:
-        out = out + swiglu(h2, lp["ffn_wg"], lp["ffn_wu"], lp["ffn_wd"])
+        out = out + _exit(plan, swiglu(_enter(plan, h2), lp["ffn_wg"],
+                                       lp["ffn_wu"], lp["ffn_wd"]))
     return out, aux
 
 
-def _layer(cfg, x, lp, positions):
+def _layer(cfg, x, lp, positions, plan=None):
     """One transformer layer (train/prefill). x: (B, S, d). Returns (x,
     (k, v), aux), k/v cut to the last window for SWA configurations."""
     B, S, d = x.shape
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    h = rmsnorm(x, lp["ln1"])
+    hd, Hkv = cfg.hd, cfg.n_kv_heads
+    Bg = B * (1 if plan is None else plan.nd)
+    lp = _gather_weights(cfg, lp, plan)
+    h = _enter(plan, rmsnorm(x, lp["ln1"]))
     q, k, v = _qkv(cfg, h, lp)
+    Hq = q.shape[-1] // hd
     q = apply_rope(q.reshape(B, S, Hq, hd), positions, cfg.rope_theta)
+    q = logical(q, "batch", "seq", "heads", "head_dim",
+                shape=(Bg, S, cfg.n_heads, hd))
     k = apply_rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, Hkv, hd)
-    attn = attention(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + attn.reshape(B, S, Hq * hd) @ lp["wo"].to(x.dtype)
-    out, aux = _ffn(cfg, rmsnorm(x, lp["ln2"]), lp)
+    attn = attention(q, *_local_kv(cfg, plan, k, v, Hq), causal=True,
+                     window=cfg.sliding_window)
+    attn = logical(attn, "batch", "seq", "heads", "head_dim",
+                   shape=(Bg, S, cfg.n_heads, hd))
+    x = x + _exit(plan, attn.reshape(B, S, Hq * hd) @ lp["wo"].to(x.dtype))
+    out, aux = _ffn(cfg, rmsnorm(x, lp["ln2"]), lp, plan)
     x = x + out
     if cfg.sliding_window and S > cfg.sliding_window:
         k = k[:, -cfg.sliding_window:]
         v = v[:, -cfg.sliding_window:]
-    return x, (k, v), aux
+    k = logical(k, "batch", "seq_kv", "kv_heads", "head_dim",
+                shape=(Bg,) + tuple(k.shape[1:]))
+    v = logical(v, "batch", "seq_kv", "kv_heads", "head_dim",
+                shape=(Bg,) + tuple(v.shape[1:]))
+    return logical(x, "batch", "seq", "embed", shape=(Bg, S, d)), (k, v), aux
 
 
 def _layer_slices(params, cd):
@@ -175,14 +446,30 @@ def _layer_slices(params, cd):
     return [dict(zip(names, row)) for row in zip(*cols)]
 
 
+def _embed(cfg, params, tokens, plan):
+    """The token embeddings in cfg.dtype; on a mesh a vocab-parallel
+    lookup: each rank reads the tokens of its vocabulary slice, zeros
+    elsewhere, summed over the tensor-parallel axes."""
+    cd = _dt(cfg.dtype)
+    if plan is None:
+        return params["embed"][tokens.long()].to(cd)
+    table = params["embed"]
+    v_local = table.shape[0]
+    local = tokens.long() - plan.mi * v_local
+    mine = (local >= 0) & (local < v_local)
+    x = table[local.clamp(0, v_local - 1)].to(cd)
+    return _exit(plan, torch.where(mine[..., None], x, 0))
+
+
 def forward(cfg, params, tokens, *, return_kv=False):
     """tokens: (B, S) -> (hidden (B, S, d), (k, v) stacked (L, B, S', Hkv,
     hd) or None, the mean over layers of the MoE aux loss (0.0 without
     MoE)). With cfg.remat and grad enabled, each layer is recomputed in
-    the backward."""
+    the backward. On a mesh: this rank's batch rows and param slices."""
+    plan = _mesh_plan(cfg)
     B, S = tokens.shape
     cd = _dt(cfg.dtype)
-    x = params["embed"][tokens.long()].to(cd)
+    x = _embed(cfg, params, tokens, plan)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     names = sorted(params["layers"])
@@ -190,11 +477,11 @@ def forward(cfg, params, tokens, *, return_kv=False):
     for lp in _layer_slices(params, cd):
         if cfg.remat and torch.is_grad_enabled():
             def body(x, *ws):
-                return _layer(cfg, x, dict(zip(names, ws)), positions)
+                return _layer(cfg, x, dict(zip(names, ws)), positions, plan)
             x, (k, v), aux = checkpoint(body, x, *(lp[n] for n in names),
                                         use_reentrant=False)
         else:
-            x, (k, v), aux = _layer(cfg, x, lp, positions)
+            x, (k, v), aux = _layer(cfg, x, lp, positions, plan)
         auxs.append(aux)
         if return_kv:
             ks.append(k)
@@ -211,24 +498,48 @@ def _chunk_xent(hc, yc, lm_head):
     return torch.sum(lse - ll)
 
 
+def _chunk_xent_vp(hc, yc, lm_head, plan):
+    """_chunk_xent with the vocabulary split over the tensor-parallel
+    axes: the max and the sum of exponentials, and the label's logit,
+    taken over every rank's slice."""
+    logits = (hc @ lm_head.to(hc.dtype)).float()          # (B, c, V_l)
+    m = coll.all_reduce_max(logits.detach().amax(-1), plan.mesh, plan.tp)
+    se = _exit(plan, torch.exp(logits - m[..., None]).sum(-1))
+    lse = torch.log(se) + m
+    v_local = logits.shape[-1]
+    local = yc.long() - plan.mi * v_local
+    mine = (local >= 0) & (local < v_local)
+    ll = logits.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    ll = _exit(plan, torch.where(mine, ll, 0.0))
+    return torch.sum(lse - ll)
+
+
 def lm_loss(cfg, hidden, lm_head, labels):
     """Mean softmax cross-entropy, chunked over the sequence: logits exist
     one (B, chunk, V) slab at a time (chunk = S when S does not divide by
     cfg.logits_chunk), in the hidden dtype and then float32, and each
-    chunk is recomputed in the backward."""
+    chunk is recomputed in the backward. On a mesh: the mean over this
+    rank's rows, the vocabulary split over the tensor-parallel axes."""
+    plan = _mesh_plan(cfg)
     B, S, d = hidden.shape
     chunk = cfg.logits_chunk or S
     if S % chunk:
         chunk = S
+    if plan is None:
+        fn = _chunk_xent
+    else:
+        hidden = _enter(plan, hidden)
+
+        def fn(hc, yc, w):
+            return _chunk_xent_vp(hc, yc, w, plan)
     acc = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(S // chunk):
         hc = hidden[:, i * chunk:(i + 1) * chunk]
         yc = labels[:, i * chunk:(i + 1) * chunk]
         if torch.is_grad_enabled():
-            acc = acc + checkpoint(_chunk_xent, hc, yc, lm_head,
-                                   use_reentrant=False)
+            acc = acc + checkpoint(fn, hc, yc, lm_head, use_reentrant=False)
         else:
-            acc = acc + _chunk_xent(hc, yc, lm_head)
+            acc = acc + fn(hc, yc, lm_head)
     return acc / (B * S)
 
 
@@ -239,6 +550,10 @@ def lm_loss(cfg, hidden, lm_head, labels):
 def _loss(cfg, params, batch):
     hidden, _, aux = forward(cfg, params, batch["tokens"])
     loss = lm_loss(cfg, hidden, params["lm_head"], batch["labels"])
+    plan = _mesh_plan(cfg)
+    if plan is not None:
+        # the mean over the batch axes (each rank's rows weigh alike)
+        loss = coll.pmean(loss, plan.mesh, plan.batch)
     return loss + 0.01 * aux, loss, aux
 
 
@@ -284,44 +599,82 @@ def make_train_step(cfg, schedule=None, train_cfg=None):
     """fn(params, opt_state, batch {"tokens", "labels"}) -> (params,
     opt_state, {"loss", "aux_loss", "lr", "grad_norm"}): gradients by
     grads_fn, lr = schedule(opt_state["count"]), then the port's
-    adamw_update with the train config's settings."""
+    adamw_update with the train config's settings.
+
+    Under an installed mesh the step takes and returns this rank's slices
+    (`param_shardings` places params and both moments, "batch" the
+    batch): each gradient is summed over the axes its computation is
+    split on (`_complete_grads`), clipped by the norm of the whole
+    gradient, and AdamW updates the local slices."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim import adamw_update
     tc = train_cfg or TrainConfig()
     sched = schedule or (lambda step: tc.lr)
 
     def train_step(params, opt_state, batch):
+        plan = _mesh_plan(cfg)
         (tot, loss, aux), grads = grads_fn(cfg, params, batch)
+        gnorm = None
+        if plan is not None:
+            grads = _complete_grads(grads, plan)
+            gnorm = _global_norm(grads, plan)
         lr = sched(opt_state["count"])
         params, opt_state, stats = adamw_update(
             grads, opt_state, params, lr=lr, b1=tc.b1, b2=tc.b2, eps=tc.eps,
-            weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
+            weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
+            global_norm=gnorm)
         return params, opt_state, {"loss": loss, "aux_loss": aux, "lr": lr,
                                    **stats}
 
     return train_step
 
 
+def cache_template(cfg, batch, seq_len):
+    """KV cache specs. SWA archs keep a ring buffer of `window` slots."""
+    W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.hd)
+    axes = ("layers", "batch", "seq_kv", "kv_heads", "head_dim")
+    return {"k": Leaf(shape, cfg.dtype, axes), "v": Leaf(shape, cfg.dtype,
+                                                         axes)}
+
+
+def abstract_cache(cfg, batch, seq_len):
+    return abstract_from_template(cache_template(cfg, batch, seq_len))
+
+
+def cache_shardings(cfg, mesh, batch, seq_len):
+    return shardings_from_template(cache_template(cfg, batch, seq_len),
+                                   mesh)
+
+
 def init_cache(cfg, batch, seq_len, device=None):
     """Zero KV cache {"k", "v"} of (L, batch, W, Hkv, hd) in cfg.dtype; SWA
     configurations keep a ring of W = min(seq_len, window) slots."""
-    W = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    shape = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.hd)
     dev = resolve_device(device)
-    return {n: torch.zeros(shape, dtype=_dt(cfg.dtype), device=dev)
-            for n in ("k", "v")}
+    return {n: torch.zeros(l.shape, dtype=_dt(l.dtype), device=dev)
+            for n, l in cache_template(cfg, batch, seq_len).items()}
+
+
+def _logits(plan, x, lm_head):
+    """x (..., d) @ lm_head in x's dtype, as float32; on a mesh the
+    vocabulary slices of every tensor-parallel rank side by side."""
+    logits = (x @ lm_head.to(x.dtype)).float()
+    if plan is None:
+        return logits
+    return coll.gather_parts(logits, plan.mesh, plan.tp, logits.dim() - 1)
 
 
 def make_prefill_step(cfg):
     """fn(params, tokens (B, S)) -> (last-position logits (B, V) float32,
-    cache {"k", "v"} of (L, B, S', Hkv, hd), S' the window for SWA)."""
+    cache {"k", "v"} of (L, B, S', Hkv, hd), S' the window for SWA). On a
+    mesh: this rank's batch rows, their logits over the whole vocabulary,
+    and the cache as `cache_shardings` places it."""
 
     @torch.no_grad()
     def prefill(params, tokens):
         hidden, (k, v), _ = forward(cfg, params, tokens, return_kv=True)
-        last = hidden[:, -1]
-        logits = last @ params["lm_head"].to(last.dtype)
-        return logits.float(), {"k": k, "v": v}
+        return _logits(_mesh_plan(cfg), hidden[:, -1],
+                       params["lm_head"]), {"k": k, "v": v}
     return prefill
 
 
@@ -329,15 +682,17 @@ def make_decode_step(cfg):
     """fn(params, cache, tokens (B, 1), pos) -> (logits (B, V) float32,
     new cache). `pos` is the write position (the cache holds `pos` valid
     entries): slot pos % W under SWA, else min(pos, W - 1). The MoE runs
-    on the batch's B tokens (capacity(B, E, K) slots an expert)."""
+    on the batch's B tokens (capacity(B, E, K) slots an expert). On a
+    mesh, as make_prefill_step."""
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
+        plan = _mesh_plan(cfg)
         pos = int(pos)
         B = tokens.shape[0]
         cd = _dt(cfg.dtype)
-        hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        x = params["embed"][tokens.long()].to(cd)              # (B, 1, d)
+        hd, Hkv = cfg.hd, cfg.n_kv_heads
+        x = _embed(cfg, params, tokens, plan)                  # (B, 1, d)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
         W = cache["k"].shape[2]
@@ -348,8 +703,10 @@ def make_decode_step(cfg):
         nk, nv = [], []
         for lp, kc, vc in zip(_layer_slices(params, cd), cache["k"],
                               cache["v"]):
-            h = rmsnorm(x, lp["ln1"])
+            lp = _gather_weights(cfg, lp, plan)
+            h = _enter(plan, rmsnorm(x, lp["ln1"]))
             q, k, v = _qkv(cfg, h, lp)
+            Hq = q.shape[-1] // hd
             q = apply_rope(q.reshape(B, 1, Hq, hd), positions,
                            cfg.rope_theta)
             k = apply_rope(k.reshape(B, 1, Hkv, hd), positions,
@@ -357,14 +714,14 @@ def make_decode_step(cfg):
             v = v.reshape(B, 1, Hkv, hd)
             kc = torch.where(onehot, k.to(kc.dtype), kc)
             vc = torch.where(onehot, v.to(vc.dtype), vc)
-            out = decode_attention(q, kc, vc, cache_len)
-            x = x + out.reshape(B, 1, Hq * hd) @ lp["wo"].to(cd)
-            x = x + _ffn(cfg, rmsnorm(x, lp["ln2"]), lp)[0]
+            out = decode_attention(q, *_local_kv(cfg, plan, kc, vc, Hq),
+                                   cache_len)
+            x = x + _exit(plan, out.reshape(B, 1, Hq * hd) @ lp["wo"].to(cd))
+            x = x + _ffn(cfg, rmsnorm(x, lp["ln2"]), lp, plan)[0]
             nk.append(kc)
             nv.append(vc)
         x = rmsnorm(x, params["final_norm"])
-        logits = x @ params["lm_head"].to(cd)
-        return logits[:, 0].float(), {"k": torch.stack(nk),
-                                      "v": torch.stack(nv)}
+        return _logits(plan, x[:, 0], params["lm_head"]), {
+            "k": torch.stack(nk), "v": torch.stack(nv)}
 
     return decode

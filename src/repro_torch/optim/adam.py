@@ -25,8 +25,9 @@ def adamw_init(params, dtype=None):
     }
 
 
-def _clip(grads, grad_clip):
-    gnorm = tu.global_norm(grads)
+def _clip(grads, grad_clip, gnorm=None):
+    if gnorm is None:
+        gnorm = tu.global_norm(grads)
     if grad_clip:
         scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
         grads = tu.tree_scale(grads, scale)
@@ -34,10 +35,12 @@ def _clip(grads, grad_clip):
 
 
 def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.0, grad_clip=0.0):
+                 weight_decay=0.0, grad_clip=0.0, global_norm=None):
     """Returns (new_params, new_state, {"grad_norm"}). `lr` may be a
-    float or a float32 tensor of shape ()."""
-    grads, gnorm = _clip(grads, grad_clip)
+    float or a float32 tensor of shape (). `global_norm`, when given, is
+    the gradient's norm to clip by (a sharded step passes the norm of the
+    whole gradient, of which `grads` holds this rank's slices)."""
+    grads, gnorm = _clip(grads, grad_clip, global_norm)
     count = state["count"] + 1
     cf = count.float()
     c1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=cf.device) ** cf

@@ -1,0 +1,299 @@
+"""Helpers of the mesh tests (tests/test_torch_{sharding,moe_mesh,
+transformer_mesh,nequip_mesh}.py): the JAX reference on host devices in
+a subprocess, and the port on gloo ranks spawned by
+torch.multiprocessing, both on the same mesh shapes.
+
+`run_jax(code, n_devices)` runs `code` with
+--xla_force_host_platform_device_count; `spawn(task, job, tmp)` runs
+`task(rank, mesh_world, job)` (a function of this module, by name) on 4
+gloo ranks over a FileStore and returns each rank's dict of arrays. A
+job is a dict of numpy arrays plus "spec" (JSON). A failing rank fails
+the spawn.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+WORLD = 4
+
+
+def run_jax(code, n_devices=WORLD):
+    env = dict(os.environ, PYTHONPATH=SRC,
+               XLA_FLAGS=f"--xla_force_host_platform_device_count="
+                         f"{n_devices}")
+    env.pop("JAX_PLATFORMS", None)
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    return r.stdout
+
+
+def _worker(rank, world, store, task, job_path, out_dir):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        with open(job_path, "rb") as f:
+            job = pickle.load(f)
+        out = globals()[task](rank, job)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(task, job, tmp_path, world=WORLD):
+    """[rank's output] of `task` run on `world` gloo ranks."""
+    import torch.multiprocessing as tmp
+
+    d = tmp_path / f"spawn_{task}"
+    d.mkdir(exist_ok=True)
+    job_path = str(d / "job.pkl")
+    with open(job_path, "wb") as f:
+        pickle.dump(job, f)
+    tmp.spawn(_worker, args=(world, str(d / "store"), task, job_path,
+                             str(d)), nprocs=world)
+    out = []
+    for r in range(world):
+        with open(d / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def nest(flat, prefix):
+    """{"['a']['b']": x} -> {"a": {"b": x}} for keys under prefix."""
+    out = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix):
+            continue
+        keys = [p.strip("'") for p in k[len(prefix) + 1:-1].split("][")]
+        d = out
+        for p in keys[:-1]:
+            d = d.setdefault(p, {})
+        d[keys[-1]] = v
+    return out
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _tree_np(tree):
+    from repro_torch.common import tree as tu
+    return {p: _np(x) for p, x in tu.leaf_paths(tree)}
+
+
+# ---------------------------------------------------------------------------
+# tasks (each runs on every rank; returns a dict of numpy arrays / values)
+# ---------------------------------------------------------------------------
+
+def task_roundtrip(rank, job):
+    """shard and gather of each case's global array on its mesh."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.sharding import NamedSharding
+
+    out = {}
+    meshes = {}
+    for i, (shape, axes, spec) in enumerate(job["cases"]):
+        key = (tuple(shape), tuple(axes))
+        if key not in meshes:
+            meshes[key] = make_debug_mesh(tuple(shape), tuple(axes))
+        s = NamedSharding(meshes[key], tuple(
+            tuple(e) if isinstance(e, list) else e for e in spec))
+        x = torch.from_numpy(job[f"x{i}"])
+        loc = s.shard(x).contiguous()
+        out[f"local{i}"] = loc.numpy()
+        out[f"whole{i}"] = s.gather(loc).numpy()
+    return out
+
+
+def task_collectives(rank, job):
+    """Each collective's output and its backward of a seeded cotangent,
+    over each axis set of a 2 x 2 mesh."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import collectives as coll
+
+    mesh = make_debug_mesh((2, 2), ("data", "model"))
+    out = {}
+    g = torch.Generator().manual_seed(100 + rank)
+    for axes in (("data",), ("model",), ("data", "model"),
+                 ("model", "data")):
+        tag = "_".join(axes)
+        for name in ("all_gather", "reduce_scatter", "copy_to",
+                     "all_reduce", "pmean", "gather_replicated"):
+            x = torch.randn(4, 6, generator=g, dtype=torch.float64)
+            x.requires_grad_()
+            fn = getattr(coll, name)
+            y = fn(x, mesh, axes, 0) if name in (
+                "all_gather", "reduce_scatter", "gather_replicated") \
+                else fn(x, mesh, axes)
+            ct = torch.randn(y.shape, generator=g, dtype=torch.float64)
+            (gx,) = torch.autograd.grad(y, x, ct)
+            out[f"{name}/{tag}/x"] = x.detach().numpy()
+            out[f"{name}/{tag}/y"] = y.detach().numpy()
+            out[f"{name}/{tag}/ct"] = ct.numpy()
+            out[f"{name}/{tag}/gx"] = gx.numpy()
+    out["coords"] = (mesh.coords["data"], mesh.coords["model"])
+    return out
+
+
+def task_elastic(rank, job):
+    """Save a tree sharded on a (4,) data mesh, restore it on 2 x 2 with
+    job["spec"] and on 1 x 4 by the model's shardings."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.sharding import NamedSharding
+
+    m4 = make_debug_mesh((4,), ("data",))
+    m22 = make_debug_mesh((2, 2), ("data", "model"))
+    w = torch.from_numpy(job["w"])
+    s4 = {"w": NamedSharding(m4, ("data", None))}
+    loc = {"w": s4["w"].shard(w).clone()}
+    save_checkpoint(job["dir"], 5, loc, shardings=s4)
+    s22 = {"w": NamedSharding(m22, tuple(job["spec"]))}
+    target = {"w": torch.empty(w.shape, device="meta")}
+    got, _ = restore_checkpoint(job["dir"], 5, target, s22, device="cpu")
+    return {"saved": loc["w"].numpy(), "restored": got["w"].numpy(),
+            "coords": (m22.coords["data"], m22.coords["model"])}
+
+
+def _debug_mesh(mesh_shape):
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(tuple(mesh_shape), ("data", "model"))
+
+
+def task_moe(rank, job):
+    """moe_ffn_{ep,tp}_shardmap on each case's mesh (on job["device"],
+    the CPU by default): this rank's output, aux, router ids and the
+    gradients of sum(out * ct) + c * aux."""
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import NamedSharding
+
+    dev = job.get("device", "cpu")
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        mesh = _debug_mesh(case["mesh"])
+        mode = case["mode"]
+        T = job["x"].shape[0]
+        rows = NamedSharding(mesh, ("data", None))
+        if mode == "ep":
+            ws = [NamedSharding(mesh, ("model", None, None))] * 3
+        else:
+            ws = [NamedSharding(mesh, (None, None, "model"))] * 2 + [
+                NamedSharding(mesh, (None, "model", None))]
+        x = rows.shard(torch.from_numpy(case.get("x", job["x"])))
+        x = x.to(dev).clone()
+        rw = torch.from_numpy(job["rw"]).to(dev).clone()
+        w = [s.shard(torch.from_numpy(job[k])).to(dev).clone()
+             for s, k in zip(ws, ("wg", "wu", "wd"))]
+        leaves = [t.requires_grad_() for t in [x, rw] + w]
+        fn = moe.moe_ffn_ep_shardmap if mode == "ep" \
+            else moe.moe_ffn_tp_shardmap
+        y, aux = fn(*leaves, top_k=2, mesh=mesh)
+        ct = rows.shard(torch.from_numpy(job["ct"])).to(dev)
+        loss = torch.sum(y * ct) + job["c_aux"] * aux
+        grads = torch.autograd.grad(loss, leaves)
+        _, _, eidx = moe.route(x.detach(), rw.detach(), 2)
+        out[i] = {"y": _np(y), "aux": float(aux), "eidx": _np(eidx),
+                  "grads": [_np(g) for g in grads],
+                  "rows": _np(NamedSharding(mesh, ("data",)).shard(
+                      torch.arange(T)))}
+        del mesh
+    return out
+
+
+def task_lm(rank, job):
+    """For each case: the sharded train step, prefill and decode steps of
+    the port on the case's mesh from JAX's init, and (on the "single"
+    cases) the port's one-rank step; returns the whole params after the
+    step (gathered), the metrics, and this rank's logits and rows."""
+    import dataclasses
+
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_from_numpy
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        cfg = dataclasses.replace(get_config(case["arch"], "smoke"),
+                                  **case["over"])
+        params = transformer_params_from_numpy(cfg, job[f"params{i}"],
+                                               device="cpu")
+        tok = torch.from_numpy(job[f"tokens{i}"])
+        batch = {"tokens": tok, "labels": tok}
+        res = {}
+        if case.get("single") and rank == 0:
+            p1, _, m1 = tf.make_train_step(cfg)(params, adamw_init(params),
+                                                batch)
+            res["single_params"] = _tree_np(p1)
+            res["single_loss"] = float(m1["loss"])
+            res["single_gnorm"] = float(m1["grad_norm"])
+        mesh = _debug_mesh(case["mesh"])
+        with sh.rules_ctx({}, mesh=mesh):
+            psh = tf.param_shardings(cfg, mesh)
+            pl = tu.tree_map(lambda x: x.clone(), sh.shard_tree(params,
+                                                                psh))
+            rows = sh.named_sharding(mesh, "batch", None)
+            bl = {k: rows.shard(v) for k, v in batch.items()}
+            p2, o2, m2 = tf.make_train_step(cfg)(pl, adamw_init(pl), bl)
+            res["params"] = _tree_np(sh.gather_tree(p2, psh))
+            res["mu"] = _tree_np(sh.gather_tree(o2["mu"], psh))
+            res.update(loss=float(m2["loss"]), aux=float(m2["aux_loss"]),
+                       gnorm=float(m2["grad_norm"]))
+            if case.get("decode"):
+                B, S = tok.shape
+                n_dec = job[f"dec{i}"].shape[1]
+                logits, cache = tf.make_prefill_step(cfg)(pl, bl["tokens"])
+                res["prefill"] = _np(logits)
+                csh = tf.cache_shardings(cfg, mesh, B, S + n_dec)
+                full = tf.init_cache(cfg, B, S + n_dec, device="cpu")
+                cl = {k: csh[k].shard(full[k]).clone() for k in full}
+                for k in cl:
+                    cl[k][:, :, :cache[k].shape[2]] = cache[k]
+                dec = rows.shard(torch.from_numpy(job[f"dec{i}"]))
+                step = tf.make_decode_step(cfg)
+                res["decode"] = []
+                for t in range(n_dec):
+                    lg, cl = step(pl, cl, dec[:, t:t + 1], S + t)
+                    res["decode"].append(_np(lg))
+                res["rows"] = _np(sh.named_sharding(mesh, "batch").shard(
+                    torch.arange(B)))
+        out[i] = res
+    return out
+
+
+def task_nequip(rank, job):
+    """forward_sharded and one sharded train step on each case's mesh
+    axes, from JAX's init; the batch's edges split by owner."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import nequip_params_from_numpy
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import nequip_sharded as nqs
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("nequip", "smoke")
+    params = nequip_params_from_numpy(cfg, job["params"], device="cpu")
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        mesh = make_debug_mesh(tuple(case["shape"]), tuple(case["names"]))
+        axes = tuple(case["axes"])
+        batch = {k: torch.from_numpy(v) for k, v in job["batch"].items()}
+        batch.update({k: torch.from_numpy(v)
+                      for k, v in job[f"edges{i}"].items()})
+        e = nqs.forward_sharded(cfg, params, batch, mesh, axes)
+        step = nqs.make_train_step_sharded(cfg, mesh, axes)
+        p2, _, m = step(params, adamw_init(params), batch)
+        out[i] = {"energy": _np(e), "params": _tree_np(p2),
+                  "loss": float(m["loss"]), "gnorm": float(m["grad_norm"])}
+    return out

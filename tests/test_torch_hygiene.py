@@ -45,7 +45,11 @@ missing = sorted({"repro_torch.index.update", "repro_torch.launch",
                   "repro_torch.configs.mixtral_8x7b",
                   "repro_torch.configs.arctic_480b",
                   "repro_torch.configs.nequip",
-                  "repro_torch.optim.compression"} - set(names))
+                  "repro_torch.optim.compression",
+                  "repro_torch.models.sharding",
+                  "repro_torch.models.collectives",
+                  "repro_torch.models.nequip_sharded",
+                  "repro_torch.launch.mesh"} - set(names))
 from repro_torch.core.fusion import fuse_topk_merge  # noqa: F401
 print(len(names), bad + missing)
 """
