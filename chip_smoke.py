@@ -218,9 +218,30 @@ Phases, each printed with its seconds:
      21's init in turn), prefill and 4 decode tokens against phase 21's
      logits on the rows its router sent clear of a tie; (d) nequip on
      phase 20's minibatch_lg batch over 4 owner shards, energies and
-     gradients against phase 20's card; each step's ms, peak memory and
-     bytes through the collectives printed; then (f) topk at the ranks'
-     per-shard router shapes bitwise its plain version beside torch.topk.
+     gradients against phase 20's card; (f) qwen2-1.5b with 6 query
+     heads of 256 on 1 x 4 (the heads do not divide the model axis: the
+     all-heads layout), train step, prefill and 4 decode tokens against
+     the one-rank step's; (g) (a)'s config decoding with the KV sequence
+     split over "model" on 1 x 4 (the flash-decode combine) against (a)'s
+     one-rank logits; (h) wide-deep full() with its tables split along
+     "table_rows" on 2 x 2 (each rank's slice of the one-rank init):
+     serve logits at B 512 and one train step at B 8192 against the
+     one-rank steps (loss, norm, the MLP leaves and every touched row;
+     the untouched rows bitwise their init), then embedding_bag at the
+     rank's slice shape (a zero row for other ranks' ids) bitwise its
+     plain version, timed beside F.embedding_bag; each step's ms, peak
+     memory and bytes through the collectives printed; then topk at the ranks' per-shard
+     router shapes bitwise its plain version beside torch.topk;
+ 24. the dry run (launch/{specs,dryrun}.py, analysis/{cost,roofline}.py),
+     in a process of its own on the host that starts after phase 3 and
+     sees no card: qwen2-1.5b train_4k, deepseek-67b decode_32k,
+     mixtral-8x7b prefill_32k, nequip minibatch_lg, wide-deep train_batch
+     and clusd-msmarco serve_256 counted on one rank of a fake 16 x 16
+     group at full widths (each ok; peak a rank, the three roofline terms
+     against the H100 SXM and the dominant one printed), and phase 23
+     (a)'s train cell on a fake 2 x 2 group: its collective bytes by kind
+     must equal what collectives.TRAFFIC recorded on the card's rank 0,
+     and its peak lie within DRY_PEAK_BAND of the card's.
 
 Phase 14's ranks also run `compressed_psum` (optim/compression.py) on
 2^24 floats each, on the card and on the CPU in the same gloo group:
@@ -230,10 +251,11 @@ g32 - q x scale.
 Every kernel's launch count is zeroed just before each serving path and
 read just after it; each path must have launched each kernel it runs
 (topk on all but the LM and the GNN, which run none of the seven,
-embedding_bag on recsys, train and the examples), and the kernel table
+embedding_bag on recsys, train, the examples and the mesh), and the kernel table
 sums the nineteen paths (the seven serving paths, the offline build,
 the two updates, the train path, the distributed ranks, the router, the
-baselines, the LM, the MoE, the GNN, the examples and the mesh ranks). Prints the kernel table as one JSON
+baselines, the LM, the MoE, the GNN, the examples and the mesh ranks, whose
+row-sharded wide bag launches embedding_bag). Prints the kernel table as one JSON
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}. Any
 failure exits non-zero; without a card it exits 2 before doing anything.
 """
@@ -4588,6 +4610,10 @@ MESH_RANKS = 4
 MESH_REFS = {}             # the references phases 20-21 leave for phase 23
 # tests/test_distributed.py's gates of a sharded step against one device
 MESH_LOSS_ATOL, MESH_PARAM_ATOL = 1e-4, 5e-4
+# the sharded step's gradient norm against the one-rank step's, relative
+# (an AdamW step moves each param by about lr = 3e-4 whatever the
+# gradient's size, so the params' gate alone would pass a wrong backward)
+MESH_GRAD_NORM_RTOL = 1e-4
 # (a)'s logits against the one-rank step's: the tolerance phase 21 holds
 # full-width float32 sums added in another order to (LM_TOL's atol 1e-5
 # failed at a few logits below 0.05 in magnitude, max |diff| 1.51e-05, on
@@ -4602,6 +4628,326 @@ MESH_TOL = MOE_TOL
 # all-reduces of wo, ffn_wd and the experts add four bf16 partial sums
 # where one matmul rounds once); at least half of all the rows clear
 ARCTIC_MESH_TOL, ARCTIC_MESH_GAP = 2 ** -6, 2 ** -4
+
+
+# phase 23 also runs: (f) qwen2-1.5b with 6 query heads of
+# 256 (d 1536 kept) on 1 x 4, where the heads do not divide the model axis;
+# (g) (a)'s config decoding with the KV sequence split over "model" on 1 x 4;
+# (h) wide-deep full() with its tables split along "table_rows" on 2 x 2,
+# a train step at B MESH_RECSYS_TRAIN_B and a serve step at B 512
+MESH_UNEVEN = dict(n_heads=6, n_kv_heads=2, head_dim=256)
+MESH_RECSYS_TRAIN_B, MESH_RECSYS_SERVE_B = 8192, 512
+# (h) against the one-rank step on the card: logits rtol 1e-5 and atol
+# 1e-6 would be JAX's CPU gate; the mesh adds each row's 41 partial sums in
+# another order than the fused bag, and its 4-rank reduce-scatter sums
+# float32 partial rows, so MESH_TOL's
+MESH_RECSYS_TOL = MESH_TOL
+
+
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py, launch/specs.py, analysis/*): a process of
+# its own on the host, no card
+# ---------------------------------------------------------------------------
+
+# the cells counted on a fake 16 x 16 group at full widths (depth from 1 and
+# 2 layers, NequIP's from 2 and 3)
+DRY_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-67b", "decode_32k"),
+             ("mixtral-8x7b", "prefill_32k"), ("nequip", "minibatch_lg"),
+             ("wide-deep", "train_batch"), ("clusd-msmarco", "serve_256"))
+# the dry run's predicted peak of mesh (a)'s train step per rank, as a share
+# of its torch.cuda.max_memory_allocated on the card (PERF.md, stated
+# before the first run)
+DRY_PEAK_BAND = (0.8, 1.25)
+_DRY_RUNNER = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec, shapes_for
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.specs import build_cell
+job = json.loads(sys.argv[1])
+for arch, shp in job["cells"]:
+    shape = shapes_for(get_config(arch).family)[shp]
+    try:
+        rec = dryrun.run_cell(arch, shape, False)
+    except Exception as e:
+        rec = {"arch": arch, "shape": shp, "status": "fail",
+               "error": f"{type(e).__name__}: {e}"[-1000:]}
+    print("DRYCELL " + json.dumps(rec), flush=True)
+dryrun.fake_process_group(4)
+mesh = make_debug_mesh((2, 2), ("data", "model"))
+a = job["card"]
+cell = build_cell(a["arch"], ShapeSpec("mesh_a", "train", seq_len=a["S"],
+                                       global_batch=a["B"]), mesh, False,
+                  a["over"], a["variant"])
+mode, secs = dryrun.count_cell(cell, mesh, False, cell.rules)
+print("DRYCARD " + json.dumps({"coll": mode.collectives(),
+                               "peak": mode.peak_bytes(),
+                               "arg": mode.arg_bytes, "trace_s": secs}),
+      flush=True)
+"""
+
+
+class DryRunJob:
+    """The dry run in a process of its own on the host (no card: it sees
+    none), started after the state build beside the card phases: the
+    DRY_CELLS on a fake 16 x 16 group, then mesh (a)'s train cell on a
+    fake 2 x 2 group. `result()` waits for it and parses its records;
+    `stop()` ends it."""
+
+    def __init__(self):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+        job = {"cells": DRY_CELLS, "card": {
+            "arch": LM_ARCH, "variant": LM_VARIANT, "B": LM_B, "S": LM_S,
+            "over": {"n_layers": LM_PARITY_LAYERS, "dtype": "float32",
+                     "param_dtype": "float32", "microbatch": 0}}}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _DRY_RUNNER, json.dumps(job)], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        self.out = {}
+
+        def collect():
+            self.out["stdout"], self.out["stderr"] = self.proc.communicate()
+            self.out["secs"] = time.perf_counter() - self.t0
+        self.thread = threading.Thread(target=collect, daemon=True)
+        self.thread.start()
+
+    def result(self, timeout=600):
+        self.thread.join(timeout)
+        if self.thread.is_alive() or self.proc.returncode != 0:
+            print(self.out.get("stderr", "")[-3000:])
+            raise AssertionError(f"the dry-run process failed (exit code "
+                                 f"{self.proc.returncode})")
+        cells, card = [], None
+        for ln in self.out["stdout"].splitlines():
+            if ln.startswith("DRYCELL "):
+                cells.append(json.loads(ln[8:]))
+            elif ln.startswith("DRYCARD "):
+                card = json.loads(ln[8:])
+        return cells, card, self.out["secs"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(60)
+
+
+def dry_run_phase(job, mesh_res):
+    """The dry run's records: each DRY_CELLS cell must be ok (peak GB per
+    rank, the three roofline terms against the H100 SXM, the dominant
+    term printed); mesh (a)'s train cell counted on a fake 2 x 2 group
+    must predict the collective bytes by kind that collectives.TRAFFIC
+    recorded on the card exactly, and its peak within DRY_PEAK_BAND of
+    the card's."""
+    cells, card, secs = job.result()
+    print(f"  the dry-run process took {secs:.2f} s on the host (beside the "
+          f"card phases)")
+    bad = []
+    for r in cells:
+        if r.get("status") != "ok":
+            bad.append(f"{r['arch']} {r['shape']}: {r.get('error')}")
+            continue
+        t = r["roofline"]
+        print(f"  {r['arch']} x {r['shape']} ({r['mesh']}, layers "
+              f"{r.get('counted_layers')} -> {r.get('n_layers')}): peak "
+              f"{r['memory']['peak_gb']:.2f} GiB a rank; compute "
+              f"{t['compute_s']:.3e} s, memory {t['memory_s']:.3e} s, "
+              f"collective {t['collective_s']:.3e} s: {t['dominant']}; "
+              f"counted in {r['trace_s']} s; overrides {r['overrides']}",
+              flush=True)
+    if len(cells) != len(DRY_CELLS) or bad:
+        raise AssertionError(f"dry-run cells not ok: {bad}")
+    names = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+             "reduce_scatter": "reduce-scatter"}
+    real = mesh_res[0]["a"]["traffic"]
+    real = {names[k]: float(v) for k, v in real.items() if v}
+    pred = {k[:-4]: v for k, v in card["coll"].items() if k.endswith("_raw")}
+    peak = mesh_res[0]["a"]["peak_gb"] * 1e9
+    share = card["peak"] / peak
+    print(f"  mesh (a)'s train step, dry run on a fake 2 x 2 group against "
+          f"the card's rank 0: collective bytes by kind predicted {pred}, "
+          f"recorded {real}, equal {pred == real}; peak predicted "
+          f"{card['peak'] / 1e9:.3f} GB (arguments {card['arg'] / 1e9:.3f}), "
+          f"measured {peak / 1e9:.3f} GB: {share:.3f} x (band "
+          f"{DRY_PEAK_BAND}); counted in {card['trace_s']:.2f} s", flush=True)
+    if pred != real:
+        raise AssertionError("the dry run's collective bytes differ from "
+                             "the card's")
+    if not DRY_PEAK_BAND[0] <= share <= DRY_PEAK_BAND[1]:
+        raise AssertionError(f"the dry run's peak is {share:.3f} x the "
+                             f"card's, outside {DRY_PEAK_BAND}")
+
+
+def _mesh_ref_recsys(job, dev):
+    """(h)'s one-rank reference on the card: wide-deep full() from the init
+    of SEED + 40 (fused tables), its serve logits at B 512 and one train
+    step at B MESH_RECSYS_TRAIN_B; saves the batches, the logits, the
+    loss and norm, the new MLP leaves and each field's new rows at the
+    ids the step touched (AdamW leaves every other row as it was)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import RecsysStream
+    from repro_torch.models import recsys as rs
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("wide-deep", RECSYS_SIZE)
+    t0 = time.perf_counter()
+    params = rs.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 40), device=dev)
+    train = RecsysStream(cfg, seed=SEED + 41).batch(MESH_RECSYS_TRAIN_B)
+    serve = _no_label(RecsysStream(cfg, seed=SEED + 42).batch(
+        MESH_RECSYS_SERVE_B))
+    for name, b in (("h_train", train), ("h_serve", serve)):
+        np.savez(os.path.join(job, name + ".npz"), **b)
+    logits = rs.make_serve_step(cfg)(params, rs.as_batch(serve, dev))
+    np.save(os.path.join(job, "h_logits.npy"), logits.cpu().numpy())
+    tb = rs.as_batch(train, dev)
+    p2, _, m = rs.make_train_step(cfg)(params, adamw_init(rs.train_tree(
+        params)), tb)
+    del params
+    ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    for k, v in p2.items():
+        if isinstance(v, rs.FusedTable):
+            for i in range(len(v.rows)):
+                ids = torch.unique(tb["sparse"][:, i].long())
+                np.save(os.path.join(job, f"h_{k}_t{i}_ids.npy"),
+                        ids.cpu().numpy())
+                np.save(os.path.join(job, f"h_{k}_t{i}_rows.npy"),
+                        v[f"t{i}"][ids].cpu().numpy())
+        else:
+            np.save(os.path.join(job, f"h_{k}.npy"), v.cpu().numpy())
+    with open(os.path.join(job, "h_ref.json"), "w") as f:
+        json.dump(ref, f)
+    del p2
+    torch.cuda.empty_cache()
+    return ref, time.perf_counter() - t0
+
+
+def _mesh_recsys(rank, mesh, job, dev):
+    """(h): wide-deep full() row-sharded on `mesh`: each rank draws the
+    one-rank init of SEED + 40 whole on the card and keeps its slice of
+    every field's rows; the serve logits of its rows against the one-rank
+    logits, one train step against the one-rank step (loss, norm, the MLP
+    leaves, every touched row; every other row bitwise its init). Returns
+    (results, the wide bag's inputs as the train step gave them to
+    embedding_bag: this rank's slice shape)."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("wide-deep", RECSYS_SIZE)
+    t0 = time.perf_counter()
+    full = rs.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 40), device=dev)
+    with sh.rules_ctx({}, mesh=mesh):
+        psh = rs.param_shardings(cfg, mesh)
+        tree = {k: {f"t{i}": v[f"t{i}"] for i in range(len(v.rows))}
+                if isinstance(v, rs.FusedTable) else v
+                for k, v in full.items()}
+        params = tu.tree_map(lambda x, s: s.shard(x).clone(), tree, psh)
+    del full, tree
+    sync(dev)
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    init = {k: {f: t.clone() for f, t in v.items()}
+            for k, v in params.items() if isinstance(v, dict)}
+    out = {"init_s": init_s}
+    with sh.rules_ctx({}, mesh=mesh):
+        rows = sh.named_sharding(mesh, "batch", None)
+        rows1 = sh.named_sharding(mesh, "batch")
+
+        def local(name):
+            b = dict(np.load(os.path.join(job, name + ".npz")))
+            return rs.as_batch({k: (rows if v.ndim == 2 else rows1).shard(v)
+                                for k, v in b.items()}, dev)
+        sb = local("h_serve")
+        logits, out["serve_ms"], _, out["serve_traffic"] = _mesh_timed(
+            dev, lambda: rs.make_serve_step(cfg)(params, sb))
+        ref = torch.from_numpy(np.asarray(rows1.shard(np.load(os.path.join(
+            job, "h_logits.npy")))))
+        out["logits_diff"] = float((logits.cpu() - ref).abs().max())
+        out["logits_close"] = bool(torch.allclose(logits.cpu(), ref,
+                                                  **MESH_RECSYS_TOL))
+        tb = local("h_train")
+        # the wide bag's inputs as the step gives them to embedding_bag
+        bags, real = [], bag_ops.embedding_bag
+        bag_ops.embedding_bag = lambda *a: (bags.append(a), real(*a))[1]
+        try:
+            (p2, _, m), out["step_ms"], out["peak_gb"], out["traffic"] = \
+                _mesh_timed(dev, lambda: rs.make_train_step(cfg)(
+                    params, adamw_init(params), tb))
+        finally:
+            bag_ops.embedding_bag = real
+    ref = json.load(open(os.path.join(job, "h_ref.json")))
+    ri = mesh.axis_index(sh.spec_axes(sh.BASE_RULES["table_rows"]))
+    out.update(loss=float(m["loss"]), ref_loss=ref["loss"],
+               grad_norm=float(m["grad_norm"]),
+               ref_grad_norm=ref["grad_norm"])
+    worst, untouched = 0.0, True
+    for k, v in p2.items():
+        if not isinstance(v, dict):
+            want = torch.from_numpy(np.load(os.path.join(job, f"h_{k}.npy")))
+            worst = max(worst, float((v.cpu() - want).abs().max()))
+            continue
+        for f, t in v.items():
+            n = t.shape[0]
+            ids = torch.from_numpy(np.load(os.path.join(
+                job, f"h_{k}_{f}_ids.npy"))).to(dev)
+            want = torch.from_numpy(np.load(os.path.join(
+                job, f"h_{k}_{f}_rows.npy"))).to(dev)
+            lo = ri * n
+            mine = (ids >= lo) & (ids < lo + n)
+            if bool(mine.any()):
+                worst = max(worst, float((t[ids[mine] - lo]
+                                          - want[mine]).abs().max()))
+            keep = torch.ones(n, dtype=torch.bool, device=dev)
+            keep[ids[mine] - lo] = False
+            untouched &= bool(torch.equal(t[keep], init[k][f][keep]))
+    out.update(param_diff=worst, untouched_bitwise=untouched)
+    table, idx = bags[0]
+    return out, (table.detach(), idx)
+
+
+def _mesh_bag_check(bag, dev):
+    """embedding_bag at the rank's row-slice shape (its wide slices and
+    the zero row that other ranks' ids read): the kernel bitwise its
+    plain version; the launch alone (CUDA-graph replay), the plain
+    version and F.embedding_bag timed; the bound counts the distinct rows
+    the ids read, the indices, and the output."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+    from repro_torch.kernels.embedding_bag import kernel as eb_kernel
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    table, idx = bag
+    out = eb_ops.embedding_bag(table, idx)
+    ref = embedding_bag_ref(table, idx)
+    sync(dev)
+    B, hot = idx.shape
+    d = table.shape[1]
+    zero = table.shape[0] - 1
+    rows_read = torch.unique(idx).numel()
+    io = 4 * idx.numel() + 4 * B * d
+    b_ms, b_by = bound(4 * rows_read * d + io, idx.numel() * d)
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+    o2 = torch.empty_like(ref)
+    lib = torch.nn.functional.embedding_bag(idx, table, mode="sum")
+    return {"bitwise": bool(torch.equal(out.view(torch.int32),
+                                        ref.view(torch.int32))),
+            "shape": [B, hot, d], "rows": int(table.shape[0]),
+            "own_ids": int((idx != zero).sum()),
+            "zero_row": bool(torch.all(table[zero] == 0)),
+            "ms": graph_ms(lambda: eb_kernel.embedding_bag_cuda(
+                table, idx, o2, word)),
+            "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, idx), 5),
+            "library_ms": graph_ms(lambda: torch.nn.functional.embedding_bag(
+                idx, table, mode="sum")),
+            "library_max_abs_err": float((lib - ref).abs().max()),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _mesh_rules(mesh):
@@ -4682,15 +5028,19 @@ def _mesh_lm_step(rank, mesh, cfg, job, tag, dev, seed):
     return res, p2, psh
 
 
-def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None):
+def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None, rules=None):
     """Prefill of ref["tokens"] and decode steps fed ref["dec_tokens"]
-    (this rank's rows) on `mesh`: each step's logits against the
-    reference's rows (each row's max |diff|, and with `tol` whether the
-    step is allclose at it), with the prefill and per-token ms."""
+    (this rank's rows) on `mesh` under `rules`: each step's logits
+    against the reference's rows (each row's max |diff|, and with `tol`
+    whether the step is allclose at it), with the prefill and per-token
+    ms and the prefill's peak memory (under its own key: the caller's
+    "peak_gb" is its train step's). Where the rules split the KV
+    sequence, the prefill's cache slices
+    are gathered and cut again at the decode cache's slots."""
     from repro_torch.models import sharding as sh
     from repro_torch.models import transformer as tt
 
-    with sh.rules_ctx({}, mesh=mesh), torch.no_grad():
+    with sh.rules_ctx(rules or {}, mesh=mesh), torch.no_grad():
         rows = sh.named_sharding(mesh, "batch")
         tok = torch.as_tensor(rows.shard(np.asarray(ref["tokens"]))).to(dev)
         B, S = tok.shape
@@ -4700,10 +5050,20 @@ def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None):
         logits, kv = out
         Bg = B * mesh.axis_size(sh.spec_axes(sh.spec("batch")[0]))
         csh = tt.cache_shardings(cfg, mesh, Bg, slots)
-        cache = {k: csh[k].shard(tt.init_cache(cfg, Bg, slots, device=dev)[
-            k]).clone() for k in ("k", "v")}
-        for k in cache:
-            cache[k][:, :, :kv[k].shape[2]] = kv[k]
+        if sh.spec("seq_kv")[0] is not None:
+            psh = tt.cache_shardings(cfg, mesh, Bg, S)
+            full = tt.init_cache(cfg, Bg, slots, device=dev)
+            for k in full:
+                whole = psh[k].gather(kv[k].contiguous())
+                full[k][:, :, :whole.shape[2]] = whole
+            cache = {k: csh[k].shard(full[k]).clone() for k in full}
+            del full, whole
+        else:
+            cache = {k: csh[k].shard(tt.init_cache(cfg, Bg, slots,
+                                                   device=dev)[k]).clone()
+                     for k in ("k", "v")}
+            for k in cache:
+                cache[k][:, :, :kv[k].shape[2]] = kv[k]
         del kv
         got = [logits]
         sync(dev)
@@ -4721,7 +5081,8 @@ def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None):
             diffs.append((g.float().cpu() - r).abs().amax(1).tolist())
             if tol is not None:
                 close.append(bool(torch.allclose(g.float().cpu(), r, **tol)))
-        return {"prefill_ms": ms, "decode_ms": dec_ms, "peak_gb": peak,
+        return {"prefill_ms": ms, "decode_ms": dec_ms,
+                "prefill_peak_gb": peak,
                 "prefill_traffic": traffic, "row_diff": diffs,
                 "close": close, "rows": [int(i) for i in idx]}
 
@@ -4818,8 +5179,10 @@ def mesh_rank(rank, world, job, dev_kind, settings):
     """One of phase 23's gloo ranks on the card (a process of its own; a
     FileStore in the job directory): (a) qwen2 on 2 x 2, (b) mixtral's
     TP MoE on 2 x 2, (e) the elastic restore of (b)'s params, (c) arctic's
-    EP MoE on 1 x 4, (d) nequip owner-sharded on 2 x 2, with the kernel
-    launch counts zeroed before (a) and read after (d). Rank 0 saves the
+    EP MoE on 1 x 4, (d) nequip owner-sharded on 2 x 2, (f) uneven query
+    heads on 1 x 4, (g) decode with the KV sequence over "model" on 1 x 4,
+    (h) wide-deep's row-sharded tables on 2 x 2, with the kernel launch
+    counts zeroed before (a) and read after (h). Rank 0 saves the
     router's per-shard top-k inputs. `settings` carries the parent's
     module settings (a spawned process imports this module afresh).
     Writes rank<r>.json."""
@@ -4918,8 +5281,44 @@ def mesh_rank(rank, world, job, dev_kind, settings):
         torch.cuda.empty_cache()
         # (d) nequip owner-sharded
         out["d"] = _mesh_gnn(rank, m22, job, dev)
+        torch.cuda.empty_cache()
+        # (f) query heads that do not divide the model axis, on 1 x 4
+        cfg = dataclasses.replace(
+            get_config(LM_ARCH, LM_VARIANT), n_layers=LM_PARITY_LAYERS,
+            dtype="float32", param_dtype="float32", microbatch=0,
+            **MESH_UNEVEN)
+        out["f"], p2, _ = _mesh_lm_step(rank, m14, cfg, job, "f", dev, 1)
+        del p2
+        with sh.rules_ctx({}, mesh=m14):
+            params = tt.init_params(cfg, torch.Generator(device=dev)
+                                    .manual_seed(1), device=dev,
+                                    shardings=tt.param_shardings(cfg, m14))
+        out["f"].update(_mesh_infer(m14, cfg, params, torch.load(
+            os.path.join(job, "f_infer.pt")), dev, LM_S + 8, tol=MESH_TOL))
+        del params
+        torch.cuda.empty_cache()
+        # (g) (a)'s config decoding with the KV sequence over "model"
+        cfg = dataclasses.replace(
+            get_config(LM_ARCH, LM_VARIANT), n_layers=LM_PARITY_LAYERS,
+            dtype="float32", param_dtype="float32", microbatch=0)
+        seq = {"seq_kv": ("model",)}
+        with sh.rules_ctx(seq, mesh=m14):
+            params = tt.init_params(cfg, torch.Generator(device=dev)
+                                    .manual_seed(1), device=dev,
+                                    shardings=tt.param_shardings(cfg, m14))
+        out["g"] = _mesh_infer(m14, cfg, params, torch.load(
+            os.path.join(job, "a_infer.pt")), dev, LM_S + 8, tol=MESH_TOL,
+            rules=seq)
+        del params
+        torch.cuda.empty_cache()
+        # (h) wide-deep's tables split along "table_rows" on 2 x 2
+        out["h"], bag = _mesh_recsys(rank, m22, job, dev)
         sync(dev)
         out["launches"] = dict(kernels.LAUNCHES)
+        # embedding_bag at the rank's slice shape against its plain
+        # version, after the launch counts are read
+        out["h_bag"] = _mesh_bag_check(bag, dev)
+        del bag
         out["seconds"] = time.perf_counter() - t_all
         with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -4971,9 +5370,9 @@ def _mesh_ref_step(cfg, tag, job, dev, seed, B, S):
     return ref, peak
 
 
-def _mesh_ref_infer(cfg, job, dev, seed):
-    """(a)'s one-rank prefill of (LM_B, LM_S) tokens and 4 greedy decode
-    steps from the init of `seed`, saved for the ranks."""
+def _mesh_ref_infer(cfg, job, dev, seed, tag="a"):
+    """(a)'s (or `tag`'s) one-rank prefill of (LM_B, LM_S) tokens and 4
+    greedy decode steps from the init of `seed`, saved for the ranks."""
     from repro_torch.models import transformer as tt
 
     params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -4981,7 +5380,7 @@ def _mesh_ref_infer(cfg, job, dev, seed):
     rec = {}
     lm_infer_timing(dev, cfg, LM_B, LM_S, LM_S + 8, 4, params=params,
                     record=rec)
-    torch.save(rec, os.path.join(job, "a_infer.pt"))
+    torch.save(rec, os.path.join(job, f"{tag}_infer.pt"))
     del params
     torch.cuda.empty_cache()
 
@@ -4991,9 +5390,10 @@ def mesh_phase(dev, job):
     mixtral's one-rank steps, qwen2's prefill and decode; arctic's and
     nequip's from phases 21 and 20), then MESH_RANKS processes
     (torch.multiprocessing, spawn) on the one card in a gloo group run
-    `mesh_rank`; a rank that raises fails the phase. Gates: (a) and (b)
-    loss within MESH_LOSS_ATOL and every param within MESH_PARAM_ATOL of
-    the one-rank step ((b)'s reference steps each data shard's rows as a
+    `mesh_rank`; a rank that raises fails the phase. Gates: (a), (b) and
+    (f) loss within MESH_LOSS_ATOL, every param within MESH_PARAM_ATOL
+    and the gradient norm within MESH_GRAD_NORM_RTOL of the one-rank step
+    ((b)'s reference steps each data shard's rows as a
     microbatch, so its MoE drops per shard as the sharded one does), (a)'s
     logits at MESH_TOL; (c) the rows routed clear within ARCTIC_MESH_TOL
     x max |logit|; (d) energies allclose at GNN_TOL's rtol and
@@ -5015,6 +5415,10 @@ def mesh_phase(dev, job):
         get_config("mixtral-8x7b", MOE_VARIANT), n_layers=1, dtype="float32",
         param_dtype="float32", microbatch=2)
     ref_b, peak_b = _mesh_ref_step(cfg_b, "b", job, dev, 1, LM_B, LM_S)
+    cfg_f = dataclasses.replace(cfg_a, **MESH_UNEVEN)
+    ref_f, peak_f = _mesh_ref_step(cfg_f, "f", job, dev, 1, LM_B, LM_S)
+    _mesh_ref_infer(cfg_f, job, dev, 1, tag="f")
+    ref_h, ref_h_s = _mesh_ref_recsys(job, dev)
     torch.save(MESH_REFS["arctic"], os.path.join(job, "c_infer.pt"))
     g = MESH_REFS["gnn"]
     for k, v in g["batch"].items():          # np.load-ed by each rank
@@ -5024,7 +5428,10 @@ def mesh_phase(dev, job):
     ref_s = time.perf_counter() - t0
     print(f"  one-rank references in {ref_s:.2f} s: qwen2 step (peak "
           f"{peak_a:.2f} GB) {ref_a}; mixtral step by data-shard "
-          f"microbatches (peak {peak_b:.2f} GB) {ref_b}", flush=True)
+          f"microbatches (peak {peak_b:.2f} GB) {ref_b}; qwen2 with "
+          f"{MESH_UNEVEN} (peak {peak_f:.2f} GB) {ref_f}; wide-deep "
+          f"{RECSYS_SIZE} serve B {MESH_RECSYS_SERVE_B} and train step B "
+          f"{MESH_RECSYS_TRAIN_B} ({ref_h_s:.2f} s) {ref_h}", flush=True)
     torch.cuda.empty_cache()
     settings = {k: globals()[k] for k in (
         "LM_ARCH", "LM_VARIANT", "LM_PARITY_LAYERS", "LM_S",
@@ -5045,7 +5452,9 @@ def mesh_phase(dev, job):
     for part, name in (("a", f"(a) {LM_ARCH} {LM_PARITY_LAYERS} layers "
                               f"float32, 2 x 2"),
                        ("b", "(b) mixtral-8x7b 1 layer float32 "
-                             "tp_shard_map, 2 x 2")):
+                             "tp_shard_map, 2 x 2"),
+                       ("f", f"(f) {LM_ARCH} {LM_PARITY_LAYERS} layers "
+                             f"float32 with {MESH_UNEVEN}, 1 x 4")):
         rr = [r[part] for r in res]
         loss_d = max(abs(x["loss"] - x["ref_loss"]) for x in rr)
         pd = max(x["param_diff"] for x in rr)
@@ -5055,9 +5464,13 @@ def mesh_phase(dev, job):
               f", peak GB {per_rank(part, 'peak_gb')}; loss |diff| "
               f"{loss_d:.3g} (gate {MESH_LOSS_ATOL}), params max |diff| "
               f"{pd:.3g} (gate {MESH_PARAM_ATOL}), grad norm "
-              f"{rr[0]['grad_norm']:.4f} (relative diff {gn:.3g}); bytes "
+              f"{rr[0]['grad_norm']:.4f} (relative diff {gn:.3g}, gate "
+              f"{MESH_GRAD_NORM_RTOL}); bytes "
               f"per step per rank {rr[0]['traffic']}", flush=True)
-        if not (loss_d < MESH_LOSS_ATOL and pd < MESH_PARAM_ATOL):
+        # one AdamW step moves a weight by about lr whatever its gradient:
+        # the gradient norm holds the backward's magnitude
+        if not (loss_d < MESH_LOSS_ATOL and pd < MESH_PARAM_ATOL
+                and gn < MESH_GRAD_NORM_RTOL):
             fails.append(name)
     a = [r["a"] for r in res]
     worst = max(max(max(d) for d in x["row_diff"]) for x in a)
@@ -5070,6 +5483,54 @@ def mesh_phase(dev, job):
           f"every rank {close}", flush=True)
     if not close:
         fails.append("(a) logits")
+    for part, name in (("f", f"(f) {MESH_UNEVEN} on 1 x 4"),
+                       ("g", "(g) seq_kv on \"model\", 1 x 4")):
+        x = [r[part] for r in res]
+        worst = max(max(max(d) for d in y["row_diff"]) for y in x)
+        close = all(all(y["close"]) for y in x)
+        print(f"  {name}: prefill ({LM_B}, {LM_S}) ms per rank "
+              f"{per_rank(part, 'prefill_ms')}, decode ms a token "
+              f"{per_rank(part, 'decode_ms')}; logits against the one-rank "
+              f"step max |diff| {worst:.3g}, allclose(rtol "
+              f"{MESH_TOL['rtol']}, atol {MESH_TOL['atol']}) at every step "
+              f"on every rank {close}; prefill bytes a rank "
+              f"{x[0]['prefill_traffic']}", flush=True)
+        if not close:
+            fails.append(f"{name} logits")
+    h = [r["h"] for r in res]
+    hb = [r["h_bag"] for r in res]
+    loss_d = max(abs(x["loss"] - x["ref_loss"]) for x in h)
+    gn = max(abs(x["grad_norm"] - x["ref_grad_norm"]) / x["ref_grad_norm"]
+             for x in h)
+    print(f"  (h) wide-deep {RECSYS_SIZE} tables along table_rows, 2 x 2: "
+          f"init slices {per_rank('h', 'init_s')} s; serve B "
+          f"{MESH_RECSYS_SERVE_B} ms per rank {per_rank('h', 'serve_ms')}, "
+          f"logits max |diff| {max(x['logits_diff'] for x in h):.3g} "
+          f"allclose {all(x['logits_close'] for x in h)}; train step B "
+          f"{MESH_RECSYS_TRAIN_B} ms per rank {per_rank('h', 'step_ms')}, "
+          f"peak GB {per_rank('h', 'peak_gb')}; loss |diff| {loss_d:.3g} "
+          f"(gate {MESH_LOSS_ATOL}), grad norm relative diff {gn:.3g}, "
+          f"params max |diff| {max(x['param_diff'] for x in h):.3g} (gate "
+          f"{MESH_PARAM_ATOL}), untouched rows bitwise "
+          f"{all(x['untouched_bitwise'] for x in h)}; bytes a step per rank "
+          f"{h[0]['traffic']}, a serve {h[0]['serve_traffic']}", flush=True)
+    others = hb[0]['shape'][0] * hb[0]['shape'][1] - hb[0]['own_ids']
+    print(f"  (h) embedding_bag at the rank's slice shape (B, hot, d) "
+          f"{hb[0]['shape']} over {hb[0]['rows']} rows (the last a zero "
+          f"row, read by {others} "
+          f"ids of other ranks' rows, zero on every rank "
+          f"{all(x['zero_row'] for x in hb)}): "
+          f"bitwise the plain version on every rank "
+          f"{all(x['bitwise'] for x in hb)}; ms {hb[0]['ms']:.4f} plain "
+          f"{hb[0]['plain_ms']:.4f} library {hb[0]['library_ms']:.4f} bound "
+          f"{hb[0]['bound_ms']:.4f} ({hb[0]['bound_by']})", flush=True)
+    if not (all(x["logits_close"] for x in h) and loss_d < MESH_LOSS_ATOL
+            and gn < MESH_GRAD_NORM_RTOL
+            and max(x["param_diff"] for x in h) < MESH_PARAM_ATOL
+            and all(x["untouched_bitwise"] for x in h)):
+        fails.append("(h) wide-deep row-sharded")
+    if not all(x["bitwise"] and x["zero_row"] for x in hb):
+        fails.append("(h) embedding_bag at the slice shape")
     b = [r["b"] for r in res]
     print(f"  (b) dropped (token, k) pairs per shard "
           f"{[x['dropped'] for x in b]} (each model rank of a data shard "
@@ -5098,8 +5559,9 @@ def mesh_phase(dev, job):
           f"{per_rank('c', 'params_gb')} GB a rank (init peak "
           f"{per_rank('c', 'init_peak_gb')} GB, the ranks' inits in turn); "
           f"prefill ({LM_B}, {LM_S}) ms {per_rank('c', 'prefill_ms')}, "
-          f"decode ms a token {per_rank('c', 'decode_ms')}, peak GB "
-          f"{per_rank('c', 'peak_gb')}; logits rows per step clear of a "
+          f"decode ms a token {per_rank('c', 'decode_ms')}, prefill peak "
+          f"GB {per_rank('c', 'prefill_peak_gb')}; logits rows per step "
+          f"clear of a "
           f"router tie {clear_rows} of {LM_B}, over tolerance {bad}; prefill "
           f"max |diff| {arc_worst[0]:.4g} (tolerance {arc_worst[1]:.4g}); "
           f"all-reduce bytes of the prefill per rank "
@@ -5135,12 +5597,14 @@ def mesh_phase(dev, job):
           f"{[round(r['seconds'], 1) for r in res]}", flush=True)
     if fails:
         raise AssertionError(f"mesh phase: {fails}")
+    MESH_REFS["ranks"] = res
     shapes = {}
     for f in sorted(os.listdir(job)):
         if f.startswith("topk_"):
             x = torch.from_numpy(np.load(os.path.join(job, f))).to(dev)
             shapes[tuple(x.shape)] = x
-    return launches, shapes
+    bag = dict(hb[0], launches=launches.get("embedding_bag", 0))
+    return launches, shapes, bag
 
 
 # ---------------------------------------------------------------------------
@@ -5298,9 +5762,10 @@ PATH_KERNELS = {
     "moe": ("topk",),
     # nequip's gathers, scatters and einsums are plain torch ops
     "gnn": (),
-    # the ranks' MoE routers (mixtral on 2 x 2, arctic on 1 x 4); the rest
-    # is cuBLAS, plain torch ops and gloo collectives
-    "mesh": ("topk",),
+    # the ranks' MoE routers (mixtral on 2 x 2, arctic on 1 x 4) and the
+    # row-sharded wide bag of wide-deep on 2 x 2; the rest is cuBLAS, plain
+    # torch ops and gloo collectives
+    "mesh": ("topk", "embedding_bag"),
     # quickstart and serve (memory store, "dot" tail, selector training),
     # the recsys example
     "examples": ("cluster_score", "lstm_sequence", "topk", "bin_overlap",
@@ -5396,6 +5861,9 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
         # phase 20's minibatch_lg host side, in its own process from here
         gnn_host = GnnHostJob()
         cleanup.append(gnn_host.stop)
+        # the dry run on the host, beside the card phases
+        dry_job = DryRunJob()
+        cleanup.append(dry_job.stop)
         with phase("index directories (write_index v2, v1 float32 with "
                    "pq/) and the DiskClusterStore file"):
             dirs, blocks = write_dirs(cfg, index, pq, corpus, tmp)
@@ -5584,8 +6052,22 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
                    f"arctic-480b (ep_shard_map) prefill and decode on 1 x 4, "
                    f"nequip minibatch_lg on 4 owner shards, elastic "
                    f"restore"):
-            paths["mesh"], mesh_shapes = mesh_phase(dev, tmp)
+            paths["mesh"], mesh_shapes, mesh_bag = mesh_phase(dev, tmp)
+    with phase(f"dry run: {len(DRY_CELLS)} cells on a fake 16 x 16 group "
+               f"(host), and mesh (a)'s train cell on a fake 2 x 2 group "
+               f"against the card's"):
+        dry_run_phase(dry_job, MESH_REFS["ranks"])
     MESH_REFS.clear()
+    eb_row = next(r for r in rows if r["name"] == "embedding_bag")
+    eb_row["shapes"].append(
+        f"mesh (h) row-sharded wide bag, one rank's slices (B, hot, d) "
+        f"{mesh_bag['shape']} over {mesh_bag['rows']} rows, the last a "
+        f"zero row for other ranks' ids ({mesh_bag['own_ids']} ids of "
+        f"this rank's rows): ms {mesh_bag['ms']:.4f} "
+        f"plain {mesh_bag['plain_ms']:.4f} library "
+        f"{mesh_bag['library_ms']:.4f} bound {mesh_bag['bound_ms']:.4f} "
+        f"({mesh_bag['bound_by']}); the mesh path's launches "
+        f"{mesh_bag['launches']}")
     with phase("kernels vs plain versions at the mesh router's per-shard "
                "shapes"):
         check_moe_topk(rows, mesh_shapes, MESH_TOPK_SHAPES,

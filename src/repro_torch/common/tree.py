@@ -2,6 +2,9 @@
 arrays, or scalars), the port's counterpart of the JAX package's pytree
 helpers in `repro.common.tree` that the optimizers and checkpoints use.
 
+Also the rest of `repro.common.tree`: tree_add, clip_by_global_norm,
+param_count, param_bytes and cast_tree.
+
 Leaves are visited in JAX's order: a dict's keys sorted at every level.
 A leaf's path is JAX's `keystr` of its dict keys, e.g. "['opt']['mu']['b']"
 (`leaf_paths`), which is what the npz checkpoints record.
@@ -65,3 +68,29 @@ def global_norm(tree):
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def clip_by_global_norm(tree, max_norm):
+    """(tree scaled by min(1, max_norm / (norm + 1e-12)), norm), the
+    reference's clip in float32."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return tree_scale(tree, scale), norm
+
+
+def param_count(tree):
+    return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+def param_bytes(tree):
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+
+
+def cast_tree(tree, dtype):
+    """Floating leaves cast to `dtype`; the others as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)

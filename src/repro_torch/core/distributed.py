@@ -249,10 +249,10 @@ def topk_wide(x, k, width=MAX_K):
     return torch.cat(vals, 1), torch.cat(idx, 1)
 
 
-def _occurrence_ranks(docs, real):
+def _occurrence_ranks(docs, real, n=None):
     """(..., P) -> rank of each real entry among the earlier entries of
     its row holding the same doc (0 elsewhere), and one more than the
-    largest rank."""
+    largest rank (`n` where the caller knows it: no host sync)."""
     P = docs.shape[-1]
     flat = docs.reshape(-1, P)
     sd, order = torch.sort(flat, dim=1, stable=True)
@@ -262,11 +262,12 @@ def _occurrence_ranks(docs, real):
     start = torch.where(new_run, pos, 0).cummax(1).values
     rank = torch.empty_like(order).scatter_(1, order, pos - start)
     rank = torch.where(real.reshape(-1, P), rank, 0)
-    n = int(rank.max()) + 1 if rank.numel() else 1
+    if n is None:
+        n = int(rank.max()) + 1 if rank.numel() else 1
     return rank.reshape(docs.shape), n
 
 
-def _local_sparse_scores(pd_l, pw_l, q_t, q_w, mi, d_local):
+def _local_sparse_scores(pd_l, pw_l, q_t, q_w, mi, d_local, n_ranks=None):
     """(B, d_local) sparse scores of this rank's docs. A doc's
     contributions are added in the flattened (term, posting) order, as
     JAX's segment_sum adds them: one scatter layer per query term and
@@ -280,7 +281,7 @@ def _local_sparse_scores(pd_l, pw_l, q_t, q_w, mi, d_local):
                           ws * q_w[..., None], 0.0)
     local = torch.where(docs >= 0, docs - mi * d_local, d_local)
     local = local.clamp(0, d_local).long()
-    rank, n_ranks = _occurrence_ranks(local, docs >= 0)
+    rank, n_ranks = _occurrence_ranks(local, docs >= 0, n_ranks)
     scores = torch.zeros((B, d_local + 1), dtype=torch.float32,
                          device=q_t.device)
     for t in range(docs.shape[1]):
@@ -291,9 +292,14 @@ def _local_sparse_scores(pd_l, pw_l, q_t, q_w, mi, d_local):
     return scores[:, :d_local]
 
 
-def make_serve_step(cfg, mesh, bidx_shapes, feat_dim):
+def make_serve_step(cfg, mesh, bidx_shapes, feat_dim, *, layers=None):
     """The sharded serve function of this rank. bidx_shapes: (N, cap,
-    dim, V, P_shard, m); N must divide over the model ranks.
+    dim, V, P_shard, m); N must divide over the model ranks. `layers`:
+    None, or (R, M) where the caller knows them: R the most times a
+    posting list holds one doc (1 for an index of distinct (doc, term)
+    pairs), M the most entries of one doc in the fusion's merged lists
+    (2: each side lists a doc once). Each spares a host sync a batch;
+    None counts them from the data.
 
     serve(blocks_l, pd_l, pw_l, centroids, nb_ids, nb_sims, selector,
           q_dense, q_terms, q_weights) takes this rank's local arrays
@@ -312,6 +318,7 @@ def make_serve_step(cfg, mesh, bidx_shapes, feat_dim):
     kk = min(k, d_local)
     kd = min(cfg.max_selected * cap, 4 * k)
     k_out = min(cfg.k_final, k)
+    n_occ, n_merge = layers or (None, None)
 
     def serve(blocks_l, pd_l, pw_l, centroids, nb_ids, nb_sims, selector,
               q_dense, q_terms, q_weights):
@@ -321,7 +328,7 @@ def make_serve_step(cfg, mesh, bidx_shapes, feat_dim):
         B = q_d.shape[0]
         # ---- 1: sparse scoring at the doc owner, local top-k, merge ----
         s_scores = _local_sparse_scores(pd_l, pw_l, q_terms, q_weights, mi,
-                                        d_local)
+                                        d_local, n_occ)
         sv, si = topk_desc_index_asc(s_scores, kk)
         gid = si + mi * d_local
         sv_f = _gather_model(sv, mesh)                     # (B, nm * kk)
@@ -361,7 +368,7 @@ def make_serve_step(cfg, mesh, bidx_shapes, feat_dim):
         return fusion_lib.fuse_topk_merge(
             sparse_ids, sparse_scores, dg_all,
             torch.where(dmask, dv_all, 0.0), dmask, cfg.alpha, k_out,
-            sentinel, method=cfg.fusion, rrf_k=cfg.rrf_k)
+            sentinel, method=cfg.fusion, rrf_k=cfg.rrf_k, n_layers=n_merge)
 
     return serve
 

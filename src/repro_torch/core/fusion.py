@@ -139,7 +139,7 @@ def _fold_runs(c_s, seg, rank, n_layers):
 
 def fuse_topk_merge(sparse_ids, sparse_scores, dense_ids, dense_scores,
                     dense_mask, alpha, k, sentinel, *, sparse_mask=None,
-                    method="interp", rrf_k=60.0):
+                    method="interp", rrf_k=60.0, n_layers=None):
     """Sort-merge fusion without an O(n_docs) buffer.
 
     The masked ids become `sentinel` (an id above every real doc id); the
@@ -147,7 +147,10 @@ def fuse_topk_merge(sparse_ids, sparse_scores, dense_ids, dense_scores,
     entries first, as they come first in the concatenation), each id's
     run is folded by `_fold_runs`, and the top-k of the run totals is
     taken under (value desc, id asc) by `topk_desc_index_asc`. A doc may
-    appear any number of times. Returns (ids (B, k) int32, scores)."""
+    appear any number of times. `n_layers`, the most entries one doc
+    holds, where the caller knows it (2 when neither side lists a doc
+    twice), spares the host sync that counts it. Returns (ids (B, k)
+    int32, scores)."""
     if sparse_mask is None:
         sparse_mask = torch.ones_like(sparse_ids, dtype=torch.bool)
     s_c = side_contrib(sparse_scores, sparse_mask, alpha, method, rrf_k)
@@ -165,7 +168,8 @@ def fuse_topk_merge(sparse_ids, sparse_scores, dense_ids, dense_scores,
     rank = pos - torch.where(first, pos, 0).cummax(1).values
     # the sentinel run (the masked entries) is never folded
     real = ids_s < sentinel
-    n_layers = int(rank[real].max()) + 1 if bool(real.any()) else 0
+    if n_layers is None:
+        n_layers = int(rank[real].max()) + 1 if bool(real.any()) else 0
     totals = _fold_runs(c_s, seg, rank, n_layers)
     # each run's id at its run index (the other entries go to the dump
     # column L); indices past the last run keep the sentinel

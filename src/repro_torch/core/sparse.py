@@ -84,6 +84,14 @@ class SparseIndex:
             self, postings_docs=self.postings_docs.to(device),
             postings_weights=self.postings_weights.to(device))
 
+    def assume_distinct(self):
+        """Take the lists as holding each doc at most once (an index of
+        docs that hold each term once, as SPLADE's doc vectors do)
+        without the pass that counts it: one scatter layer a query term.
+        Returns self."""
+        self._ranks = (None, 1)
+        return self
+
     def occurrence_ranks(self):
         """(rank, R): rank[t, p] counts the slots before p in term t's list
         that hold the same doc, and R is one more than the largest rank

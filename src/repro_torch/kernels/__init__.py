@@ -29,14 +29,15 @@ def record_launch(name):
 
 def on_cuda(*tensors):
     """True when the tensors lie on one CUDA device, False when all lie on
-    the CPU; raises on a mix."""
+    the CPU or all on the meta device (the dry run, which counts the
+    plain versions' work); raises on a mix."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cuda":
         return True
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device {dev}")
 

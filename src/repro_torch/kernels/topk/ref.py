@@ -36,8 +36,11 @@ def topk_ref(x, k):
     room = k - above.sum(-1, keepdim=True, dtype=torch.int32)
     keep = above | (tied & (torch.cumsum(tied, -1, dtype=torch.int32) <= room))
     # exactly k entries per row are kept; nonzero lists them row-major,
-    # so each row's indices come out ascending
-    idx = keep.reshape(-1, D).nonzero()[:, 1].reshape(x.shape[:-1] + (k,))
+    # so each row's indices come out ascending (its static form: the
+    # count is known, so there is no host sync and no data-dependent
+    # shape)
+    idx = torch.nonzero_static(keep.reshape(-1, D), size=keep.numel() // D
+                               * k)[:, 1].reshape(x.shape[:-1] + (k,))
     order = torch.sort(keys.gather(-1, idx), dim=-1, descending=True,
                        stable=True).indices
     idx = idx.gather(-1, order)

@@ -54,9 +54,16 @@ def attention(q, k, v, *, causal=True, window=None, q_chunk=512):
     return torch.cat(outs, dim=1).reshape(B, S, Hq, hd)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def decode_attention(q, k_cache, v_cache, cache_len, *, kv_start=0,
+                     combine=None):
     """Single-token decode. q: (B, 1, Hq, hd); caches: (B, S, Hkv, hd);
-    the first `cache_len` slots are valid."""
+    the first `cache_len` slots are valid.
+
+    With `combine` (mesh, axes) the caches are this rank's slots
+    kv_start .. kv_start + S - 1 of a sequence split over `axes`, and the
+    ranks are combined flash-decode style: the row max all-reduced by
+    max, then the exp-sums and the exp-weighted V in one all-reduce; the
+    mask takes global positions. Every rank returns the whole result."""
     B, S, Hkv, hd = k_cache.shape
     Hq = q.shape[2]
     G = Hq // Hkv
@@ -64,8 +71,17 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     k_cache = logical(k_cache, "batch", "seq_kv", "kv_heads", "head_dim")
     v_cache = logical(v_cache, "batch", "seq_kv", "kv_heads", "head_dim")
     scores = torch.einsum("bhgd,bshd->bhgs", q, k_cache) / (hd ** 0.5)
-    kpos = torch.arange(S, device=q.device)[None, None, None, :]
+    kpos = kv_start + torch.arange(S, device=q.device)[None, None, None, :]
     scores = torch.where(kpos < cache_len, scores.float(), -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache)
+    if combine is None:
+        probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache)
+        return out.reshape(B, 1, Hq, hd)
+    from repro_torch.models import collectives as coll
+    mesh, axes = combine
+    m = coll.all_reduce_max(scores.amax(-1), mesh, axes)       # (B, Hkv, G)
+    p = torch.exp(scores - m[..., None])
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype), v_cache)
+    se, o = coll.all_reduce_many([p.sum(-1), o.float()], mesh, axes)
+    out = (o / se[..., None]).to(v_cache.dtype)
     return out.reshape(B, 1, Hq, hd)

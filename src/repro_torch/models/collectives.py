@@ -109,14 +109,38 @@ def _slice(t, mesh, axes, dim):
 
 
 def _reduce_scatter(t, mesh, axes, dim):
-    """Sum over `axes`, this rank's slice of `dim` (raw; an all_reduce
-    and a slice, as gloo has no reduce_scatter)."""
-    if mesh.axis_size(axes) == 1:
+    """Sum over `axes`, this rank's slice of `dim` (raw): one
+    reduce_scatter (`_reduce_scatter_tensor`) on a backend other than
+    gloo (NCCL, and the dry run's fake group) where the group's ranks run
+    in axis_index order; else an all_reduce and a slice (the card's gloo
+    groups carry CUDA tensors through host memory)."""
+    n = mesh.axis_size(axes)
+    if n == 1:
         return t
+    if dist.get_backend(mesh.group(axes)) != dist.Backend.GLOO and \
+            mesh.members(axes) == sorted(mesh.members(axes)):
+        return _reduce_scatter_tensor(t, mesh, axes, dim)
     out = _slice(_reduce(t, mesh, axes), mesh, axes, dim).contiguous()
     TRAFFIC["all_reduce"] -= t.numel() * t.element_size()
     TRAFFIC["reduce_scatter"] += t.numel() * t.element_size()
     return out
+
+
+def _reduce_scatter_tensor(t, mesh, axes, dim):
+    """_reduce_scatter by one dist.reduce_scatter_tensor, whose chunk i of
+    dim 0 goes to the group's rank i: this rank's slice when the group's
+    members (ascending global ranks) run in axis_index order. The CPU
+    tests hold it to the all_reduce and slice on gloo."""
+    n = mesh.axis_size(axes)
+    if t.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split over {n} ranks of {axes}")
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, x, group=mesh.group(axes))
+    TRAFFIC["reduce_scatter"] += t.numel() * t.element_size()
+    return out.movedim(0, dim)
 
 
 def all_reduce_max(t, mesh, axes):

@@ -20,6 +20,20 @@ weight leaf (Adam is elementwise, so this is the JAX update of every
 per-field table; only the global norm sums its squares in another
 order). Gradients reach the tables through the lookups' indexing and the
 embedding_bag op's autograd Function (its backward an index_add_).
+
+On a mesh (`models.sharding.rules_ctx(rules, mesh)` installed) the
+params are the JAX tree of per-field padded tables, each rank holding
+its slice of every field's rows along "table_rows" ("data", "model"),
+as `param_shardings` places them; the batch splits along "batch". The
+lookups are the standard model-parallel ones: the batch's ids gathered
+over the batch axes, each rank looks them up in its own row range
+(zeros for ids of other ranks' rows; the wide and first-order FM bag
+is the embedding_bag kernel over the rank's wide slices and one zero
+row that the other ranks' ids read), and a reduce-scatter over the
+table_rows axes sums the partial rows back to the batch rows (then
+gathered over the table_rows axes that are not batch axes, where every
+rank holds its data shard's rows alike). The backward of that
+reduce-scatter is an all-gather of the cotangents.
 """
 
 import dataclasses
@@ -29,9 +43,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.common import tree as tu
 from repro_torch.core.fusion import topk_desc_index_asc
 from repro_torch.device import resolve_device
 from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.models import collectives as coll
+from repro_torch.models import sharding as sh
 
 
 def dense_init(shape, generator=None, scale=None, dtype=torch.float32):
@@ -216,6 +233,21 @@ def _torch_dtype(name):
     return getattr(torch, str(name))
 
 
+def abstract_params(cfg):
+    """Meta tensors of every leaf of param_template (the reference's tree
+    of per-field padded tables): shapes and dtypes, no storage."""
+    return tu.tree_map(lambda l: torch.empty(
+        l.shape, dtype=_torch_dtype(l.dtype), device="meta"),
+        param_template(cfg))
+
+
+def param_shardings(cfg, mesh):
+    """The NamedSharding of every leaf of param_template on `mesh` under
+    the installed rules: each field's table rows along "table_rows"."""
+    return tu.tree_map(lambda l: sh.named_sharding(mesh, *l.axes),
+                       param_template(cfg))
+
+
 def init_params(cfg, generator=None, *, device=None):
     """Random parameters by the JAX package's rules (normal * fan_in **
     -0.5, zeros for biases), drawn from `generator` on its own device
@@ -269,6 +301,11 @@ def _params(params):
 # ---------------------------------------------------------------------------
 
 def forward(cfg, params, batch):
+    """Logits (B,) of the batch; on a mesh, of this rank's batch rows
+    from its slices of the per-field tables."""
+    plan = _row_plan()
+    if plan is not None:
+        return _forward_rows(cfg, params, batch, plan)
     params = _params(params)
     if cfg.kind == "din":
         return _din_forward(cfg, params, batch)
@@ -289,7 +326,14 @@ def forward(cfg, params, batch):
     if cfg.kind not in ("deepfm", "wide_deep"):
         raise ValueError(cfg.kind)
     # the wide branch / first-order FM: one bag over the fused wide table
-    wide = params["wide"].bag(sparse)[:, 0] + params["wide_bias"][0]
+    return _wide_deep_head(cfg, params, embs, params["wide"].bag(sparse))
+
+
+def _wide_deep_head(cfg, params, embs, wide):
+    """deepfm / wide_deep logits from the (B, F, d) field embeddings and
+    the (B, 1) wide bag."""
+    B = embs.shape[0]
+    wide = wide[:, 0] + params["wide_bias"][0]
     deep = _mlp_apply(params, "deep", embs.reshape(B, -1))
     deep = (deep @ params["deep_out_w"] + params["deep_out_b"])[:, 0]
     if cfg.kind == "wide_deep":
@@ -314,6 +358,13 @@ def _din_forward(cfg, params, batch):
     e_tgt = torch.cat(
         [embedding_lookup(tables["t0"], tgt[:, 0]),
          embedding_lookup(tables["t1"], tgt[:, 1])], dim=-1)   # (B, 2d)
+    user = tables.lookup(tgt[:, 2:], lo=2).reshape(B, -1)
+    return _din_head(params, e_hist, e_tgt, user, hist_mask)
+
+
+def _din_head(params, e_hist, e_tgt, user, hist_mask):
+    """din logits from the behaviour (B, L, 2d), target (B, 2d) and user
+    (B, (F - 2) d) embeddings."""
     # local activation unit
     t = e_tgt[:, None, :].expand_as(e_hist)
     af = torch.cat([e_hist, t, e_hist - t, e_hist * t], dim=-1)
@@ -322,10 +373,154 @@ def _din_forward(cfg, params, batch):
     a = torch.where(hist_mask > 0, a, -1e30)
     w = torch.softmax(a, dim=-1)
     pooled = torch.einsum("bl,bld->bd", w, e_hist)                 # (B, 2d)
-    user = tables.lookup(tgt[:, 2:], lo=2).reshape(B, -1)
     x = torch.cat([user, pooled, e_tgt], dim=-1)
     deep = _mlp_apply(params, "deep", x)
     return (deep @ params["deep_out_w"] + params["deep_out_b"])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the mesh: tables split along "table_rows"
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _RowPlan:
+    """The installed mesh's split of the recsys model on this rank: the
+    table_rows axes `rows` (the batch axes first), the batch axes, the
+    rows axes that are not batch axes (`rest`), and this rank's index
+    over `rows`."""
+    mesh: Any
+    rows: Tuple[str, ...]
+    batch: Tuple[str, ...]
+    rest: Tuple[str, ...]
+    ri: int
+
+
+def _row_plan():
+    """The _RowPlan of the installed mesh, or None without one."""
+    mesh = sh.current_mesh()
+    if mesh is None:
+        return None
+    rows = sh.spec_axes(sh.spec("table_rows")[0])
+    batch = sh.spec_axes(sh.spec("batch")[0])
+    if rows[:len(batch)] != batch:
+        raise NotImplementedError(
+            f"rules put table_rows on {rows} and batch on {batch}: the "
+            f"row-sharded lookup needs the batch axes first among them")
+    return _RowPlan(mesh, rows, batch, rows[len(batch):],
+                    mesh.axis_index(rows))
+
+
+def _local_rows(table_l, ids, plan):
+    """Rows of the global `ids` that fall in this rank's slice `table_l`
+    of a field's table, zeros for the others: (..., d)."""
+    n = table_l.shape[0]
+    local = ids.long() - plan.ri * n
+    mine = (local >= 0) & (local < n)
+    return torch.where(mine[..., None], table_l[local.clamp(0, n - 1)], 0)
+
+
+def _local_wide_bag(wide, ids, plan):
+    """The wide bag (B_g, 1) of this rank's rows: the embedding_bag kernel
+    over its wide slices side by side and one zero row after them; an id
+    in its field's slice reads its row there, any other id the zero
+    row."""
+    tabs = [wide[f"t{i}"] for i in range(ids.shape[1])]
+    sizes = [t.shape[0] for t in tabs]
+    n = torch.tensor(sizes, device=ids.device)
+    off = torch.cumsum(n, 0) - n
+    local = ids.long() - plan.ri * n
+    mine = (local >= 0) & (local < n)
+    idx = torch.where(mine, local + off, sum(sizes)).to(torch.int32)
+    table = torch.cat(tabs + [tabs[0].new_zeros((1, tabs[0].shape[1]))], 0)
+    return bag_ops.embedding_bag(table, idx.contiguous())
+
+
+def _to_batch_rows(x, plan):
+    """(B_g, c) partial rows of every rank -> (B_l, c) sums for this
+    rank's batch rows: a reduce-scatter over the table_rows axes, then
+    a gather over those that are not batch axes (whose ranks hold their
+    data shard's rows alike; backward: this rank's slice)."""
+    x = coll.reduce_scatter(x, plan.mesh, plan.rows, 0)
+    return coll.gather_replicated(x, plan.mesh, plan.rest, 0)
+
+
+def _forward_rows(cfg, params, batch, plan):
+    """forward on a mesh: params the per-field table slices and MLP
+    leaves, batch this rank's rows."""
+    sparse = batch["sparse"]
+    B, F = sparse.shape
+    tables = params["tables"]
+    if cfg.kind == "din":
+        L = batch["hist_item"].shape[1]
+        ids = coll.gather_parts(torch.cat(
+            [sparse, batch["hist_item"], batch["hist_cate"]], 1).to(
+                torch.int32), plan.mesh, plan.batch, 0)
+        tgt, hi, hc = ids[:, :F], ids[:, F:F + L], ids[:, F + L:]
+        Bg = ids.shape[0]
+        parts = [torch.cat([_local_rows(tables["t0"], hi, plan),
+                            _local_rows(tables["t1"], hc, plan)], -1),
+                 torch.cat([_local_rows(tables["t0"], tgt[:, 0], plan),
+                            _local_rows(tables["t1"], tgt[:, 1], plan)], -1),
+                 torch.stack([_local_rows(tables[f"t{i}"], tgt[:, i], plan)
+                              for i in range(2, F)], 1)]
+        x = _to_batch_rows(torch.cat([p.reshape(Bg, -1) for p in parts], 1),
+                           plan)
+        d = tables["t0"].shape[1]
+        e_hist = x[:, :L * 2 * d].reshape(B, L, 2 * d)
+        e_tgt = x[:, L * 2 * d:(L + 1) * 2 * d]
+        user = x[:, (L + 1) * 2 * d:]
+        return _din_head(params, e_hist, e_tgt, user, batch["hist_mask"])
+    ids = coll.gather_parts(sparse.to(torch.int32), plan.mesh, plan.batch, 0)
+    Bg = ids.shape[0]
+    embs = torch.stack([_local_rows(tables[f"t{i}"], ids[:, i], plan)
+                        for i in range(F)], 1)               # (B_g, F, d)
+    d = embs.shape[-1]
+    cols = [embs.reshape(Bg, F * d)]
+    if "wide" in params:
+        cols.append(_local_wide_bag(params["wide"], ids, plan).to(
+            embs.dtype))
+    x = _to_batch_rows(torch.cat(cols, 1), plan)
+    embs = x[:, :F * d].reshape(B, F, d)
+    if cfg.kind == "dlrm":
+        dv = _mlp_apply(params, "bot", batch["dense"])
+        x = torch.cat([dv[:, None, :], embs], dim=1)
+        z = torch.bmm(x, x.transpose(1, 2))
+        f = x.shape[1]
+        iu, ju = torch.triu_indices(f, f, 1, device=x.device)
+        top_in = torch.cat([z[:, iu, ju], dv], dim=-1)
+        return _mlp_apply(params, "top", top_in, final_act=False)[:, 0]
+    return _wide_deep_head(cfg, params, embs, x[:, F * d:])
+
+
+def _is_table(path):
+    return path.startswith("['tables']") or path.startswith("['wide']")
+
+
+def _rows_loss_and_grads(cfg, params, batch, plan):
+    """(loss, grads, grad_norm) of this rank's slices: the loss the mean
+    over the batch axes; the MLP gradients summed over the batch axes
+    (the tables' are whole from the lookups' backward); the norm of the
+    whole gradient, the tables' squares summed over the rows axes."""
+    paths = [p for p, _ in tu.leaf_paths(params)]
+    leaves = [p.detach().requires_grad_() for p in tu.tree_leaves(params)]
+    with torch.enable_grad():
+        logit = forward(cfg, tu.tree_unflatten_like(params, leaves), batch)
+        y = batch["label"].float()
+        loss = torch.mean(torch.maximum(logit, torch.zeros_like(logit))
+                          - logit * y
+                          + torch.log1p(torch.exp(-torch.abs(logit))))
+        loss = coll.pmean(loss, plan.mesh, plan.batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+    dense = [i for i, p in enumerate(paths) if not _is_table(p)]
+    for i, g in zip(dense, coll.all_reduce_many(
+            [grads[i] for i in dense], plan.mesh, plan.batch)):
+        grads[i] = g
+    sq_t = sum(torch.sum(torch.square(g.float()))
+               for p, g in zip(paths, grads) if _is_table(p))
+    sq_d = sum(torch.sum(torch.square(grads[i].float())) for i in dense)
+    sq_t = coll.all_reduce_many([sq_t], plan.mesh, plan.rows)[0]
+    return (loss.detach(), tu.tree_unflatten_like(params, grads),
+            torch.sqrt(sq_t + sq_d))
 
 
 # ---------------------------------------------------------------------------
@@ -373,12 +568,25 @@ def make_train_step(cfg, train_cfg=None):
     train config's lr and grad_clip and no weight decay, as the JAX
     module passes none. opt_state is `adamw_init(train_tree(params))`;
     the returned params hold new tensors (FusedTables over new fused
-    weights)."""
+    weights).
+
+    On a mesh the step takes and returns this rank's slices: params and
+    both moments as `param_shardings` places them (a tree of per-field
+    tables), the batch's rows along "batch"; the gradients are clipped
+    by the norm of the whole gradient."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim import adamw_update
     tc = train_cfg or TrainConfig()
 
     def train_step(params, opt_state, batch):
+        plan = _row_plan()
+        if plan is not None:
+            loss, grads, gnorm = _rows_loss_and_grads(cfg, params, batch,
+                                                      plan)
+            params, opt_state, stats = adamw_update(
+                grads, opt_state, params, lr=tc.lr, grad_clip=tc.grad_clip,
+                global_norm=gnorm)
+            return params, opt_state, {"loss": loss, **stats}
         loss, grads = train_loss_and_grads(cfg, params, batch)
         tree, opt_state, stats = adamw_update(
             grads, opt_state, train_tree(params), lr=tc.lr,

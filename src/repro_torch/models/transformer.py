@@ -26,7 +26,19 @@ torch.distributed:
     (then an all-reduce), `ffn_wg`/`ffn_wu` by columns and `ffn_wd` by
     rows, `embed` and `lm_head` by vocabulary (a masked lookup and a
     vocab-parallel chunked cross-entropy); a rank's q heads read the kv
-    heads h // (Hq / Hkv) of their global numbers;
+    heads h // (Hq / Hkv) of their global numbers. Where the query heads
+    do not divide over the tensor-parallel ranks (qwen2-1.5b's 12 on 16),
+    a rank's `wq` columns are not whole heads: the q columns are
+    all-gathered, every rank runs every head's attention, and `wo`'s
+    row-parallel product takes this rank's columns of its output;
+  * the KV sequence over the tensor-parallel axes when the rules shard
+    "seq_kv" (the reference's prefill and decode cells): prefill emits
+    this rank's sequence slice of the cache, and decode attends every
+    head over the local slice and combines the ranks flash-decode style
+    (an all-reduce of the row max, then of the exp-sums and the
+    weighted V, the mask in global positions). A cache length that does
+    not divide over those ranks raises ValueError, as `local_shape`
+    does (the reference pads such shards);
   * the batch over "data", FSDP of the "embed_w" dimension over "data"
     (`_gather_weights` all-gathers a layer's weights where they are
     used; the backward reduce-scatters their gradients);
@@ -218,6 +230,19 @@ class _Plan:
     mi: int
     nd: int
     shardings: dict
+    seq: Tuple[str, ...] = ()      # the axes of "seq_kv": () or tp
+    even: bool = True              # n_heads divides over tp
+
+
+def _seq_parts(plan):
+    """How many slices the KV sequence is cut into on this mesh."""
+    return 1 if plan is None or not plan.seq else plan.nm
+
+
+def _own_cols(plan, t):
+    """This rank's tensor-parallel slice of t's last dimension."""
+    c = t.shape[-1] // plan.nm
+    return t.narrow(-1, plan.mi * c, c)
 
 
 def _mesh_plan(cfg):
@@ -232,13 +257,19 @@ def _mesh_plan(cfg):
             raise NotImplementedError(
                 f"rules put {name!r} on {sh.spec(name)[0]} and heads_w on "
                 f"{tp}: the sharded LM splits them over one set of axes")
-    for name in ("seq", "seq_kv", "kv_heads", "head_dim", "embed",
-                 "layers"):
+    for name in ("seq", "kv_heads", "head_dim", "embed", "layers"):
         if sh.spec(name)[0] is not None:
             raise NotImplementedError(f"rules shard {name!r}")
+    seq = sh.spec_axes(sh.spec("seq_kv")[0])
+    if seq and seq != tp:
+        raise NotImplementedError(
+            f"rules put 'seq_kv' on {seq} and heads_w on {tp}: the sharded "
+            f"LM splits the KV sequence over the tensor-parallel axes")
     batch = sh.spec_axes(sh.spec("batch")[0])
-    return _Plan(mesh, tp, batch, mesh.axis_size(tp), mesh.axis_index(tp),
-                 mesh.axis_size(batch), param_shardings(cfg, mesh))
+    nm = mesh.axis_size(tp)
+    return _Plan(mesh, tp, batch, nm, mesh.axis_index(tp),
+                 mesh.axis_size(batch), param_shardings(cfg, mesh),
+                 seq=seq if nm > 1 else (), even=cfg.n_heads % nm == 0)
 
 
 def _enter(plan, x):
@@ -406,29 +437,44 @@ def _layer(cfg, x, lp, positions, plan=None):
     B, S, d = x.shape
     hd, Hkv = cfg.hd, cfg.n_kv_heads
     Bg = B * (1 if plan is None else plan.nd)
+    even = plan is None or plan.even
     lp = _gather_weights(cfg, lp, plan)
     h = _enter(plan, rmsnorm(x, lp["ln1"]))
     q, k, v = _qkv(cfg, h, lp)
+    if not even:        # every head's q columns on every rank
+        q = coll.all_gather(q, plan.mesh, plan.tp, q.dim() - 1)
     Hq = q.shape[-1] // hd
     q = apply_rope(q.reshape(B, S, Hq, hd), positions, cfg.rope_theta)
-    q = logical(q, "batch", "seq", "heads", "head_dim",
-                shape=(Bg, S, cfg.n_heads, hd))
+    if even:
+        q = logical(q, "batch", "seq", "heads", "head_dim",
+                    shape=(Bg, S, cfg.n_heads, hd))
     k = apply_rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, Hkv, hd)
-    attn = attention(q, *_local_kv(cfg, plan, k, v, Hq), causal=True,
-                     window=cfg.sliding_window)
-    attn = logical(attn, "batch", "seq", "heads", "head_dim",
-                   shape=(Bg, S, cfg.n_heads, hd))
-    x = x + _exit(plan, attn.reshape(B, S, Hq * hd) @ lp["wo"].to(x.dtype))
+    kv = _local_kv(cfg, plan, k, v, Hq) if even else (k, v)
+    attn = attention(q, *kv, causal=True, window=cfg.sliding_window)
+    attn = attn.reshape(B, S, Hq * hd)
+    if even:
+        logical(attn.view(B, S, Hq, hd), "batch", "seq", "heads",
+                "head_dim", shape=(Bg, S, cfg.n_heads, hd))
+    else:               # this rank's columns for wo's rows
+        attn = _own_cols(plan, attn)
+    x = x + _exit(plan, attn @ lp["wo"].to(x.dtype))
     out, aux = _ffn(cfg, rmsnorm(x, lp["ln2"]), lp, plan)
     x = x + out
     if cfg.sliding_window and S > cfg.sliding_window:
         k = k[:, -cfg.sliding_window:]
         v = v[:, -cfg.sliding_window:]
+    ns, T = _seq_parts(plan), k.shape[1]
+    if ns > 1:          # this rank's slice of the emitted cache
+        n = T // ns
+        k = k.narrow(1, plan.mi * n, n)
+        v = v.narrow(1, plan.mi * n, n)
+    # against the whole length: a sequence that does not split over the
+    # ranks raises here (as local_shape does) rather than losing its tail
     k = logical(k, "batch", "seq_kv", "kv_heads", "head_dim",
-                shape=(Bg,) + tuple(k.shape[1:]))
+                shape=(Bg, T) + tuple(k.shape[2:]))
     v = logical(v, "batch", "seq_kv", "kv_heads", "head_dim",
-                shape=(Bg,) + tuple(v.shape[1:]))
+                shape=(Bg, T) + tuple(v.shape[2:]))
     return logical(x, "batch", "seq", "embed", shape=(Bg, S, d)), (k, v), aux
 
 
@@ -683,7 +729,8 @@ def make_decode_step(cfg):
     new cache). `pos` is the write position (the cache holds `pos` valid
     entries): slot pos % W under SWA, else min(pos, W - 1). The MoE runs
     on the batch's B tokens (capacity(B, E, K) slots an expert). On a
-    mesh, as make_prefill_step."""
+    mesh, as make_prefill_step; with "seq_kv" sharded each rank holds and
+    updates its sequence slice of the cache."""
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
@@ -695,17 +742,25 @@ def make_decode_step(cfg):
         x = _embed(cfg, params, tokens, plan)                  # (B, 1, d)
         positions = torch.full((B, 1), pos, dtype=torch.int32,
                                device=x.device)
-        W = cache["k"].shape[2]
+        # on a mesh whose rules shard "seq_kv", this rank holds cache
+        # slots lo .. lo + W_l - 1 of W
+        W_l = cache["k"].shape[2]
+        ns = _seq_parts(plan)
+        W, lo = W_l * ns, (plan.mi * W_l if ns > 1 else 0)
         slot = pos % W if cfg.sliding_window else min(pos, W - 1)
-        onehot = (torch.arange(W, device=x.device) == slot)[None, :, None,
-                                                           None]
+        onehot = (torch.arange(lo, lo + W_l, device=x.device)
+                  == slot)[None, :, None, None]
         cache_len = min(pos + 1, W)
+        # all heads on every rank: the sequence split, or uneven heads
+        every = plan is not None and (ns > 1 or not plan.even)
         nk, nv = [], []
         for lp, kc, vc in zip(_layer_slices(params, cd), cache["k"],
                               cache["v"]):
             lp = _gather_weights(cfg, lp, plan)
             h = _enter(plan, rmsnorm(x, lp["ln1"]))
             q, k, v = _qkv(cfg, h, lp)
+            if every:
+                q = coll.gather_parts(q, plan.mesh, plan.tp, q.dim() - 1)
             Hq = q.shape[-1] // hd
             q = apply_rope(q.reshape(B, 1, Hq, hd), positions,
                            cfg.rope_theta)
@@ -714,9 +769,18 @@ def make_decode_step(cfg):
             v = v.reshape(B, 1, Hkv, hd)
             kc = torch.where(onehot, k.to(kc.dtype), kc)
             vc = torch.where(onehot, v.to(vc.dtype), vc)
-            out = decode_attention(q, *_local_kv(cfg, plan, kc, vc, Hq),
-                                   cache_len)
-            x = x + _exit(plan, out.reshape(B, 1, Hq * hd) @ lp["wo"].to(cd))
+            if ns > 1:
+                out = decode_attention(q, kc, vc, cache_len, kv_start=lo,
+                                       combine=(plan.mesh, plan.seq))
+            elif every:
+                out = decode_attention(q, kc, vc, cache_len)
+            else:
+                out = decode_attention(q, *_local_kv(cfg, plan, kc, vc, Hq),
+                                       cache_len)
+            out = out.reshape(B, 1, Hq * hd)
+            if every:
+                out = _own_cols(plan, out)
+            x = x + _exit(plan, out @ lp["wo"].to(cd))
             x = x + _ffn(cfg, rmsnorm(x, lp["ln2"]), lp, plan)[0]
             nk.append(kc)
             nv.append(vc)

@@ -17,6 +17,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import torch
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -142,6 +143,35 @@ def task_collectives(rank, job):
             out[f"{name}/{tag}/ct"] = ct.numpy()
             out[f"{name}/{tag}/gx"] = gx.numpy()
     out["coords"] = (mesh.coords["data"], mesh.coords["model"])
+    return out
+
+
+def task_reduce_scatter_paths(rank, job):
+    """collectives._reduce_scatter_tensor (the path of NCCL and the fake
+    group) beside the gloo path's all_reduce and slice, for each dim and
+    axis set of a 2 x 2 mesh, on integer-valued float64 (exact sums),
+    with the bytes each counts; and whether the group of each axis set
+    runs in axis_index order."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import collectives as coll
+
+    mesh = make_debug_mesh((2, 2), ("data", "model"))
+    g = torch.Generator().manual_seed(200 + rank)
+    out = {}
+    for axes in (("data",), ("model",), ("data", "model"),
+                 ("model", "data")):
+        tag = "_".join(axes)
+        out[f"ordered/{tag}"] = mesh.members(axes) == sorted(
+            mesh.members(axes))
+        for dim in range(3):
+            x = torch.randint(-50, 50, (4, 8, 12), generator=g).double()
+            coll.reset_traffic()
+            one = coll._reduce_scatter_tensor(x, mesh, axes, dim)
+            t_one = dict(coll.TRAFFIC)
+            coll.reset_traffic()
+            two = coll._reduce_scatter(x, mesh, axes, dim)
+            out[f"{tag}/{dim}"] = (one.numpy(), two.numpy(), t_one,
+                                   dict(coll.TRAFFIC))
     return out
 
 
@@ -296,4 +326,189 @@ def task_nequip(rank, job):
         p2, _, m = step(params, adamw_init(params), batch)
         out[i] = {"energy": _np(e), "params": _tree_np(p2),
                   "loss": float(m["loss"]), "gnorm": float(m["grad_norm"])}
+    return out
+
+
+def _rules(raw):
+    """A rules dict from JSON (lists as tuples, null as None)."""
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in (raw or {}).items()}
+
+
+def task_lm_rules(rank, job):
+    """For each case, under its rules on its mesh: the sharded train step
+    (with "train"), then prefill and N decode steps; the caches gathered
+    whole, and on rank 0 the port's one-rank step, prefill and decode."""
+    import dataclasses
+
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_from_numpy
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    def infer(cfg, params, tok, dec, rows, mesh=None):
+        B, S = tok.shape
+        n_dec = dec.shape[1]
+        logits, cache = tf.make_prefill_step(cfg)(params, rows.shard(tok)
+                                                  if rows else tok)
+        res = {"prefill": _np(logits)}
+        csh = ccsh = None
+        if mesh is not None:
+            csh = tf.cache_shardings(cfg, mesh, B, S)
+            cache = {k: csh[k].gather(v.contiguous())
+                     for k, v in cache.items()}
+        res["prefill_cache"] = {k: _np(v) for k, v in cache.items()}
+        full = tf.init_cache(cfg, B, S + n_dec, device="cpu")
+        for k in full:
+            full[k][:, :, :cache[k].shape[2]] = cache[k]
+        if mesh is not None:
+            ccsh = tf.cache_shardings(cfg, mesh, B, S + n_dec)
+            full = {k: ccsh[k].shard(v).clone() for k, v in full.items()}
+        step = tf.make_decode_step(cfg)
+        res["decode"] = []
+        for t in range(n_dec):
+            d = dec[:, t:t + 1]
+            lg, full = step(params, full, rows.shard(d) if rows else d, S + t)
+            res["decode"].append(_np(lg))
+        if mesh is not None:
+            full = {k: ccsh[k].gather(v.contiguous())
+                    for k, v in full.items()}
+        res["cache"] = {k: _np(v) for k, v in full.items()}
+        return res
+
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        cfg = dataclasses.replace(get_config(case["arch"], "smoke"),
+                                  **case["over"])
+        params = transformer_params_from_numpy(cfg, job[f"params{i}"],
+                                               device="cpu")
+        tok = torch.from_numpy(job[f"tokens{i}"])
+        dec = torch.from_numpy(job[f"dec{i}"])
+        batch = {"tokens": tok, "labels": tok}
+        res = {}
+        if rank == 0:
+            res["single"] = infer(cfg, params, tok, dec, None)
+            if case.get("train"):
+                p1, o1, m1 = tf.make_train_step(cfg)(
+                    params, adamw_init(params), batch)
+                res["single_params"] = _tree_np(p1)
+                res["single_mu"] = _tree_np(o1["mu"])
+                res["single_loss"] = float(m1["loss"])
+                res["single_gnorm"] = float(m1["grad_norm"])
+        mesh = _debug_mesh(case["mesh"])
+        with sh.rules_ctx(_rules(case.get("rules")), mesh=mesh):
+            psh = tf.param_shardings(cfg, mesh)
+            pl = tu.tree_map(lambda x: x.clone(), sh.shard_tree(params,
+                                                                psh))
+            rows = sh.named_sharding(mesh, "batch", None)
+            if case.get("train"):
+                bl = {k: rows.shard(v) for k, v in batch.items()}
+                p2, o2, m2 = tf.make_train_step(cfg)(pl, adamw_init(pl), bl)
+                res["params"] = _tree_np(sh.gather_tree(p2, psh))
+                # the first moment after one step: (1 - b1) x the clipped
+                # gradient, leaf by leaf
+                res["mu"] = _tree_np(sh.gather_tree(o2["mu"], psh))
+                res.update(loss=float(m2["loss"]),
+                           gnorm=float(m2["grad_norm"]))
+            res.update(infer(cfg, pl, tok, dec, rows, mesh))
+            if sh.spec("seq_kv")[0] is not None:
+                # a prefill whose length does not split over "model"
+                try:
+                    tf.make_prefill_step(cfg)(pl, rows.shard(tok[:, :-1]))
+                    res["odd_seq_error"] = None
+                except ValueError as e:
+                    res["odd_seq_error"] = str(e)
+            res["rows"] = _np(sh.named_sharding(mesh, "batch").shard(
+                torch.arange(tok.shape[0])))
+        out[i] = res
+    return out
+
+
+def task_recsys(rank, job):
+    """For each case on its mesh: one row-sharded train step of the port's
+    recsys model from JAX's init (the per-field tables sliced along
+    "table_rows") and the serve step; the params gathered whole, this
+    rank's logits and rows; on rank 0 the port's one-rank steps."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.convert import recsys_params_from_numpy
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim import adamw_init
+
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        cfg = get_config(case["arch"], "smoke")
+        raw = job[f"params{i}"]
+        batch = {k: torch.from_numpy(v) for k, v in job[f"batch{i}"].items()}
+        serve_b = {k: v for k, v in batch.items() if k != "label"}
+        res = {}
+        if rank == 0:
+            p1 = recsys_params_from_numpy(cfg, raw, device="cpu")
+            res["single_logits"] = _np(rs.make_serve_step(cfg)(p1, serve_b))
+            q1, _, m1 = rs.make_train_step(cfg)(
+                p1, adamw_init(rs.train_tree(p1)), batch)
+            res["single_loss"] = float(m1["loss"])
+            res["single_params"] = {
+                k: _np(v.weight) if isinstance(v, rs.FusedTable) else _np(v)
+                for k, v in q1.items()}
+        mesh = _debug_mesh(case["mesh"])
+        with sh.rules_ctx({}, mesh=mesh):
+            psh = rs.param_shardings(cfg, mesh)
+            whole = tu.tree_map(lambda a: torch.from_numpy(np.asarray(
+                a, np.float32)), raw)
+            pl = tu.tree_map(lambda x, s: s.shard(x).clone(), whole, psh)
+            rows = sh.named_sharding(mesh, "batch", None)
+            rows1 = sh.named_sharding(mesh, "batch")
+            bl = {k: (rows if v.dim() == 2 else rows1).shard(v)
+                  for k, v in batch.items()}
+            res["logits"] = _np(rs.make_serve_step(cfg)(
+                pl, {k: v for k, v in bl.items() if k != "label"}))
+            p2, _, m2 = rs.make_train_step(cfg)(pl, adamw_init(pl), bl)
+            res["params"] = _tree_np(sh.gather_tree(p2, psh))
+            res.update(loss=float(m2["loss"]), gnorm=float(m2["grad_norm"]))
+            res["rows"] = _np(rows1.shard(torch.arange(
+                batch["sparse"].shape[0])))
+        out[i] = res
+    return out
+
+
+def real_args(args, gen):
+    """CPU tensors of the shapes and dtypes of `args` (nested tuples,
+    lists and dicts of meta tensors): floats small normals, integers 0
+    (a valid id, token and index everywhere)."""
+    if isinstance(args, dict):
+        return {k: real_args(v, gen) for k, v in args.items()}
+    if isinstance(args, (list, tuple)):
+        return type(args)(real_args(a, gen) for a in args)
+    if args.is_floating_point():
+        return (torch.randn(args.shape, generator=gen) * 0.02).to(args.dtype)
+    return torch.zeros(args.shape, dtype=args.dtype)
+
+
+def task_cell_traffic(rank, job):
+    """Each case's dry-run cell (a smoke config at a small shape) run on
+    real CPU tensors of this rank's slice shapes on a 2 x 2 mesh: the
+    bytes the collectives returned, by kind (collectives.TRAFFIC)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import local_args
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import collectives as coll
+    from repro_torch.models import sharding as sh
+
+    mesh = _debug_mesh((2, 2))
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        shape = ShapeSpec(**case["shape"])
+        cell = build_cell(case["arch"], shape, mesh, False,
+                          case.get("over"), "smoke")
+        args = real_args(local_args(list(cell.args),
+                                    list(cell.in_shardings)),
+                         torch.Generator().manual_seed(rank))
+        with sh.rules_ctx(cell.rules, mesh=mesh):
+            coll.reset_traffic()
+            cell.fn(*args)
+            out[i] = dict(coll.TRAFFIC)
     return out

@@ -269,3 +269,48 @@ def test_embedding_bag_two_threads_keep_their_own_errors(card):
     assert len(outcome["bad"]) == 200
     assert all(isinstance(r, str) and f"index {V} is outside" in r
                for r in outcome["bad"])
+
+
+@pytest.mark.parametrize("B, d, dtype", [
+    (8192, 1, torch.float32),      # wide-deep full's wide bag, one rank of 4
+    (512, 1, torch.float32),       # its serve batch
+    (64, 32, torch.float32),       # the warp-per-bag path, float4 columns
+    (3000, 3, torch.bfloat16)])
+def test_embedding_bag_row_slice_with_a_zero_row(card, B, d, dtype):
+    """The row-sharded wide bag: the rank's slices of 40 fields side by
+    side (wide-deep full()'s rows over 4 ranks) and one zero row after
+    them; an id in its field's slice reads its row there, every other id
+    the zero row. Bitwise the plain version, one launch; its backward
+    adds each id's gradient to the row it read."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.recsys import _padded_rows
+    g = _gen(3)
+    rows = [_padded_rows(r) for r in get_config("wide-deep").table_sizes]
+    n = torch.tensor([r // 4 for r in rows], device="cuda")
+    zero = int(n.sum())
+    table = torch.cat([torch.randn((zero, d), generator=g, device="cuda"),
+                       torch.zeros((1, d), device="cuda")]).to(dtype)
+    ids = torch.stack([torch.randint(0, r, (B,), generator=g, device="cuda")
+                       for r in rows], 1)
+    local = ids - 1 * n                  # rank 1's slice
+    mine = (local >= 0) & (local < n)
+    off = torch.cumsum(n, 0) - n
+    idx = torch.where(mine, local + off, zero).int().contiguous()
+    assert 0 < int(mine.sum()) < mine.numel()
+    before = kernels.LAUNCHES["embedding_bag"]
+    out = embedding_bag(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag"] == before + 1
+    ref = embedding_bag_ref(table, idx)
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32))
+    if dtype == torch.float32:
+        tk = table.clone().requires_grad_()
+        gout = torch.randn((B, d), generator=g, device="cuda")
+        (gk,) = torch.autograd.grad(embedding_bag(tk, idx), tk, gout)
+        want = torch.zeros_like(table).index_add_(
+            0, idx.reshape(-1).long(),
+            gout[:, None, :].expand(B, idx.shape[1], d).reshape(-1, d))
+        torch.testing.assert_close(gk, want, rtol=1e-5, atol=1e-5)
