@@ -3,28 +3,39 @@
 
     python3 chip_smoke.py
 
-Phases, each printed with its seconds:
+Phases, each printed with its seconds (in the order of their numbers
+but where a phase says otherwise):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. the CUDA kernels of src/repro_torch/csrc, built with nvcc for
-     sm_90a (one nvcc per source, all at once), with -Xptxas -v output;
+     sm_90a (one nvcc per source, all at once, on a thread), with
+     -Xptxas -v output; phase 19's qwen2 drill has started just before,
+     the directories' corpus is made in a numpy-only process of its own
+     (CorpusJob), and phase 20's first part runs meanwhile; phase 9
+     follows;
   3. the state at the paper's widths (configs/clusd_msmarco.py `full()`:
      dim 768, N 8192, vocab 30522, k_sparse 1000, n 32, H 32, PQ nsub 96),
-     cut to 2^20 synthetic docs (cap 256; the corpus made on a thread
-     during phase 2, from the recipe the directories carry), built on
+     cut to 2^20 synthetic docs (cap 256; the corpus made in its own
+     process during phase 2, from the recipe the directories carry, and
+     kept for the CLIs run in this process), built on
      the card by the port's own build side; a sha256 of the built state
      shows that one seed builds one state;
-  4. two index directories written by the port's `write_index`: v2 (PQ
-     code shards, 8 shards) and v1 (float32 blocks at the full widths,
-     8 shards, 6.4 GB, with the PQ under pq/), and one DiskClusterStore
-     file of the same float32 blocks (`DiskClusterStore.pack`, 6.4 GB);
+  4. (after phases 5 and 17, the qwen2 drill checked between them, so
+     that the drill's checkpoints and the directories are never on the
+     disk together) two index directories written by the port's
+     `write_index`: v2 (PQ code shards, 8 shards) and v1 (float32 blocks
+     at the full widths, 8 shards, 6.4 GB, with the PQ under pq/), one
+     DiskClusterStore file of the same float32 blocks
+     (`DiskClusterStore.pack`, 6.4 GB), and the corpus embeddings staged
+     to a file for phases 12a and 14;
   5. device stores: `RetrievalEngine(cfg, index)` with no store serves
      the 1024 queries in batches of 256 from an InMemoryStore (the
      index's float embeddings and their 6.4 GB (N, cap, dim) block
      table, the cluster_score kernel), then from a PQStore (the index's
      PQ and its (N, cap, nsub) code table, the ADC kernels), each with
-     one profiled batch and the card-vs-CPU parity on 16 queries (and
-     cluster_score held to its plain version on one more InMemoryStore
-     batch's input, the whole table by cluster id); the
+     one profiled batch and the card-vs-CPU parity on 16 queries (and,
+     after phase 19's check, cluster_score held to its plain version on
+     one more InMemoryStore batch's input, the whole table by cluster
+     id); the
      PQStore engine's last batch gives the topk and bin_overlap kernels
      their main-path inputs; then one batch through `clusd.retrieve`
      with each of the "rnn" and "mlp" selectors (seeded params), card
@@ -45,7 +56,8 @@ Phases, each printed with its seconds:
      its quantizer: `RetrievalEngine(*IndexReader.open(v1).load_index())`
      serves the 1024 queries from the device PQStore (the ADC kernels),
      with card-vs-CPU parity on 16;
-  9. recsys: wide_deep full (configs/wide_deep.py `full()`: 40 fields,
+  9. recsys (after phase 2, beside the qwen2 drill): wide_deep full
+     (configs/wide_deep.py `full()`: 40 fields,
      embed_dim 32, mlp 1024-512-256): its fused tables (22,372,352 padded
      rows, 2.86 GB, and the 89.5 MB wide table) filled on the card from a
      torch.Generator; `make_serve_step` over RecsysStream batches of 512
@@ -82,8 +94,9 @@ Phases, each printed with its seconds:
      b. `repro_torch.launch.update_index.main` in process on the card
         over the v2 directory: 10000 upserts and 5000 deletes (`synth_delta`,
         seed 0), 1024 queries before and after a hot reload, a compacted
-        copy's parity; the same delta committed on the CPU to a copy must
-        give the same files (upsert codes may differ only at near-ties);
+        copy's parity; the same delta committed on the CPU to a copy, in
+        a process of its own beside the card's, must give the same files
+        (upsert codes may differ only at near-ties);
      c. a re-clustering delta (seed 1, thresholds 0) on the v1 directory
         committed on the card while a second thread serves two batches of 64,
         `reload_index()` to generation 1 (ids equal a fresh engine's, no
@@ -144,8 +157,9 @@ Phases, each printed with its seconds:
  16. parity: the same 16 queries served on the card and on the CPU
      (plain versions) through each (updated) directory must agree; v2
      now serves the trained selector;
- 17. the paper's baselines (they run right after phase 5's
-     InMemoryStore, on the index's float embeddings and the memory
+ 17. the paper's baselines (they run after phase 5 and the qwen2
+     drill's check, as their doc kNN's library comparison takes 54 GiB
+     of the card, on the index's float embeddings and phase 5's memory
      store's block table): the doc kNN graph (8 neighbours over 3 probe
      clusters) built on the card by `build_doc_knn`, then IVF 10/5/2%
      (and 2% unfused), S + Rerank at depth 1000, CDFS at p_stop 0.95,
@@ -168,11 +182,16 @@ Phases, each printed with its seconds:
      step's p50 over 5 steps after 2 and its peak device memory, prefill
      and decode ms;
  19. three `python -m repro_torch.launch.train ... --steps 6 --ckpt-every
-     3 --fail-at 4` drills start in their own processes (qwen2-1.5b full,
-     writing two 21.3 GB checkpoints, the disk's free space checked
-     first; mixtral-8x7b smoke; nequip full): each must exit 0 with
-     restarts=1 and steps=7, its last checkpoint at step 5;
- 20. the GNN (models/nequip.py): nequip full() on the `molecule` cell
+     3 --fail-at 4` drills in their own processes: qwen2-1.5b full
+     (writing two 21.3 GB checkpoints, the disk's free space checked
+     first) starts first and runs beside phases 2, 20's first part, 9, 3
+     and 5 (its 59 GB of the card kept near that by expandable
+     segments), and is checked before phase 17; mixtral-8x7b
+     smoke and nequip full start after the index directories are removed
+     and run beside phases 20-21: each must exit 0 with restarts=1 and
+     steps=7, its last checkpoint at step 5;
+ 20. the GNN (models/nequip.py), in two parts summed as one path:
+     during phase 2, nequip full() on the `molecule` cell
      (128 synth_molecules graphs) card against a CPU twin (energies,
      loss, gradients, one AdamW step), energy invariance under a
      rotation and translation on the card, the step ms; the
@@ -180,9 +199,9 @@ Phases, each printed with its seconds:
      (GnnHostJob, on the CPU) that starts after phase 3: a synth_graph
      of 232,965 nodes and 114,615,892 edges (d_feat 602), its CSRGraph,
      padded_batch at 1024 seeds and fanout (15, 10) (169,984 nodes,
-     168,960 edges, seeded positions), the CPU twin of one batch; once
-     the LM drill is done, its card side: energies and gradients against
-     the twin, forward and train step ms, peak memory;
+     168,960 edges, seeded positions), the CPU twin of one batch; then
+     its card side: energies and gradients against the twin, forward and
+     train step ms, peak memory;
  21. the MoE LMs (models/moe.py): mixtral-8x7b at full width and 1 layer
      in float32, card against a CPU twin on two batches of (2, 64) (T
      128, C 40; the second repeats one token over the first half of each
@@ -198,8 +217,9 @@ Phases, each printed with its seconds:
      shapes ((128, 8), (1024, 8), (8, 128), (1024, 128), k 2) held
      bitwise to its plain version;
  22. the port's four examples (examples/torch_*.py), each in its own
-     process on the card, the four at once, started with the drills of
-     19: exit 0, their result lines, seconds and kernel launches;
+     process on the card, the four at once, started with the MoE and GNN
+     drills of 19: exit 0, their result lines, seconds and kernel
+     launches;
  23. the mesh (models/{sharding,collectives,nequip_sharded}.py,
      launch/mesh.py, the sharded LM steps and MoE dispatches, elastic
      restore): 4 processes (torch.multiprocessing, spawn) on the one card
@@ -229,9 +249,17 @@ Phases, each printed with its seconds:
      one-rank steps (loss, norm, the MLP leaves and every touched row;
      the untouched rows bitwise their init), then embedding_bag at the
      rank's slice shape (a zero row for other ranks' ids) bitwise its
-     plain version, timed beside F.embedding_bag; each step's ms, peak
-     memory and bytes through the collectives printed; then topk at the ranks' per-shard
-     router shapes bitwise its plain version beside torch.topk;
+     plain version, timed beside F.embedding_bag; (i) (b)'s config and
+     init with the reference's default moe_impl "sort" (one global
+     capacity over both data shards) on 2 x 2: one train step on a batch
+     that drops pairs against the one-rank step on the whole batch (loss
+     1e-4, params 5e-4, gradient norm 1e-4 relative), the global dropped
+     pairs equal to the one-rank step's, prefill and 4 decode tokens
+     against its logits; (j) (c)'s params with "sort" on 1 x 4, prefill
+     and 4 decode tokens against phase 21's logits as (c); each step's
+     ms, peak memory and bytes through the collectives printed; then
+     topk at the ranks' per-shard router shapes bitwise its plain version
+     beside torch.topk;
  24. the dry run (launch/{specs,dryrun}.py, analysis/{cost,roofline}.py),
      in a process of its own on the host that starts after phase 3 and
      sees no card: qwen2-1.5b train_4k, deepseek-67b decode_32k,
@@ -1623,7 +1651,7 @@ def check_kernels(dev, launches, v2, v1, tail, codebooks, selector, eb,
     # op, with its stream sync and error-word read.
     notes, t = [], None
     for key in ("guide", "user_tower", "serve_wide", "candidate_tower"):
-        table, idx = eb["bags"][key]
+        table, idx = (x.to(dev) for x in eb["bags"][key])
         out = embedding_bag(table, idx)
         ref = embedding_bag_ref(table, idx)
         torch.cuda.synchronize()
@@ -1848,16 +1876,23 @@ def check_neighbors(ids, sims, ref_ids, ref_sims):
 
 def update_v2_phase(v2_dir, tmp, dev):
     """The port's update CLI in process on the card (1 % churn, serving
-    before and after a hot reload, a compacted copy's parity), then the
-    same synth_delta committed on the CPU to a copy: the two generations
-    compared by compare_generations. Returns the launch counts of the CLI
-    run."""
+    before and after a hot reload, a compacted copy's parity) and, in a
+    process beside it, the same synth_delta committed on the CPU to a
+    copy: the two generations compared by compare_generations. Returns
+    the launch counts of the CLI run."""
+    import torch.multiprocessing as mp
+
     from repro_torch import kernels
-    from repro_torch.index import IndexReader, write_index_delta
     from repro_torch.launch import update_index
 
     cpu_dir = os.path.join(tmp, "v2_cpu")
     shutil.copytree(v2_dir, cpu_dir)
+    # the CPU's commit runs in a process of its own beside the card's
+    twin = mp.get_context("spawn").Process(
+        target=_cpu_delta_proc, args=(cpu_dir, UPDATE_UPSERTS,
+                                      UPDATE_DELETES, CPU_TWIN_THREADS),
+        daemon=True)
+    twin.start()
     trace = os.path.join(tmp, "update.jsonl")
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1888,17 +1923,43 @@ def update_v2_phase(v2_dir, tmp, dev):
           f"({st['bytes_rewritten'] / st['shard_bytes_total']:.4f}), "
           f"wall {st['wall_s']} s; span totals (ms) {json.dumps(spans)}")
     t0 = time.perf_counter()
-    delta, _ = update_index.synth_delta(IndexReader.open(cpu_dir),
-                                        UPDATE_UPSERTS, UPDATE_DELETES,
-                                        seed=0)
-    write_index_delta(cpu_dir, delta, verify="none", device="cpu")
-    print(f"  the same delta on the CPU: {time.perf_counter() - t0:.2f} s")
+    twin.join(900)
+    done = os.path.join(cpu_dir, "twin.pt")
+    if twin.is_alive() or twin.exitcode != 0 or not os.path.exists(done):
+        twin.kill()
+        raise AssertionError(f"the CPU's commit failed (exit code "
+                             f"{twin.exitcode})")
+    res = torch.load(done, weights_only=False)
+    os.remove(done)
+    delta = res["delta"]
+    print(f"  the same delta on the CPU, in its process beside the card's: "
+          f"{res['seconds']:.2f} s (waited {time.perf_counter() - t0:.2f} "
+          f"s after the CLI)")
     n_ties = compare_generations(v2_dir, cpu_dir, delta)
     print(f"  card vs CPU generation 1: every staged file equal; upsert "
           f"codes differing at near-ties {n_ties} of "
           f"{delta.n_upserts * NSUB}")
     shutil.rmtree(cpu_dir)
     return launches
+
+
+CPU_TWIN_THREADS = 3       # torch threads of the v2 update's CPU twin
+
+
+def _cpu_delta_proc(cpu_dir, upserts, deletes, threads):
+    """update_v2_phase's CPU twin (a process of its own): the same
+    synth_delta (seed 0) committed to the copy `cpu_dir` on the CPU; the
+    delta and the seconds saved to <cpu_dir>/twin.pt."""
+    from repro_torch.index import IndexReader, write_index_delta
+    from repro_torch.launch import update_index
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    delta, _ = update_index.synth_delta(IndexReader.open(cpu_dir), upserts,
+                                        deletes, seed=0)
+    write_index_delta(cpu_dir, delta, verify="none", device="cpu")
+    torch.save({"delta": delta, "seconds": time.perf_counter() - t0},
+               os.path.join(cpu_dir, "twin.pt"))
 
 
 def update_v1_phase(v1_dir, qs, dev):
@@ -3771,19 +3832,21 @@ def _lm_step_close(pg, og, mg, pc, oc, mc, p0, weight_decay=None,
 
 
 class _MoeRecorder:
-    """Wraps models/moe's router top-k and moe_ffn while it is entered:
-    every top-k's input and indices are kept in `routes`, and the first
-    moe_ffn arguments of each token count in `calls` (the same launches,
-    nothing added)."""
+    """Wraps models/moe's router top-k, moe_ffn and moe_ffn_sort_mesh
+    while it is entered: every top-k's input and indices are kept in
+    `routes`, the first moe_ffn arguments of each token count in `calls`,
+    and each moe_ffn_sort_mesh call's global dropped pairs (a 0-dim
+    tensor) in `dropped` (the same launches, nothing added)."""
 
     def __init__(self, keep_calls=True):
         from repro_torch.models import moe
-        self.mod, self.routes, self.calls = moe, [], {}
+        self.mod, self.routes, self.calls, self.dropped = moe, [], {}, []
         self.keep_calls = keep_calls
-        self._real = (moe.topk_desc_index_asc, moe.moe_ffn)
+        self._real = (moe.topk_desc_index_asc, moe.moe_ffn,
+                      moe.moe_ffn_sort_mesh)
 
     def __enter__(self):
-        real_topk, real_ffn = self._real
+        real_topk, real_ffn, real_sort = self._real
 
         def topk(x, k):
             v, i = real_topk(x, k)
@@ -3794,11 +3857,18 @@ class _MoeRecorder:
             if self.keep_calls:
                 self.calls.setdefault(x.shape[0], (x,) + args + (kw,))
             return real_ffn(x, *args, **kw)
-        self.mod.topk_desc_index_asc, self.mod.moe_ffn = topk, ffn
+
+        def sort_mesh(*args, **kw):
+            out = real_sort(*args, **kw)
+            self.dropped.append(out[2])
+            return out
+        (self.mod.topk_desc_index_asc, self.mod.moe_ffn,
+         self.mod.moe_ffn_sort_mesh) = topk, ffn, sort_mesh
         return self
 
     def __exit__(self, *exc):
-        self.mod.topk_desc_index_asc, self.mod.moe_ffn = self._real
+        (self.mod.topk_desc_index_asc, self.mod.moe_ffn,
+         self.mod.moe_ffn_sort_mesh) = self._real
         return False
 
 
@@ -4160,8 +4230,11 @@ def start_drills(tmp, specs):
             raise AssertionError(f"the disk holds {free} bytes, short of "
                                  f"the {int(2.2 * need)} the drill's "
                                  f"checkpoints need")
+    # a drill shares the card with this process: expandable segments keep
+    # its allocator's reserve near what it has allocated
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS="2",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     drills = {}
     for arch, variant in specs:
         ck = os.path.join(tmp, f"drill_{arch}")
@@ -4260,9 +4333,9 @@ def moe_phase(dev):
 
 
 MOE_TOPK_SHAPES = ((128, 8), (1024, 8), (8, 128), (1024, 128))
-# phase 23's per-shard router inputs: mixtral's (B/2 x S, 8) on 2 x 2,
-# arctic's prefill and decode on 1 x 4
-MESH_TOPK_SHAPES = ((512, 8), (1024, 128), (8, 128))
+# phase 23's per-shard router inputs: mixtral's (B/2 x S, 8) on 2 x 2 and
+# (i)'s decode (B/2, 8), arctic's prefill and decode on 1 x 4
+MESH_TOPK_SHAPES = ((512, 8), (4, 8), (1024, 128), (8, 128))
 
 
 def check_moe_topk(rows, shapes, want=MOE_TOPK_SHAPES,
@@ -4581,23 +4654,22 @@ def gnn_minibatch(dev, host):
     return note
 
 
-def gnn_phase(dev, drills, host_job):
-    """The GNN path, with the launch counts zeroed just before and read
-    just after (nequip runs none of the seven kernels: its gathers,
-    scatters and einsums are plain torch ops, as the reference has no
-    Pallas kernel there): the molecule cell beside the LM's train CLI
-    drill, then minibatch_lg's host side from `host_job` (a GnnHostJob)
-    and, once the drill has freed the card's memory (about 59 GB), its
-    card side. Returns the launches."""
+def gnn_phase(dev, host_job, first):
+    """The GNN path's second part, with the launch counts zeroed just
+    before and read just after (nequip runs none of the seven kernels:
+    its gathers, scatters and einsums are plain torch ops, as the
+    reference has no Pallas kernel there): minibatch_lg's host side from
+    `host_job` (a GnnHostJob) and its card side. Returns the launches
+    summed with `first`, those of the first part (the molecule cell,
+    driven the same way at the start)."""
     from repro_torch import kernels
 
     kernels.reset_launches()
-    gnn_molecule(dev)
     host = host_job.result()
-    finish_drills(drills, [LM_ARCH])
     gnn_minibatch(dev, host)
-    print(f"  gnn path launches {kernels.LAUNCHES}", flush=True)
-    return dict(kernels.LAUNCHES)
+    launches = {k: first[k] + v for k, v in kernels.LAUNCHES.items()}
+    print(f"  gnn path launches {launches}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5181,7 +5253,8 @@ def mesh_rank(rank, world, job, dev_kind, settings):
     TP MoE on 2 x 2, (e) the elastic restore of (b)'s params, (c) arctic's
     EP MoE on 1 x 4, (d) nequip owner-sharded on 2 x 2, (f) uneven query
     heads on 1 x 4, (g) decode with the KV sequence over "model" on 1 x 4,
-    (h) wide-deep's row-sharded tables on 2 x 2, with the kernel launch
+    (h) wide-deep's row-sharded tables on 2 x 2, (i) mixtral's "sort" on
+    2 x 2, (j) arctic's "sort" on 1 x 4, with the kernel launch
     counts zeroed before (a) and read after (h). Rank 0 saves the
     router's per-shard top-k inputs. `settings` carries the parent's
     module settings (a spawned process imports this module afresh).
@@ -5248,6 +5321,29 @@ def mesh_rank(rank, world, job, dev_kind, settings):
         out["e"] = _mesh_elastic(rank, p2, psh, cfg, job, dev)
         del p2
         torch.cuda.empty_cache()
+        # (i) mixtral with the reference's default "sort": one global
+        # capacity over both data shards, held to the whole batch's step
+        cfg = dataclasses.replace(cfg, moe_impl="sort")
+        with _MoeRecorder(keep_calls=False) as rec:
+            out["i"], p2, _ = _mesh_lm_step(rank, m22, cfg, job, "i", dev,
+                                            1)
+        out["i"]["dropped"] = int(rec.dropped[0])       # the step's forward
+        del p2, rec
+        with sh.rules_ctx({}, mesh=m22):
+            params = tt.init_params(cfg, torch.Generator(device=dev)
+                                    .manual_seed(1), device=dev,
+                                    shardings=tt.param_shardings(cfg, m22))
+        with _MoeRecorder(keep_calls=False) as rec:
+            out["i"].update(_mesh_infer(m22, cfg, params, torch.load(
+                os.path.join(job, "i_infer.pt")), dev, LM_S + 8,
+                tol=MESH_TOL))
+        out["i"]["infer_dropped"] = [int(x) for x in rec.dropped]
+        if rank == 0:
+            for x, _ in rec.routes:
+                np.save(os.path.join(job, f"topk_i_{x.shape[0]}.npy"),
+                        x.cpu().numpy())
+        del params, rec
+        torch.cuda.empty_cache()
         # (c) arctic's EP MoE on 1 x 4, each rank's init in turn
         cfg = dataclasses.replace(
             get_config("arctic-480b", MOE_VARIANT), n_layers=ARCTIC_LAYERS,
@@ -5277,6 +5373,14 @@ def mesh_rank(rank, world, job, dev_kind, settings):
             for x, _ in rec.routes:
                 np.save(os.path.join(job, f"topk_c_{x.shape[0]}.npy"),
                         x.cpu().numpy())
+        del rec
+        # (j) the same params with the reference's default "sort": on one
+        # data shard its capacity is the global one
+        with _MoeRecorder(keep_calls=False) as rec:
+            out["j"] = _mesh_infer(m14, dataclasses.replace(
+                cfg, moe_impl="sort"), params, torch.load(
+                os.path.join(job, "c_infer.pt")), dev, LM_DECODE_SLOTS)
+        out["j"]["dropped"] = [int(x) for x in rec.dropped]
         del params, rec
         torch.cuda.empty_cache()
         # (d) nequip owner-sharded
@@ -5326,16 +5430,20 @@ def mesh_rank(rank, world, job, dev_kind, settings):
         tdist.destroy_process_group()
 
 
-def _mesh_ref_step(cfg, tag, job, dev, seed, B, S):
+def _mesh_ref_step(cfg, tag, job, dev, seed, B, S, repeat=False):
     """The one-rank reference of a sharded step: `cfg`'s train step from
-    the init of `seed` on (B, S + 1) tokens; saves the tokens, every new
-    param leaf whole (<tag>_p<i>.npy) and the metrics. Returns the
-    metrics and the step's peak device memory in GB."""
+    the init of `seed` on (B, S + 1) tokens (with `repeat`, the first
+    half of each row one token, as phase 21's second batch, so that an
+    MoE drops pairs); saves the tokens, every new param leaf whole
+    (<tag>_p<i>.npy) and the metrics. Returns the metrics and the step's
+    peak device memory in GB."""
     from repro_torch.common import tree as tu
     from repro_torch.models import transformer as tt
     from repro_torch.optim import adamw_init
 
     t = lm_batch(cfg, B, S, SEED + 30)
+    if repeat:
+        t[:, :S // 2] = t[0, 0]
     np.save(os.path.join(job, f"{tag}_tokens.npy"), t)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5398,8 +5506,10 @@ def mesh_phase(dev, job):
     logits at MESH_TOL; (c) the rows routed clear within ARCTIC_MESH_TOL
     x max |logit|; (d) energies allclose at GNN_TOL's rtol and
     GNN_BIG_ATOL x max |E|, gradients within GNN_GRAD_RTOL relative L2;
-    (e) bitwise. Returns (launches
-    summed over the ranks, {shape: rank 0's router top-k input})."""
+    (e) bitwise; (i) as (a) against the whole batch's one-rank step,
+    its global dropped pairs equal to that step's; (j) as (c). Returns
+    (launches summed over the ranks, {shape: rank 0's router top-k
+    input})."""
     import torch.multiprocessing as tmp
 
     from repro_torch.common import tree as tu
@@ -5415,6 +5525,12 @@ def mesh_phase(dev, job):
         get_config("mixtral-8x7b", MOE_VARIANT), n_layers=1, dtype="float32",
         param_dtype="float32", microbatch=2)
     ref_b, peak_b = _mesh_ref_step(cfg_b, "b", job, dev, 1, LM_B, LM_S)
+    # (i)'s: the whole batch in one step (no microbatch), its MoE at the
+    # global capacity, on tokens that drop pairs
+    cfg_i = dataclasses.replace(cfg_b, microbatch=0)
+    ref_i, peak_i = _mesh_ref_step(cfg_i, "i", job, dev, 1, LM_B, LM_S,
+                                   repeat=True)
+    _mesh_ref_infer(cfg_i, job, dev, 1, tag="i")
     cfg_f = dataclasses.replace(cfg_a, **MESH_UNEVEN)
     ref_f, peak_f = _mesh_ref_step(cfg_f, "f", job, dev, 1, LM_B, LM_S)
     _mesh_ref_infer(cfg_f, job, dev, 1, tag="f")
@@ -5428,7 +5544,8 @@ def mesh_phase(dev, job):
     ref_s = time.perf_counter() - t0
     print(f"  one-rank references in {ref_s:.2f} s: qwen2 step (peak "
           f"{peak_a:.2f} GB) {ref_a}; mixtral step by data-shard "
-          f"microbatches (peak {peak_b:.2f} GB) {ref_b}; qwen2 with "
+          f"microbatches (peak {peak_b:.2f} GB) {ref_b}; mixtral step "
+          f"on the whole batch (peak {peak_i:.2f} GB) {ref_i}; qwen2 with "
           f"{MESH_UNEVEN} (peak {peak_f:.2f} GB) {ref_f}; wide-deep "
           f"{RECSYS_SIZE} serve B {MESH_RECSYS_SERVE_B} and train step B "
           f"{MESH_RECSYS_TRAIN_B} ({ref_h_s:.2f} s) {ref_h}", flush=True)
@@ -5454,7 +5571,9 @@ def mesh_phase(dev, job):
                        ("b", "(b) mixtral-8x7b 1 layer float32 "
                              "tp_shard_map, 2 x 2"),
                        ("f", f"(f) {LM_ARCH} {LM_PARITY_LAYERS} layers "
-                             f"float32 with {MESH_UNEVEN}, 1 x 4")):
+                             f"float32 with {MESH_UNEVEN}, 1 x 4"),
+                       ("i", "(i) mixtral-8x7b 1 layer float32 sort, "
+                             "2 x 2")):
         rr = [r[part] for r in res]
         loss_d = max(abs(x["loss"] - x["ref_loss"]) for x in rr)
         pd = max(x["param_diff"] for x in rr)
@@ -5484,7 +5603,8 @@ def mesh_phase(dev, job):
     if not close:
         fails.append("(a) logits")
     for part, name in (("f", f"(f) {MESH_UNEVEN} on 1 x 4"),
-                       ("g", "(g) seq_kv on \"model\", 1 x 4")):
+                       ("g", "(g) seq_kv on \"model\", 1 x 4"),
+                       ("i", "(i) mixtral sort on 2 x 2")):
         x = [r[part] for r in res]
         worst = max(max(max(d) for d in y["row_diff"]) for y in x)
         close = all(all(y["close"]) for y in x)
@@ -5539,35 +5659,50 @@ def mesh_phase(dev, job):
           f"drop {ref_b['dropped_global']}; the one-rank reference's "
           f"microbatches (one a data shard) drop "
           f"{ref_b['dropped_per_microbatch']}", flush=True)
-    c = [r["c"] for r in res]
+    i = [r["i"] for r in res]
+    drops = [x["dropped"] for x in i]
+    print(f"  (i) global dropped (token, k) pairs on every rank {drops}, "
+          f"the one-rank step's {ref_i['dropped_global']}; prefill and "
+          f"decode's {i[0]['infer_dropped']}; the step's bytes a rank "
+          f"{i[0]['traffic']}, the prefill's {i[0]['prefill_traffic']}",
+          flush=True)
+    if not (ref_i["dropped_global"] > 0
+            and all(d == ref_i["dropped_global"] for d in drops)):
+        fails.append("(i) dropped pairs")
     arc = MESH_REFS["arctic"]
     steps = [arc["prefill"]] + list(arc["decode"])
-    clear_rows, bad = [], []
-    for si, (logits, probs) in enumerate(zip(steps, arc["probs"])):
-        # the router's softmax in float32 of bf16 logits: log-ratios of
-        # the probabilities are the logits' gaps
-        lp = probs.double().log().sort(-1, descending=True).values
-        clear = ((lp[:, 0] - lp[:, 1] >= ARCTIC_MESH_GAP)
-                 & (lp[:, 1] - lp[:, 2] >= ARCTIC_MESH_GAP))
-        tol = ARCTIC_MESH_TOL * float(logits.float().abs().max())
-        diff = torch.tensor(c[0]["row_diff"][si])
-        clear_rows.append(int(clear.sum()))
-        bad.append(int(((diff > tol) & clear).sum()))
-        if si == 0:
-            arc_worst = [float(diff.max()), tol]
-    print(f"  (c) arctic-480b 1 layer bf16 ep_shard_map, 1 x 4: params "
-          f"{per_rank('c', 'params_gb')} GB a rank (init peak "
-          f"{per_rank('c', 'init_peak_gb')} GB, the ranks' inits in turn); "
-          f"prefill ({LM_B}, {LM_S}) ms {per_rank('c', 'prefill_ms')}, "
-          f"decode ms a token {per_rank('c', 'decode_ms')}, prefill peak "
-          f"GB {per_rank('c', 'prefill_peak_gb')}; logits rows per step "
-          f"clear of a "
-          f"router tie {clear_rows} of {LM_B}, over tolerance {bad}; prefill "
-          f"max |diff| {arc_worst[0]:.4g} (tolerance {arc_worst[1]:.4g}); "
-          f"all-reduce bytes of the prefill per rank "
-          f"{c[0]['prefill_traffic']}", flush=True)
-    if any(bad) or 2 * sum(clear_rows) < LM_B * len(steps):
-        fails.append("(c) arctic logits")
+    for part, name in (("c", "(c) arctic-480b 1 layer bf16 ep_shard_map, "
+                             "1 x 4"),
+                       ("j", "(j) arctic-480b 1 layer bf16 sort, 1 x 4")):
+        c = [r[part] for r in res]
+        clear_rows, bad = [], []
+        for si, (logits, probs) in enumerate(zip(steps, arc["probs"])):
+            # the router's softmax in float32 of bf16 logits: log-ratios
+            # of the probabilities are the logits' gaps
+            lp = probs.double().log().sort(-1, descending=True).values
+            clear = ((lp[:, 0] - lp[:, 1] >= ARCTIC_MESH_GAP)
+                     & (lp[:, 1] - lp[:, 2] >= ARCTIC_MESH_GAP))
+            tol = ARCTIC_MESH_TOL * float(logits.float().abs().max())
+            diff = torch.tensor(c[0]["row_diff"][si])
+            clear_rows.append(int(clear.sum()))
+            bad.append(int(((diff > tol) & clear).sum()))
+            if si == 0:
+                arc_worst = [float(diff.max()), tol]
+        extra = (f"params {per_rank('c', 'params_gb')} GB a rank (init "
+                 f"peak {per_rank('c', 'init_peak_gb')} GB, the ranks' "
+                 f"inits in turn); " if part == "c" else
+                 f"(c)'s params; global dropped pairs a call "
+                 f"{c[0]['dropped']}; ")
+        print(f"  {name}: {extra}prefill ({LM_B}, {LM_S}) ms "
+              f"{per_rank(part, 'prefill_ms')}, decode ms a token "
+              f"{per_rank(part, 'decode_ms')}, prefill peak GB "
+              f"{per_rank(part, 'prefill_peak_gb')}; logits rows per step "
+              f"clear of a router tie {clear_rows} of {LM_B}, over "
+              f"tolerance {bad}; prefill max |diff| {arc_worst[0]:.4g} "
+              f"(tolerance {arc_worst[1]:.4g}); bytes of the prefill per "
+              f"rank {c[0]['prefill_traffic']}", flush=True)
+        if any(bad) or 2 * sum(clear_rows) < LM_B * len(steps):
+            fails.append(f"{name} logits")
     d = [r["d"] for r in res]
     print(f"  (d) nequip minibatch_lg on 4 owner shards (n_loc "
           f"{d[0]['n_loc']}, E_loc {d[0]['e_loc']}): energies max |diff| "
@@ -5782,14 +5917,74 @@ def check_path_launches(paths):
                              f"{missing}; launches {paths}")
 
 
+class CorpusJob:
+    """The directories' corpus (`recipe_corpus`, a single-threaded numpy
+    loop of about 45 s at 2^20 docs) made in a Python process of its own
+    that imports numpy and the port's generator alone, so that this
+    process drives the card meanwhile; `result()` loads its arrays and
+    keeps them as the recipe's corpus in this process (`keep_corpus`:
+    the update, train and serve CLIs run here take it from there),
+    `stop()` ends the process and removes its files."""
+
+    FIELDS = ("embeddings", "doc_terms", "doc_weights", "topic_of")
+    CODE = r"""
+import json, os, sys, time
+import numpy as np
+from repro_torch.data.synthetic import recipe_corpus
+t0 = time.perf_counter()
+corpus = recipe_corpus(json.loads(sys.argv[1]))
+for f in sys.argv[3:]:
+    np.save(os.path.join(sys.argv[2], f + ".npy"), getattr(corpus, f))
+with open(os.path.join(sys.argv[2], "done"), "w") as f:
+    f.write(str(time.perf_counter() - t0))
+"""
+
+    def __init__(self, recipe):
+        self.recipe = recipe
+        self.dir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"),
+                                    prefix="chip_smoke_corpus_")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", self.CODE, json.dumps(recipe), self.dir,
+             *self.FIELDS],
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            cwd=ROOT)
+
+    def result(self, timeout=900):
+        from repro_torch.data import Corpus, keep_corpus
+
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout)
+        done = os.path.join(self.dir, "done")
+        if rc != 0 or not os.path.exists(done):
+            raise AssertionError(f"the corpus process failed (exit code "
+                                 f"{rc})")
+        wait_s = time.perf_counter() - t0
+        with open(done) as f:
+            made_s = float(f.read())
+        corpus = Corpus(*(np.load(os.path.join(self.dir, f + ".npy"))
+                          for f in self.FIELDS), int(self.recipe["vocab"]))
+        keep_corpus(self.recipe, corpus)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        print(f"  corpus made in its process in {made_s:.2f} s (started "
+              f"{time.perf_counter() - self.t0:.2f} s ago; waited "
+              f"{wait_s:.2f} s), loaded in "
+              f"{time.perf_counter() - t0 - wait_s:.2f} s", flush=True)
+        return corpus
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
     from repro_torch.configs import clusd_msmarco
-    from repro_torch.data import recipe_corpus
-    from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5810,85 +6005,108 @@ def main():
               f"device {kind} x{torch.cuda.device_count()}")
 
     cfg = dataclasses.replace(clusd_msmarco.full(), n_docs=N_DOCS)
-    # the directories' corpus (a single-threaded numpy loop, about 45 s) is
-    # made on a thread while nvcc builds the kernels; build_state takes it
-    # from recipe_corpus's keeping
-    corpus_job = threading.Thread(target=recipe_corpus, args=(
-        corpus_extra(cfg)["corpus"],), daemon=True)
-    corpus_job.start()
-    with phase("kernel build (nvcc, sm_90a)"):
-        for name, log in build.build_all().items():
-            print(f"--- {name}.cu: {log['seconds']:.2f} s -> {log['so']}")
-            for ln in ptxas_summary(log["ptxas"]):
-                print(f"  {ln}")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     cleanup = []        # stops the processes the phases start in the back
     try:
-        return run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup)
+        return run_phases(dev, cfg, smi, kind, t_start, cleanup)
     finally:
         for stop in reversed(cleanup):
             stop()
 
 
-def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
-    """Phases 3-23 (see the module docstring); each process started in the
+def run_phases(dev, cfg, smi, kind, t_start, cleanup):
+    """Phases 2-24 (see the module docstring); each process started in the
     back adds its stop to `cleanup`. Returns 0."""
-    print(f"config: dim {cfg.dim} N {cfg.n_clusters} cap {cfg.cluster_cap} "
-          f"vocab {cfg.vocab} max_postings {cfg.max_postings} k_sparse "
-          f"{cfg.k_sparse} bins {cfg.bins} n {cfg.n_candidates} H "
-          f"{cfg.lstm_hidden} m {cfg.n_neighbors} u {cfg.u_bins} theta "
-          f"{cfg.theta} max_selected {cfg.max_selected} k_final "
-          f"{cfg.k_final} fusion {cfg.fusion} n_docs {cfg.n_docs} "
-          f"nsub {NSUB}")
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="chip_smoke_") as tmp:
+        # first, while the disk and the card are free: the LM's train CLI
+        # drill (two 21.3 GB checkpoints, about 60 GB of the card) in its
+        # own process, checked before the baselines (which need the whole
+        # card) and the index directories (the disk); beside it the
+        # corpus in a numpy-only process, nvcc on a thread, and phases 20
+        # (its first part), 9, 3 and 5, which fit beside it
+        lm_drill = start_drills(tmp, [(LM_ARCH, LM_VARIANT)])
+        cleanup.append(lambda: stop_procs(lm_drill))
+        corpus_job = CorpusJob(corpus_extra(cfg)["corpus"])
+        cleanup.append(corpus_job.stop)
+        built = {}
+
+        def build_kernels():
+            t0 = time.perf_counter()
+            try:
+                built["logs"] = build.build_all()
+            except Exception as e:      # raised on the main thread below
+                built["error"] = e
+            built["seconds"] = time.perf_counter() - t0
+        build_thread = threading.Thread(target=build_kernels, daemon=True)
+        build_thread.start()
+        paths = {}
+        with phase("gnn, part 1: nequip full() on the molecule cell (beside "
+                   "the kernel build)"):
+            kernels.reset_launches()
+            gnn_molecule(dev)
+            gnn_first = dict(kernels.LAUNCHES)
+        with phase("kernel build (nvcc, sm_90a)"):
+            build_thread.join()
+            if "error" in built:
+                raise built["error"]
+            print(f"  built on a thread in {built['seconds']:.2f} s")
+            for name, log in built["logs"].items():
+                print(f"--- {name}.cu: {log['seconds']:.2f} s -> "
+                      f"{log['so']}")
+                for ln in ptxas_summary(log["ptxas"]):
+                    print(f"  {ln}")
+        with phase(f"recsys: wide_deep {RECSYS_SIZE}"):
+            paths["recsys"], eb = recsys_phase(dev)
+            guide = (eb["guide_row"][0].clone(), eb["k_guide"],
+                     RECSYS_CLUSTERS, RECSYS_CAP)
+            # the kernel check's bags wait on the host beside the drill
+            eb["bags"] = {k: (t.cpu(), i.cpu())
+                          for k, (t, i) in eb["bags"].items()}
+            torch.cuda.empty_cache()
+        print(f"config: dim {cfg.dim} N {cfg.n_clusters} cap "
+              f"{cfg.cluster_cap} vocab {cfg.vocab} max_postings "
+              f"{cfg.max_postings} k_sparse {cfg.k_sparse} bins {cfg.bins} "
+              f"n {cfg.n_candidates} H {cfg.lstm_hidden} m "
+              f"{cfg.n_neighbors} u {cfg.u_bins} theta {cfg.theta} "
+              f"max_selected {cfg.max_selected} k_final {cfg.k_final} "
+              f"fusion {cfg.fusion} n_docs {cfg.n_docs} nsub {NSUB}")
         with phase("state build"):
-            corpus_job.join()
+            corpus_job.result()
             index, pq, corpus, qs = build_state(cfg, dev, N_QUERIES)
             print(f"  device memory: {torch.cuda.memory_allocated() / 1e9:.2f}"
                   f" GB allocated, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-            # the offline phase's np.memmap source, staged while the
-            # corpus is in RAM
-            t0 = time.perf_counter()
-            emb_path = os.path.join(tmp, "embeddings.f32")
-            corpus.embeddings.tofile(emb_path)
             doc_terms, doc_weights = corpus.doc_terms, corpus.doc_weights
             selector = index.selector
-            print(f"  staged the embeddings to a file: "
-                  f"{os.path.getsize(emb_path)} bytes in "
-                  f"{time.perf_counter() - t0:.2f} s")
+            # the drill shares the card: hand back the build's cached blocks
+            torch.cuda.empty_cache()
+        # the offline phase's np.memmap source, staged with the directories
+        emb_path = os.path.join(tmp, "embeddings.f32")
         # phase 20's minibatch_lg host side, in its own process from here
         gnn_host = GnnHostJob()
         cleanup.append(gnn_host.stop)
         # the dry run on the host, beside the card phases
         dry_job = DryRunJob()
         cleanup.append(dry_job.stop)
-        with phase("index directories (write_index v2, v1 float32 with "
-                   "pq/) and the DiskClusterStore file"):
-            dirs, blocks = write_dirs(cfg, index, pq, corpus, tmp)
-        paths = {}
         # device stores: the ADC tail is bitwise the plain version's, so
         # rtol alone for PQStore; dot products are summed in another order
         # on the card, so atol 1e-6 for InMemoryStore
         index.embeddings = torch.from_numpy(corpus.embeddings).to(dev)
         with phase(f"device InMemoryStore serving: {N_QUERIES} queries + 1 "
                    f"profiled batch + parity on {PARITY_QUERIES}"):
-            paths["memory"], eng = serve_device("memory", cfg, index, qs,
-                                                N_QUERIES, dev)
-            cs_notes = [memory_store_case(eng, qs)]
-            eng.close()
-            del eng
+            paths["memory"], eng_mem = serve_device("memory", cfg, index,
+                                                    qs, N_QUERIES, dev)
             parity("memory", device_engine(cfg, index), qs, dev, 1e-6)
             dist_job = stage_distributed(cfg, index, emb_path, qs, tmp, dev)
-        with phase(f"baselines: IVF {'/'.join(map(str, IVF_PCTS))}% (and "
-                   f"{IVF_PCTS[-1]}% unfused), S + Rerank, CDFS, LADR "
-                   f"default and fast over a doc kNN built on the card, "
-                   f"CluSD beside; {N_QUERIES} queries; the gates"):
-            paths["baselines"], bl_notes = baselines_phase(cfg, index, corpus,
-                                                           qs, dev)
+        # the PQStore and the selectors before the drill's check too; the
+        # InMemoryStore's table stays for the baselines
+        emb_dev = index.embeddings
         index.embeddings, index.quantizer = None, pq
-        del corpus
+        torch.cuda.empty_cache()
         with phase(f"device PQStore serving: {N_QUERIES} queries + 1 "
                    f"profiled batch + parity on {PARITY_QUERIES}"):
             paths["pq"], eng = serve_device("pq", cfg, index, qs, N_QUERIES,
@@ -5900,7 +6118,41 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
         with phase(f"rnn and mlp selectors: one batch of {MAX_BATCH}, card "
                    f"vs CPU on {PARITY_QUERIES}"):
             selector_batches(cfg, index, qs, dev)
-            index._stores.clear()
+            index._stores.pop("pq", None)
+        with phase(f"train CLI drill: {LM_ARCH} {LM_VARIANT}, started "
+                   f"first"):
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            print(f"  card memory free before the check {free / 1e9:.2f} "
+                  f"of {total / 1e9:.2f} GB; this process holds "
+                  f"{torch.cuda.memory_reserved() / 1e9:.2f} GB", flush=True)
+            finish_drills(lm_drill, [LM_ARCH])
+        index.embeddings, index.quantizer = emb_dev, None
+        del emb_dev
+        # cluster_score at the memory store's shape: its plain version's
+        # gather takes 6.4 GB, so after the drill has left the card
+        with phase("cluster_score at the memory store's shape"):
+            cs_notes = [memory_store_case(eng_mem, qs)]
+            eng_mem.close()
+            del eng_mem
+        with phase(f"baselines: IVF {'/'.join(map(str, IVF_PCTS))}% (and "
+                   f"{IVF_PCTS[-1]}% unfused), S + Rerank, CDFS, LADR "
+                   f"default and fast over a doc kNN built on the card, "
+                   f"CluSD beside; {N_QUERIES} queries; the gates"):
+            paths["baselines"], bl_notes = baselines_phase(cfg, index, corpus,
+                                                           qs, dev)
+        index.embeddings, index.quantizer = None, pq
+        with phase("index directories (write_index v2, v1 float32 with "
+                   "pq/), the DiskClusterStore file and the staged "
+                   "embeddings"):
+            dirs, blocks = write_dirs(cfg, index, pq, corpus, tmp)
+            index.quantizer = pq
+            t0 = time.perf_counter()
+            corpus.embeddings.tofile(emb_path)
+            print(f"  staged the embeddings to a file: "
+                  f"{os.path.getsize(emb_path)} bytes in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        del corpus
         # the DiskStore's "dot" tail scores float blocks summed in another
         # order on the card, so atol 1e-6 as for v1
         with phase(f"DiskStore serving: {HOST_STORE_QUERIES} queries + 1 "
@@ -5932,10 +6184,6 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
             eng.close()
             del eng
             parity("v1_pq", load_index_engine(dirs["v1"]), qs, dev, 0.0)
-        with phase(f"recsys: wide_deep {RECSYS_SIZE}"):
-            paths["recsys"], eb = recsys_phase(dev)
-            guide = (eb["guide_row"][0].clone(), eb["k_guide"],
-                     RECSYS_CLUSTERS, RECSYS_CAP)
         launches = {k: sum(p[k] for p in paths.values())
                     for k in paths["v2"]}
         print(f"  launches over the {len(paths)} paths: {launches}")
@@ -6004,8 +6252,6 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
             with phase(f"parity {name}: {PARITY_QUERIES} queries, card vs "
                        f"CPU"):
                 parity(name, dir_engine(dirs[name]), qs, dev, atol)
-    # the LM and the examples run after the index directories are gone:
-    # the train CLI's two checkpoints take 43 GB of disk
     gc.collect()
     torch.cuda.empty_cache()
     print(f"device memory before the LM: "
@@ -6016,16 +6262,14 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
                    f"{LM_PARITY_LAYERS} layers; the train step, prefill and "
                    f"decode at all layers"):
             paths["lm"] = lm_phase(dev)
-        # the three train CLI drills and the four examples run in their
-        # own processes beside the GNN phase (its molecule cell, while the
-        # LM drill holds the card) and the MoE phase
-        drills = start_drills(tmp, [(LM_ARCH, LM_VARIANT), *MOE_GNN_DRILLS])
+        # the MoE and GNN train CLI drills and the four examples run in
+        # their own processes beside the GNN and the MoE phases
+        drills = start_drills(tmp, list(MOE_GNN_DRILLS))
         examples = start_examples()
         try:
-            with phase("gnn: nequip full() on the molecule cell, "
-                       "minibatch_lg's host side from its process, then its "
-                       "card side"):
-                paths["gnn"] = gnn_phase(dev, drills, gnn_host)
+            with phase("gnn, part 2: minibatch_lg's host side from its "
+                       "process, then its card side"):
+                paths["gnn"] = gnn_phase(dev, gnn_host, gnn_first)
             with phase(f"moe: mixtral-8x7b card vs CPU at full width and 1 "
                        f"layer; its train step at {MOE_TRAIN_LAYERS}, "
                        f"prefill and decode at {MOE_INFER_LAYERS}; "
@@ -6048,10 +6292,10 @@ def run_phases(dev, cfg, smi, kind, t_start, corpus_job, cleanup):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
                                      prefix="chip_smoke_mesh_") as tmp:
         with phase(f"mesh: {MESH_RANKS} gloo ranks on the card; {LM_ARCH} "
-                   f"and mixtral-8x7b (tp_shard_map) train steps on 2 x 2, "
-                   f"arctic-480b (ep_shard_map) prefill and decode on 1 x 4, "
-                   f"nequip minibatch_lg on 4 owner shards, elastic "
-                   f"restore"):
+                   f"and mixtral-8x7b (tp_shard_map, sort) train steps on "
+                   f"2 x 2, arctic-480b (ep_shard_map, sort) prefill and "
+                   f"decode on 1 x 4, nequip minibatch_lg on 4 owner "
+                   f"shards, elastic restore"):
             paths["mesh"], mesh_shapes, mesh_bag = mesh_phase(dev, tmp)
     with phase(f"dry run: {len(DRY_CELLS)} cells on a fake 16 x 16 group "
                f"(host), and mesh (a)'s train cell on a fake 2 x 2 group "

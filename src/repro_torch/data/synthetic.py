@@ -9,7 +9,6 @@ seed gives the same corpus and queries, returned as numpy arrays.
 """
 
 import dataclasses
-import functools
 
 import numpy as np
 
@@ -59,19 +58,31 @@ def synth_corpus(seed, n_docs, dim, vocab, n_topics=None, doc_terms=16,
 
 def recipe_corpus(recipe):
     """The corpus of an index directory's synthetic recipe (its manifest's
-    extra["corpus"]: seed, n_docs, dim, vocab, and topic_noise where it
+    extra["corpus"]): seed, n_docs, dim, vocab, and topic_noise where it
     is not synth_corpus's default). The last one is kept, so that the
     update, train and serve CLIs run in one process, and the caller that
     wrote the directory, make it once (about 45 s at 2^20 docs): treat
     its arrays as read-only."""
-    return _recipe_corpus(int(recipe["seed"]), int(recipe["n_docs"]),
-                          int(recipe["dim"]), int(recipe["vocab"]),
-                          float(recipe.get("topic_noise", 0.55)))
+    key = _recipe_key(recipe)
+    if key not in _KEPT:
+        keep_corpus(recipe, synth_corpus(*key[:4], topic_noise=key[4]))
+    return _KEPT[key]
 
 
-@functools.lru_cache(maxsize=1)
-def _recipe_corpus(seed, n_docs, dim, vocab, topic_noise):
-    return synth_corpus(seed, n_docs, dim, vocab, topic_noise=topic_noise)
+def keep_corpus(recipe, corpus):
+    """Keep `corpus`, made from `recipe` elsewhere (in another process,
+    say), as recipe_corpus's corpus of that recipe, in place of the one
+    kept before."""
+    _KEPT.clear()
+    _KEPT[_recipe_key(recipe)] = corpus
+
+
+_KEPT = {}
+
+
+def _recipe_key(recipe):
+    return (int(recipe["seed"]), int(recipe["n_docs"]), int(recipe["dim"]),
+            int(recipe["vocab"]), float(recipe.get("topic_noise", 0.55)))
 
 
 def synth_queries(seed, corpus: Corpus, n_queries, q_terms=8,

@@ -8,11 +8,13 @@ that place them (the reference's). The dry run materializes each
 argument as a meta tensor of its sharding's `local_shape` and runs `fn`
 on this rank's slices.
 
-The port sets the sharded implementations it has (`PORT_OVERRIDES`,
-recorded under meta["overrides"]): mixtral-8x7b's MoE by
-`tp_shard_map` (8 experts do not fill a 16-rank model axis),
+The port sets its shard_map implementations by default
+(`PORT_OVERRIDES`, recorded under meta["overrides"]): mixtral-8x7b's
+MoE by `tp_shard_map` (8 experts do not fill a 16-rank model axis),
 arctic-480b's by `ep_shard_map`, nequip's messages by
-`owner_shard_map`. The two cells that the reference leaves to its
+`owner_shard_map`. The reference's own MoE default runs too:
+`overrides={"moe_impl": "sort"}` (the CLI's `--set moe_impl=sort`)
+counts `moe_ffn_sort_mesh`, the global dispatch. The two cells that the reference leaves to its
 partitioner gather their sharded operands with
 `collectives.gather_replicated` and run the port's one-rank function:
 recsys `retrieval_cand` and CluSD `impl="pjit"`; the default CluSD cell

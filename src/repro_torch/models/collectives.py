@@ -53,14 +53,14 @@ def _staged(t, group):
 
 def all_gather_group(t, group):
     """[t of every rank of `group`], in group rank order (no gradient);
-    16-bit floats travel as int16."""
+    16-bit floats travel as bytes (gloo gathers no 16-bit type)."""
     n = dist.get_world_size(group)
     src, staged = _staged(t.contiguous(), group)
     if src.dtype in (torch.bfloat16, torch.float16):
-        src = src.view(torch.int16)
+        src = src.reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    parts = [p.view(t.dtype) for p in parts]
+    parts = [p.view(t.dtype).view(t.shape) for p in parts]
     if staged:
         parts = [p.to(t.device, non_blocking=True) for p in parts]
     TRAFFIC["all_gather"] += t.numel() * t.element_size() * n

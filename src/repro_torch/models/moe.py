@@ -5,6 +5,9 @@ over the model axis) and `moe_ffn_tp_shardmap` (every expert's d_ff
 split over it) are its sharded dispatches over a `launch.mesh.Mesh`:
 each rank routes its own tokens with its own capacity, and one
 all-reduce of (T_local, d) over the model axis combines the ranks.
+`moe_ffn_sort_mesh` is the reference's default ("sort") on a mesh: the
+global `moe_ffn` over all ranks' tokens, with one global capacity, in
+either layout.
 
 Active-FLOP faithful: expert compute is E x C x (3 d f) ~= tokens * top_k *
 capacity_factor * ffn_flops — never the dense all-experts product.
@@ -45,24 +48,38 @@ def route(x, router_w, top_k):
     return probs, gate, eidx
 
 
-def dispatch_plan(eidx, n_experts, cap):
+def expert_counts(flat_e, n_experts):
+    """(n_experts,) pairs per expert of the flat ids: a scatter, not
+    bincount, which reads the ids' max back to the host."""
+    return torch.zeros(n_experts, dtype=flat_e.dtype,
+                       device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
+def dispatch_plan(eidx, n_experts, cap, offset=None, slots=None):
     """The sort-based dispatch of the (token, k) pairs: a stable argsort of
     the flat expert ids, each pair's rank within its expert, and its slot
     dest = e * cap + rank, or the overflow slot E * cap past capacity (the
     earliest pairs in (token, k) order are kept). Returns (sort_idx,
-    dest, valid, token_id), each (T * K,) in sorted order."""
+    dest, valid, token_id), each (T * K,) in sorted order.
+
+    offset (n_experts,): the pairs of each expert that come before these
+    (other ranks' tokens in the global order). A pair is kept iff its
+    rank plus its expert's offset is below cap; its slot is e * slots +
+    rank (overflow E * slots), where `slots` (default cap) may be any
+    bound on the kept ranks: at most min(cap, T) of an expert are kept
+    here, as a token picks an expert once."""
     T, K = eidx.shape
+    slots = cap if slots is None else slots
     flat_e = eidx.reshape(-1)
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
-    # a scatter, not bincount, which reads the ids' max back to the host
-    counts = torch.zeros(n_experts, dtype=flat_e.dtype,
-                         device=flat_e.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
+    counts = expert_counts(flat_e, n_experts)
     starts = torch.cumsum(counts, 0) - counts                    # exclusive
     ranks = torch.arange(T * K, device=eidx.device) - starts[sorted_e]
-    valid = ranks < cap
-    dest = torch.where(valid, sorted_e * cap + ranks, n_experts * cap)
+    valid = ranks < cap if offset is None \
+        else ranks + offset[sorted_e] < cap
+    dest = torch.where(valid, sorted_e * slots + ranks, n_experts * slots)
     return sort_idx, dest, valid, sort_idx // K
 
 
@@ -78,12 +95,7 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k, device=None):
         x, router_w, w_gate, w_up, w_down = (
             torch.as_tensor(a, device=dev)
             for a in (x, router_w, w_gate, w_up, w_down))
-    if top_k > 2:
-        # the combine adds each token's K terms onto 0 by index_add_; two
-        # adds commute bitwise, more would add in another order than the
-        # reference's scatter. Every configuration here is top-2.
-        raise ValueError(f"top_k={top_k}: the combine is exact for top_k "
-                         f"<= 2 only")
+    _check_top_k(top_k)
     T, d = x.shape
     E = router_w.shape[-1]
     C = capacity(T, E, top_k)
@@ -141,26 +153,133 @@ def moe_ffn_tp_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k,
                          model_axis=model_axis, mode="tp")
 
 
+def moe_ffn_sort_mesh(x, router_w, w_gate, w_up, w_down, *, top_k,
+                      mesh, batch_axes=("data",), model_axis="model"):
+    """The reference's default dispatch ("sort") on a mesh: `moe_ffn` of
+    the global token set, whose rows are the batch ranks' tokens in mesh
+    order (pod-major over ("pod", "data")), with one capacity C =
+    capacity(T_local x n_batch_ranks, E, K). Tokens never move: a pair is
+    kept iff its rank within its expert, counting the pairs of that
+    expert on earlier batch ranks (one all-gather of each rank's (E,)
+    counts), is below C. A rank keeps at most min(C, T_local) pairs of an
+    expert, so its experts run on that many slots each. The params'
+    layout picks the experts' split: (E / n_model, d, f) weights are EP,
+    (E, d, f / n_model) TP; one all-reduce over the model axes combines,
+    as in the shard_map paths.
+
+    x: this rank's (T_local, d) tokens (the same on every model rank).
+    Returns (out (T_local, d), the aux loss E * sum(mean(p) * mean(f))
+    over the global batch, the global dropped (token, k) pairs as a 0-dim
+    int64 tensor, the same on every rank)."""
+    _check_top_k(top_k)
+    E = router_w.shape[-1]
+    mode = "tp" if w_gate.shape[0] == E else "ep"
+    E_loc = _check_layout(mode, E, mesh.axis_size(model_axis), w_gate)
+    T_l, d = x.shape
+    nb = mesh.axis_size(batch_axes)
+    C = capacity(T_l * nb, E, top_k)
+
+    probs, gate, eidx = route(x, router_w, top_k)
+    me = probs.mean(0)
+    ce = F.one_hot(eidx, E).float().sum(1).mean(0)
+    # the global batch's means: one collective for both
+    stats = coll.pmean(torch.cat([me, ce]), mesh, batch_axes)
+    aux = E * torch.sum(stats[:E] * stats[E:])
+
+    counts = expert_counts(eidx.reshape(-1), E)
+    every = coll.gather_parts(counts[None], mesh, batch_axes)   # (nb, E)
+    offset = every[:mesh.axis_index(batch_axes)].sum(0)
+    dropped = (every.sum(0) - C).clamp(min=0).sum()
+    slots = min(C, T_l)
+    plan = _local_plan(eidx, mode, E, E_loc, C, mesh, model_axis, offset,
+                       slots)
+    out = _experts_combine(x, gate, plan, w_gate, w_up, w_down, E_loc,
+                           slots, mesh, model_axis)
+    return out, aux, dropped
+
+
+def _check_top_k(top_k):
+    # the combine adds each token's K terms onto 0 by index_add_; two adds
+    # commute bitwise, more would add in another order than the
+    # reference's scatter. Every configuration here is top-2.
+    if top_k > 2:
+        raise ValueError(f"top_k={top_k}: the combine is exact for top_k "
+                         f"<= 2 only")
+
+
+def _check_layout(mode, E, nm, w_gate):
+    """This rank's expert count, E / nm (ep) or E (tp), checked against
+    its weights."""
+    if mode == "ep":
+        assert E % nm == 0, (E, nm)
+    E_loc = w_gate.shape[0]
+    if E_loc != (E // nm if mode == "ep" else E):
+        raise ValueError(f"{mode}: {E_loc} experts on a rank of {nm}, "
+                         f"{E} in all")
+    return E_loc
+
+
+def _local_plan(eidx, mode, E, E_loc, C, mesh, model_axis, offset=None,
+                slots=None):
+    """dispatch_plan of this rank's pairs over its E_loc experts (offset:
+    each of the E experts' pairs on earlier ranks, or None; slots: an
+    expert's slots here, default C)."""
+    slots = C if slots is None else slots
+    if mode != "ep":
+        return dispatch_plan(eidx, E, C, offset, slots)
+    # keep the (token, k) pairs this model rank's experts own; the others
+    # sort into bucket E_loc, past every kept slot
+    lo = mesh.axis_index(model_axis) * E_loc
+    local_e = eidx - lo
+    mine = (local_e >= 0) & (local_e < E_loc)
+    flat_e = torch.where(mine, local_e, E_loc)
+    if offset is not None:
+        offset = torch.cat([offset[lo:lo + E_loc], offset.new_zeros(1)])
+    sort_idx, dest, valid, token_id = dispatch_plan(flat_e, E_loc + 1, C,
+                                                    offset, slots)
+    valid = valid & (flat_e.reshape(-1)[sort_idx] < E_loc)
+    dest = torch.where(valid, dest, E_loc * slots)
+    return sort_idx, dest, valid, token_id
+
+
+def _experts_combine(x, gate, plan, w_gate, w_up, w_down, E_loc, slots,
+                     mesh, model_axis):
+    """The kept pairs through this rank's experts (or d_ff slices) in
+    `slots` slots an expert, gated back onto their tokens, summed over
+    the model axes. The tokens and gates enter the expert region by
+    copy_to, whose backward sums the ranks' parts."""
+    sort_idx, dest, valid, token_id = plan
+    T_l, d = x.shape
+    dt = x.dtype
+    x_in = coll.copy_to(x, mesh, model_axis)
+    gate_in = coll.copy_to(gate, mesh, model_axis)
+    gathered = torch.where(valid[:, None], x_in[token_id], 0)
+    buf = torch.zeros((E_loc * slots + 1, d), dtype=dt, device=x.device) \
+        .index_add(0, dest, gathered)
+    ein = buf[:-1].reshape(E_loc, slots, d)
+    h = torch.bmm(ein, w_gate.to(dt))
+    u = torch.bmm(ein, w_up.to(dt))
+    h = F.silu(h.float()).to(dt) * u
+    eo = torch.bmm(h, w_down.to(dt))
+
+    rows = torch.cat([eo.reshape(E_loc * slots, d),
+                      torch.zeros((1, d), dtype=dt, device=x.device)])
+    back = rows[dest] * gate_in.reshape(-1)[sort_idx][:, None].to(dt)
+    out = torch.zeros((T_l, d), dtype=dt, device=x.device) \
+        .index_add(0, token_id, back)
+    # ep: the expert ranks' outputs; tp: the d_ff partial sums
+    return coll.all_reduce(out, mesh, model_axis)
+
+
 def _moe_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k, mesh,
                   batch_axes, model_axis, mode):
     """Returns (this rank's out (T_local, d), the aux loss averaged over
     the last batch axis). The routing runs on every model rank alike, so
-    the router's gradient is whole there; the tokens and gates enter the
-    expert region by copy_to, whose backward sums the ranks' parts."""
-    if top_k > 2:
-        raise ValueError(f"top_k={top_k}: the combine is exact for top_k "
-                         f"<= 2 only")
+    the router's gradient is whole there."""
+    _check_top_k(top_k)
     E = router_w.shape[-1]
-    nm = mesh.axis_size(model_axis)
-    if mode == "ep":
-        assert E % nm == 0, (E, nm)
-    T_l, d = x.shape
-    E_loc = w_gate.shape[0]                       # E/nm (ep) or E (tp)
-    if E_loc != (E // nm if mode == "ep" else E):
-        raise ValueError(f"{mode}: {E_loc} experts on a rank of {nm}, "
-                         f"{E} in all")
-    C = capacity(T_l, E, top_k)
-    dt = x.dtype
+    E_loc = _check_layout(mode, E, mesh.axis_size(model_axis), w_gate)
+    C = capacity(x.shape[0], E, top_k)
 
     probs, gate, eidx = route(x, router_w, top_k)
     me = probs.mean(0)
@@ -169,34 +288,6 @@ def _moe_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k, mesh,
     if batch_axes:
         aux = coll.pmean(aux, mesh, batch_axes[-1])
 
-    if mode == "ep":
-        # keep the (token, k) pairs this model rank's experts own; the
-        # others sort into bucket E_loc, past every kept slot
-        local_e = eidx - mesh.axis_index(model_axis) * E_loc
-        mine = (local_e >= 0) & (local_e < E_loc)
-        flat_e = torch.where(mine, local_e, E_loc)
-        sort_idx, dest, valid, token_id = dispatch_plan(flat_e, E_loc + 1, C)
-        valid = valid & (flat_e.reshape(-1)[sort_idx] < E_loc)
-        dest = torch.where(valid, dest, E_loc * C)
-    else:
-        sort_idx, dest, valid, token_id = dispatch_plan(eidx, E, C)
-
-    x_in = coll.copy_to(x, mesh, model_axis)
-    gate_in = coll.copy_to(gate, mesh, model_axis)
-    gathered = torch.where(valid[:, None], x_in[token_id], 0)
-    buf = torch.zeros((E_loc * C + 1, d), dtype=dt, device=x.device) \
-        .index_add(0, dest, gathered)
-    ein = buf[:-1].reshape(E_loc, C, d)
-    h = torch.bmm(ein, w_gate.to(dt))
-    u = torch.bmm(ein, w_up.to(dt))
-    h = F.silu(h.float()).to(dt) * u
-    eo = torch.bmm(h, w_down.to(dt))
-
-    rows = torch.cat([eo.reshape(E_loc * C, d),
-                      torch.zeros((1, d), dtype=dt, device=x.device)])
-    back = rows[dest] * gate_in.reshape(-1)[sort_idx][:, None].to(dt)
-    out = torch.zeros((T_l, d), dtype=dt, device=x.device) \
-        .index_add(0, token_id, back)
-    # ep: the expert ranks' outputs; tp: the d_ff partial sums
-    return coll.all_reduce(out, mesh, model_axis), aux
-
+    plan = _local_plan(eidx, mode, E, E_loc, C, mesh, model_axis)
+    return _experts_combine(x, gate, plan, w_gate, w_up, w_down, E_loc, C,
+                            mesh, model_axis), aux

@@ -43,7 +43,9 @@ torch.distributed:
     (`_gather_weights` all-gathers a layer's weights where they are
     used; the backward reduce-scatters their gradients);
   * the MoE by `moe_ffn_ep_shardmap` or `moe_ffn_tp_shardmap`
-    (`cfg.moe_impl`), each rank routing its own tokens;
+    (`cfg.moe_impl`), each rank routing its own tokens with its own
+    capacity, or by the default "sort", `moe_ffn_sort_mesh`: the global
+    function, one capacity over the batch ranks' tokens;
   * AdamW on the local slices, clipped by the global norm.
 
 A mesh of more than one rank needs an initialized process group; no
@@ -387,11 +389,12 @@ def _qkv(cfg, h, lp):
 
 
 def _moe_dispatch(cfg, flat, lp, plan):
-    """The MoE on flat (T, d) tokens: the reference's mesh branch (EP or TP
-    over "model" by cfg.moe_impl, the batch axes from the rules) when a
-    mesh with a "model" axis is installed and moe_impl asks for it, else
-    the one-device `moe_ffn`, which a mesh of more than one rank
-    refuses (its capacity is global)."""
+    """The MoE on flat (T, d) tokens: the reference's shard_map branch (EP
+    or TP over "model" by cfg.moe_impl, the batch axes from the rules)
+    when a mesh with a "model" axis is installed and moe_impl asks for
+    it; on any other mesh its default, `moe_ffn_sort_mesh` (the global
+    function, its capacity global) over the plan's batch and
+    tensor-parallel axes; with no mesh the one-device `moe_ffn`."""
     mesh = None if plan is None else plan.mesh
     if (cfg.moe_impl in ("ep_shard_map", "tp_shard_map")
             and mesh is not None and "model" in mesh.shape):
@@ -408,10 +411,12 @@ def _moe_dispatch(cfg, flat, lp, plan):
         return fn(flat, lp["router"], lp["moe_wg"], lp["moe_wu"],
                   lp["moe_wd"], top_k=cfg.moe_top_k, mesh=mesh,
                   batch_axes=batch_axes)
-    if mesh is not None and mesh.size > 1:
-        raise ValueError(
-            f"moe_impl {cfg.moe_impl!r} on a mesh of {mesh.size} ranks: "
-            f"the port shards the MoE by 'ep_shard_map' or 'tp_shard_map'")
+    if mesh is not None:
+        out, aux, _ = moe_lib.moe_ffn_sort_mesh(
+            flat, lp["router"], lp["moe_wg"], lp["moe_wu"], lp["moe_wd"],
+            top_k=cfg.moe_top_k, mesh=mesh, batch_axes=plan.batch,
+            model_axis=plan.tp)
+        return out, aux
     return moe_lib.moe_ffn(flat, lp["router"], lp["moe_wg"], lp["moe_wu"],
                            lp["moe_wd"], top_k=cfg.moe_top_k)
 

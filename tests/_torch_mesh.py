@@ -1,6 +1,6 @@
 """Helpers of the mesh tests (tests/test_torch_{sharding,moe_mesh,
-transformer_mesh,nequip_mesh}.py): the JAX reference on host devices in
-a subprocess, and the port on gloo ranks spawned by
+moe_sort_mesh,transformer_mesh,nequip_mesh}.py): the JAX reference on
+host devices in a subprocess, and the port on gloo ranks spawned by
 torch.multiprocessing, both on the same mesh shapes.
 
 `run_jax(code, n_devices)` runs `code` with
@@ -175,6 +175,45 @@ def task_reduce_scatter_paths(rank, job):
     return out
 
 
+def task_gather_dtypes(rank, job):
+    """collectives.all_gather_group over each axis set of a 2 x 2 mesh for
+    float32, bfloat16, float16 and int64 tensors (signed zeros, NaN and
+    -inf among the floats), each rank's drawn from a generator seeded by
+    its rank: the parts, as bytes, with the bytes counted."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import collectives as coll
+
+    mesh = make_debug_mesh((2, 2), ("data", "model"))
+    out = {"members": {}}
+    for axes in (("data",), ("model",), ("data", "model")):
+        tag = "_".join(axes)
+        out["members"][tag] = mesh.members(axes)
+        for dt in DTYPES:
+            coll.reset_traffic()
+            parts = coll.all_gather_group(_gather_input(rank, dt),
+                                          mesh.group(axes))
+            out[f"{tag}/{dt}"] = ([(str(p.dtype), tuple(p.shape),
+                                    _bytes(p)) for p in parts],
+                                  dict(coll.TRAFFIC))
+    return out
+
+
+DTYPES = ("float32", "bfloat16", "float16", "int64")
+
+
+def _gather_input(rank, dt):
+    """Rank `rank`'s (3, 5) tensor of dtype name `dt`."""
+    g = torch.Generator().manual_seed(300 + rank)
+    x = (torch.randn((3, 5), generator=g) * 100).to(getattr(torch, dt))
+    if x.is_floating_point():
+        x.view(-1)[:3] = torch.tensor([-0.0, float("nan"), float("-inf")])
+    return x
+
+
+def _bytes(x):
+    return x.contiguous().reshape(-1).view(torch.uint8).numpy().copy()
+
+
 def task_elastic(rank, job):
     """Save a tree sharded on a (4,) data mesh, restore it on 2 x 2 with
     job["spec"] and on 1 x 4 by the model's shardings."""
@@ -236,6 +275,41 @@ def task_moe(rank, job):
                   "grads": [_np(g) for g in grads],
                   "rows": _np(NamedSharding(mesh, ("data",)).shard(
                       torch.arange(T)))}
+        del mesh
+    return out
+
+
+def task_moe_sort(rank, job):
+    """moe_ffn_sort_mesh on each case's mesh and layout ("ep": experts
+    over "model", "tp": d_ff over it): this rank's output, aux, global
+    dropped pairs, router ids and the gradients of sum(out * ct) + c *
+    aux."""
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import NamedSharding
+
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        mesh = _debug_mesh(case["mesh"])
+        if case["mode"] == "ep":
+            ws = [NamedSharding(mesh, ("model", None, None))] * 3
+        else:
+            ws = [NamedSharding(mesh, (None, None, "model"))] * 2 + [
+                NamedSharding(mesh, (None, "model", None))]
+        rows = NamedSharding(mesh, ("data", None))
+        x = rows.shard(torch.from_numpy(case["x"])).clone()
+        rw = torch.from_numpy(case["rw"]).clone()
+        w = [s.shard(torch.from_numpy(case[k])).clone()
+             for s, k in zip(ws, ("wg", "wu", "wd"))]
+        leaves = [t.requires_grad_() for t in [x, rw] + w]
+        y, aux, dropped = moe.moe_ffn_sort_mesh(*leaves, top_k=2, mesh=mesh)
+        ct = rows.shard(torch.from_numpy(case["ct"]))
+        loss = torch.sum(y * ct) + job["c_aux"] * aux
+        grads = torch.autograd.grad(loss, leaves)
+        _, _, eidx = moe.route(x.detach(), rw.detach(), 2)
+        out[i] = {"y": _np(y), "aux": float(aux), "dropped": int(dropped),
+                  "eidx": _np(eidx), "grads": [_np(g) for g in grads],
+                  "rows": _np(NamedSharding(mesh, ("data",)).shard(
+                      torch.arange(case["x"].shape[0])))}
         del mesh
     return out
 

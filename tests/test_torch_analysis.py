@@ -153,6 +153,28 @@ def test_reduce_scatter_tensor_path_equals_gloo_slices(tmp_path):
                                           "reduce_scatter": 4 * 8 * 12 * 8}
 
 
+def test_all_gather_over_gloo_keeps_every_dtype_bitwise(tmp_path):
+    """all_gather_group over each axis set of a 2 x 2 mesh of gloo ranks
+    gives every rank the members' tensors in axis_index order, byte for
+    byte with their dtype and shape, 16-bit floats (which gloo gathers
+    as bytes) and signed zeros, NaN and -inf included, and counts the
+    gathered bytes."""
+    from _torch_mesh import DTYPES, _bytes, _gather_input
+
+    out = spawn("task_gather_dtypes", {}, tmp_path)
+    for r in out:
+        for tag, members in r["members"].items():
+            for dt in DTYPES:
+                parts, traffic = r[f"{tag}/{dt}"]
+                assert len(parts) == len(members) > 1
+                for (d, shape, got), m in zip(parts, members):
+                    want = _gather_input(m, dt)
+                    assert d == str(want.dtype) and shape == (3, 5)
+                    np.testing.assert_array_equal(got, _bytes(want))
+                assert traffic["all_gather"] == len(members) * \
+                    want.numel() * want.element_size()
+
+
 def test_peak_counts_storages_alive_at_once():
     from repro_torch.analysis.cost import count_step
 

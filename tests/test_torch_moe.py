@@ -101,6 +101,43 @@ def test_moe_ffn_matches_jax(dup):
         len(set(dest[valid].tolist())) == int(valid.sum())
 
 
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_offset_plan_keeps_a_ranks_share_of_the_global_plan(n_ranks):
+    """dispatch_plan with each expert's pairs on earlier ranks as offset
+    keeps, on every rank's slice of the tokens, exactly the pairs the
+    loop over the whole batch keeps; an all-zero offset is bitwise no
+    offset; a rank's kept slots, min(cap, its tokens) an expert, are
+    distinct and in range."""
+    T, E, K = 64, 8, 2
+    x, rw, *_ = _inputs(T=T, E=E, seed=3, dup=True)
+    _, eidx = _jax_route(x, rw, K)
+    C = jm.capacity(T, E, K)
+    kept = _numpy_kept(eidx, E, C)
+    assert not kept.all()
+    teidx = torch.from_numpy(np.array(eidx)).long()
+    for a, b in zip(tm.dispatch_plan(teidx, E, C),
+                    tm.dispatch_plan(teidx, E, C, torch.zeros(E).long())):
+        assert torch.equal(a, b)
+    T_l = T // n_ranks
+    slots = min(C, T_l)
+    offset = torch.zeros(E, dtype=torch.long)
+    for r in range(n_ranks):
+        part = teidx[r * T_l:(r + 1) * T_l]
+        sort_idx, dest, valid, _ = tm.dispatch_plan(part, E, C, offset,
+                                                    slots)
+        got = np.zeros(T_l * K, bool)
+        got[sort_idx.numpy()] = valid.numpy()
+        np.testing.assert_array_equal(got.reshape(T_l, K),
+                                      kept[r * T_l:(r + 1) * T_l])
+        d = dest[valid]
+        assert len(set(d.tolist())) == len(d)
+        # each kept pair in its expert's block of slots
+        e = part.reshape(-1)[sort_idx][valid]
+        assert torch.equal(d // slots, e)
+        assert (dest[~valid] == E * slots).all()
+        offset = offset + tm.expert_counts(part.reshape(-1), E)
+
+
 def test_tied_router_logits_take_the_lower_expert():
     """Router columns equal in pairs: every token's probabilities tie
     exactly, expert 2i with 2i + 1, and lax.top_k takes the lower index

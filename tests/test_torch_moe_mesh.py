@@ -154,7 +154,8 @@ def test_no_drop_equals_the_global_moe_and_drops_differ(results):
 
 def test_sharded_paths_raise_without_a_process_group():
     """No fallback: a mesh of more than one rank with no process group
-    makes the dispatches, the LM step and the NequIP step raise."""
+    makes the dispatches ("sort" too), the LM step and the NequIP step
+    raise."""
     import dataclasses
 
     import torch
@@ -170,11 +171,12 @@ def test_sharded_paths_raise_without_a_process_group():
     mesh = Mesh((2, 2), ("data", "model"))
     t = {k: torch.from_numpy(job[k]) for k in ("x", "rw", "wg", "wu", "wd")}
     half = F // 2
-    for fn, w in ((moe.moe_ffn_ep_shardmap, (t["wg"][:4], t["wu"][:4],
-                                             t["wd"][:4])),
-                  (moe.moe_ffn_tp_shardmap, (t["wg"][..., :half],
-                                             t["wu"][..., :half],
-                                             t["wd"][:, :half]))):
+    ep_w = (t["wg"][:4], t["wu"][:4], t["wd"][:4])
+    tp_w = (t["wg"][..., :half], t["wu"][..., :half], t["wd"][:, :half])
+    for fn, w in ((moe.moe_ffn_ep_shardmap, ep_w),
+                  (moe.moe_ffn_tp_shardmap, tp_w),
+                  (moe.moe_ffn_sort_mesh, ep_w),
+                  (moe.moe_ffn_sort_mesh, tp_w)):
         with pytest.raises(RuntimeError, match="process group"):
             fn(t["x"][:32], t["rw"], *w, top_k=K, mesh=mesh)
     cfg = dataclasses.replace(get_config("mixtral-8x7b", "smoke"),
@@ -188,10 +190,11 @@ def test_sharded_paths_raise_without_a_process_group():
                                     {"tokens": tok, "labels": tok})
         with pytest.raises(RuntimeError, match="process group"):
             tf.make_prefill_step(cfg)(pl, tok)
-    # the one-device dispatch is refused on a mesh: its capacity is global
+    # the default "sort" on a mesh is the global dispatch over the ranks,
+    # never the one-device function
     with sh.rules_ctx({"embed_w": None}, mesh=Mesh((2, 1),
                                                    ("data", "model"))):
-        with pytest.raises(ValueError, match="moe_impl"):
+        with pytest.raises(RuntimeError, match="process group"):
             tf.forward(dataclasses.replace(cfg, moe_impl="sort"), p, tok)
     ncfg = get_config("nequip", "smoke")
     npar = nequip.init_params(ncfg, device="cpu")

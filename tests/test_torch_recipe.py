@@ -46,6 +46,25 @@ def test_recipe_corpus_is_kept_and_noise_changes_it():
     assert not np.array_equal(a.embeddings, b.embeddings)
 
 
+def test_a_kept_corpus_made_elsewhere_is_the_recipes():
+    """keep_corpus installs a corpus made from the recipe elsewhere (as
+    another process hands it over): recipe_corpus returns that object
+    for the recipe, and another recipe makes its own again."""
+    from repro_torch.data import Corpus, keep_corpus, synth_corpus
+
+    recipe = dict(RECIPE, topic_noise=0.5)
+    c = synth_corpus(3, 512, 16, 300, topic_noise=0.5)
+    made = Corpus(c.embeddings.copy(), c.doc_terms.copy(),
+                  c.doc_weights.copy(), c.topic_of.copy(), c.vocab)
+    keep_corpus(recipe, made)
+    assert recipe_corpus(dict(recipe)) is made
+    other = recipe_corpus(RECIPE)
+    assert other is not made
+    np.testing.assert_array_equal(
+        other.embeddings, np.asarray(jax_synth_corpus(3, 512, 16, 300)
+                                     .embeddings))
+
+
 @pytest.mark.parametrize("cli", ["update", "train"])
 def test_cli_queries_come_from_the_recipe_corpus(cli):
     recipe = dict(RECIPE, topic_noise=0.5)
