@@ -221,45 +221,53 @@ but where a phase says otherwise):
      drills of 19: exit 0, their result lines, seconds and kernel
      launches;
  23. the mesh (models/{sharding,collectives,nequip_sharded}.py,
-     launch/mesh.py, the sharded LM steps and MoE dispatches, elastic
-     restore): 4 processes (torch.multiprocessing, spawn) on the one card
-     in a gloo group, after this process has made the one-rank
-     references: (a) qwen2-1.5b at full width and 2 layers in float32 on
-     2 x 2, one train step (each rank draws its slice of phase 18's init)
-     against the one-rank step (loss 1e-4, params 5e-4), prefill (8, 128)
-     and 4 decode tokens against its logits; (b) mixtral-8x7b at full
-     width and 1 layer in float32, tp_shard_map, 2 x 2, one train step
+     launch/mesh.py, the sharded LM steps and MoE dispatches, the sharded
+     NequIP steps, elastic restore): 4 processes (torch.multiprocessing,
+     spawn) on the one card in a gloo group, after this process has made
+     the one-rank references: (a) qwen2-1.5b at full width and 2 layers in
+     float32 on 2 x 2, one train step (each rank draws its slice of phase
+     18's init) against the one-rank step (loss 1e-4, params 5e-4), prefill
+     (8, 128) and 4 decode tokens against its logits; (b) mixtral-8x7b at
+     full width and 1 layer in float32, tp_shard_map, 2 x 2, one train step
      against the one-rank step that runs each data shard's rows as a
      microbatch (so its MoE drops per shard as the mesh does), the
      per-shard dropped pairs beside the global count; (e) (b)'s params
      saved from 2 x 2 and restored on 1 x 4 and on a (4,) data mesh, each
      slice bitwise; (c) arctic-480b at full width and 1 layer in bf16,
-     ep_shard_map on 1 x 4 (32 experts a rank, the ranks drawing phase
-     21's init in turn), prefill and 4 decode tokens against phase 21's
-     logits on the rows its router sent clear of a tie; (d) nequip on
-     phase 20's minibatch_lg batch over 4 owner shards, energies and
-     gradients against phase 20's card; (f) qwen2-1.5b with 6 query
-     heads of 256 on 1 x 4 (the heads do not divide the model axis: the
-     all-heads layout), train step, prefill and 4 decode tokens against
-     the one-rank step's; (g) (a)'s config decoding with the KV sequence
-     split over "model" on 1 x 4 (the flash-decode combine) against (a)'s
-     one-rank logits; (h) wide-deep full() with its tables split along
-     "table_rows" on 2 x 2 (each rank's slice of the one-rank init):
-     serve logits at B 512 and one train step at B 8192 against the
-     one-rank steps (loss, norm, the MLP leaves and every touched row;
-     the untouched rows bitwise their init), then embedding_bag at the
-     rank's slice shape (a zero row for other ranks' ids) bitwise its
-     plain version, timed beside F.embedding_bag; (i) (b)'s config and
-     init with the reference's default moe_impl "sort" (one global
-     capacity over both data shards) on 2 x 2: one train step on a batch
-     that drops pairs against the one-rank step on the whole batch (loss
-     1e-4, params 5e-4, gradient norm 1e-4 relative), the global dropped
-     pairs equal to the one-rank step's, prefill and 4 decode tokens
-     against its logits; (j) (c)'s params with "sort" on 1 x 4, prefill
-     and 4 decode tokens against phase 21's logits as (c); each step's
-     ms, peak memory and bytes through the collectives printed; then
-     topk at the ranks' per-shard router shapes bitwise its plain version
-     beside torch.topk;
+     ep_shard_map on 1 x 4 (32 experts a rank, the ranks drawing phase 21's
+     init in turn), prefill and 4 decode tokens against phase 21's logits
+     on the rows its router sent clear of a tie; (d) nequip on phase 20's
+     minibatch_lg batch over 4 owner shards, energies and gradients against
+     phase 20's card; (k) nequip on the same batch with the reference's
+     default msg_impl "pjit" (the global step over edge shards) on 2 x 2
+     under the minibatch_lg cell's rules (the nodes over "data", 84992 a
+     rank; the edges over ("data", "model"), 42240 a rank), energies and
+     gradients against phase 20's card as (d), one train step with the
+     ranks' params bitwise equal after it, a forward's all-reduce bytes 5 x
+     N x C x 9 x 4; (f) qwen2-1.5b with 6 query heads of 256 on 1 x 4 (the
+     heads do not divide the model axis: the all-heads layout), train step,
+     prefill and 4 decode tokens against the one-rank step's; (g) (a)'s
+     config decoding with the KV sequence split over "model" on 1 x 4 (the
+     flash-decode combine) against (a)'s one-rank logits, after a prefill
+     of 128 positions (a quarter of the cache a rank) and again after one
+     of 127, which do not split (the whole cache on every rank, as the
+     reference returns it), against the one-rank logits of those 127; (h)
+     wide-deep full() with its tables split along "table_rows" on 2 x 2
+     (each rank's slice of the one-rank init): serve logits at B 512 and
+     one train step at B 8192 against the one-rank steps (loss, norm, the
+     MLP leaves and every touched row; the untouched rows bitwise their
+     init), then embedding_bag at the rank's slice shape (a zero row for
+     other ranks' ids) bitwise its plain version, timed beside
+     F.embedding_bag; (i) (b)'s config and init with the reference's
+     default moe_impl "sort" (one global capacity over both data shards) on
+     2 x 2: one train step on a batch that drops pairs against the one-rank
+     step on the whole batch (loss 1e-4, params 5e-4, gradient norm 1e-4
+     relative), the global dropped pairs equal to the one-rank step's,
+     prefill and 4 decode tokens against its logits; (j) (c)'s params with
+     "sort" on 1 x 4, prefill and 4 decode tokens against phase 21's logits
+     as (c); each step's ms, peak memory and bytes through the collectives
+     printed; then topk at the ranks' per-shard router shapes bitwise its
+     plain version beside torch.topk;
  24. the dry run (launch/{specs,dryrun}.py, analysis/{cost,roofline}.py),
      in a process of its own on the host that starts after phase 3 and
      sees no card: qwen2-1.5b train_4k, deepseek-67b decode_32k,
@@ -5106,9 +5114,10 @@ def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None, rules=None):
     against the reference's rows (each row's max |diff|, and with `tol`
     whether the step is allclose at it), with the prefill and per-token
     ms and the prefill's peak memory (under its own key: the caller's
-    "peak_gb" is its train step's). Where the rules split the KV
-    sequence, the prefill's cache slices
-    are gathered and cut again at the decode cache's slots."""
+    "peak_gb" is its train step's) and the length of the prefill's
+    cache on the rank. Where the rules split the KV sequence, the
+    prefill's cache is gathered as `prefill_cache_shardings` places it
+    and cut again at the decode cache's slots."""
     from repro_torch.models import sharding as sh
     from repro_torch.models import transformer as tt
 
@@ -5122,8 +5131,9 @@ def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None, rules=None):
         logits, kv = out
         Bg = B * mesh.axis_size(sh.spec_axes(sh.spec("batch")[0]))
         csh = tt.cache_shardings(cfg, mesh, Bg, slots)
+        cache_len = int(kv["k"].shape[2])
         if sh.spec("seq_kv")[0] is not None:
-            psh = tt.cache_shardings(cfg, mesh, Bg, S)
+            psh = tt.prefill_cache_shardings(cfg, mesh, Bg, S)
             full = tt.init_cache(cfg, Bg, slots, device=dev)
             for k in full:
                 whole = psh[k].gather(kv[k].contiguous())
@@ -5154,7 +5164,7 @@ def _mesh_infer(mesh, cfg, params, ref, dev, slots, tol=None, rules=None):
             if tol is not None:
                 close.append(bool(torch.allclose(g.float().cpu(), r, **tol)))
         return {"prefill_ms": ms, "decode_ms": dec_ms,
-                "prefill_peak_gb": peak,
+                "prefill_peak_gb": peak, "prefill_cache_len": cache_len,
                 "prefill_traffic": traffic, "row_diff": diffs,
                 "close": close, "rows": [int(i) for i in idx]}
 
@@ -5247,14 +5257,78 @@ def _mesh_gnn(rank, mesh, job, dev):
             "n_loc": n_loc, "loss": float(m["loss"])}
 
 
+# (k)'s rules: the reference's minibatch_lg cell (launch/specs._gnn_cell),
+# the nodes over "data" and the edges over ("data", "model") by default
+GNN_PJIT_RULES = {"nodes": ("data",)}
+
+
+def _mesh_gnn_pjit(rank, mesh, job, dev):
+    """nequip full() on phase 20's minibatch_lg batch with the reference's
+    default msg_impl "pjit" (models/nequip.py on a mesh: the global step
+    over edge shards) on the 2 x 2 mesh under GNN_PJIT_RULES, each rank
+    holding its "nodes" and "edges" slices: energies and gradients
+    against phase 20's single card, one train step with a digest of the
+    rank's params after it, the forward's and the step's ms, peak device
+    memory and bytes through the collectives."""
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.models import nequip as nq
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("nequip", GNN_VARIANT)
+    assert cfg.msg_impl == "pjit"
+    ref = torch.load(os.path.join(job, "gnn_ref.pt"))
+    b = {k: np.asarray(_mesh_ref(job, f"gnn_b_{k}")) for k in ref["batch"]}
+    params = tu.tree_map(lambda x: x.to(dev), ref["params"])
+    with sh.rules_ctx(GNN_PJIT_RULES, mesh=mesh):
+        bsh = nq.batch_shardings(mesh, b)
+        batch = {k: torch.from_numpy(np.array(bsh[k].shard(v))).to(dev)
+                 for k, v in b.items()}
+        with torch.no_grad():
+            e, fwd_ms, fwd_peak, traffic = _mesh_timed(
+                dev, lambda: nq.forward(cfg, params, batch))
+        ref_e = ref["energy"]
+        e_close = bool(torch.allclose(
+            e.cpu(), ref_e, rtol=GNN_TOL["rtol"],
+            atol=GNN_BIG_ATOL * float(ref_e.abs().max())))
+        (loss, grads), _, _, _ = _mesh_timed(
+            dev, lambda: nq.value_and_grad(cfg, params, batch))
+        rel = max(float((g.cpu() - r).norm() / r.norm().clamp(min=1e-30))
+                  for g, r in zip(tu.tree_leaves(grads),
+                                  tu.tree_leaves(ref["grads"])))
+        del grads
+        step = nq.make_train_step(cfg)
+        (p2, _, m), step_ms, peak, step_traffic = _mesh_timed(
+            dev, lambda: step(params, adamw_init(params), batch))
+    digest = hashlib.sha256()
+    for p in tu.tree_leaves(p2):
+        digest.update(p.cpu().numpy().tobytes())
+    N = len(b["positions"])
+    return {"energy_diff": float((e.cpu() - ref_e).abs().max()),
+            "energy_scale": float(ref_e.abs().max()),
+            "energy_close": e_close, "grad_rel_l2": rel,
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params_sha256": digest.hexdigest(),
+            "fwd_ms": fwd_ms, "fwd_peak_gb": fwd_peak, "step_ms": step_ms,
+            "peak_gb": peak, "fwd_traffic": traffic,
+            "step_traffic": step_traffic,
+            "layer_reduce_bytes": N * cfg.d_hidden * 9 * 4,
+            "n_layers": cfg.n_layers, "nodes": N,
+            "n_loc": int(batch["positions"].shape[0]),
+            "e_loc": int(batch["edge_src"].shape[0])}
+
+
 def mesh_rank(rank, world, job, dev_kind, settings):
     """One of phase 23's gloo ranks on the card (a process of its own; a
     FileStore in the job directory): (a) qwen2 on 2 x 2, (b) mixtral's
     TP MoE on 2 x 2, (e) the elastic restore of (b)'s params, (c) arctic's
     EP MoE on 1 x 4, (d) nequip owner-sharded on 2 x 2, (f) uneven query
-    heads on 1 x 4, (g) decode with the KV sequence over "model" on 1 x 4,
+    heads on 1 x 4, (g) decode with the KV sequence over "model" on 1 x 4
+    (after a prefill whose length splits and one whose length does not),
     (h) wide-deep's row-sharded tables on 2 x 2, (i) mixtral's "sort" on
-    2 x 2, (j) arctic's "sort" on 1 x 4, with the kernel launch
+    2 x 2, (j) arctic's "sort" on 1 x 4, (k) nequip's "pjit" on 2 x 2,
+    with the kernel launch
     counts zeroed before (a) and read after (h). Rank 0 saves the
     router's per-shard top-k inputs. `settings` carries the parent's
     module settings (a spawned process imports this module afresh).
@@ -5386,6 +5460,9 @@ def mesh_rank(rank, world, job, dev_kind, settings):
         # (d) nequip owner-sharded
         out["d"] = _mesh_gnn(rank, m22, job, dev)
         torch.cuda.empty_cache()
+        # (k) nequip with the reference's default msg_impl "pjit"
+        out["k"] = _mesh_gnn_pjit(rank, m22, job, dev)
+        torch.cuda.empty_cache()
         # (f) query heads that do not divide the model axis, on 1 x 4
         cfg = dataclasses.replace(
             get_config(LM_ARCH, LM_VARIANT), n_layers=LM_PARITY_LAYERS,
@@ -5413,6 +5490,11 @@ def mesh_rank(rank, world, job, dev_kind, settings):
         out["g"] = _mesh_infer(m14, cfg, params, torch.load(
             os.path.join(job, "a_infer.pt")), dev, LM_S + 8, tol=MESH_TOL,
             rules=seq)
+        # and a prefill of LM_S - 1 positions, which do not split over
+        # the 4 ranks (the cache whole on each), into LM_S + 8 slots
+        out["g_odd"] = _mesh_infer(m14, cfg, params, torch.load(
+            os.path.join(job, "g_odd_infer.pt")), dev, LM_S + 8,
+            tol=MESH_TOL, rules=seq)
         del params
         torch.cuda.empty_cache()
         # (h) wide-deep's tables split along "table_rows" on 2 x 2
@@ -5478,15 +5560,16 @@ def _mesh_ref_step(cfg, tag, job, dev, seed, B, S, repeat=False):
     return ref, peak
 
 
-def _mesh_ref_infer(cfg, job, dev, seed, tag="a"):
-    """(a)'s (or `tag`'s) one-rank prefill of (LM_B, LM_S) tokens and 4
-    greedy decode steps from the init of `seed`, saved for the ranks."""
+def _mesh_ref_infer(cfg, job, dev, seed, tag="a", S=None):
+    """(a)'s (or `tag`'s) one-rank prefill of (LM_B, S or LM_S) tokens and
+    4 greedy decode steps from the init of `seed`, saved for the
+    ranks."""
     from repro_torch.models import transformer as tt
 
     params = tt.init_params(cfg, torch.Generator(device=dev).manual_seed(
         seed), device=dev)
     rec = {}
-    lm_infer_timing(dev, cfg, LM_B, LM_S, LM_S + 8, 4, params=params,
+    lm_infer_timing(dev, cfg, LM_B, S or LM_S, LM_S + 8, 4, params=params,
                     record=rec)
     torch.save(rec, os.path.join(job, f"{tag}_infer.pt"))
     del params
@@ -5507,7 +5590,11 @@ def mesh_phase(dev, job):
     x max |logit|; (d) energies allclose at GNN_TOL's rtol and
     GNN_BIG_ATOL x max |E|, gradients within GNN_GRAD_RTOL relative L2;
     (e) bitwise; (i) as (a) against the whole batch's one-rank step,
-    its global dropped pairs equal to that step's; (j) as (c). Returns
+    its global dropped pairs equal to that step's; (j) as (c); (g)'s
+    prefill caches on each rank a quarter of LM_S positions, or all
+    LM_S - 1 of the length that does not split; (k) as (d), the ranks'
+    params bitwise equal after a train step, and a forward's all-reduce
+    bytes n_layers x N x C x 9 x 4. Returns
     (launches summed over the ranks, {shape: rank 0's router top-k
     input})."""
     import torch.multiprocessing as tmp
@@ -5521,6 +5608,7 @@ def mesh_phase(dev, job):
         dtype="float32", param_dtype="float32", microbatch=0)
     ref_a, peak_a = _mesh_ref_step(cfg_a, "a", job, dev, 1, LM_B, LM_S)
     _mesh_ref_infer(cfg_a, job, dev, 1)
+    _mesh_ref_infer(cfg_a, job, dev, 1, tag="g_odd", S=LM_S - 1)
     cfg_b = dataclasses.replace(
         get_config("mixtral-8x7b", MOE_VARIANT), n_layers=1, dtype="float32",
         param_dtype="float32", microbatch=2)
@@ -5602,13 +5690,27 @@ def mesh_phase(dev, job):
           f"every rank {close}", flush=True)
     if not close:
         fails.append("(a) logits")
-    for part, name in (("f", f"(f) {MESH_UNEVEN} on 1 x 4"),
-                       ("g", "(g) seq_kv on \"model\", 1 x 4"),
-                       ("i", "(i) mixtral sort on 2 x 2")):
+    for part, name, S in (
+            ("f", f"(f) {MESH_UNEVEN} on 1 x 4", LM_S),
+            ("g", "(g) seq_kv on \"model\", 1 x 4", LM_S),
+            ("g_odd", "(g) seq_kv on \"model\", 1 x 4, a length that does "
+                      "not split", LM_S - 1),
+            ("i", "(i) mixtral sort on 2 x 2", LM_S)):
         x = [r[part] for r in res]
         worst = max(max(max(d) for d in y["row_diff"]) for y in x)
         close = all(all(y["close"]) for y in x)
-        print(f"  {name}: prefill ({LM_B}, {LM_S}) ms per rank "
+        if part.startswith("g"):
+            # this rank's quarter of the cache where the length splits,
+            # the whole of it where it does not
+            want = S if S % MESH_RANKS else S // MESH_RANKS
+            lens = [y["prefill_cache_len"] for y in x]
+            print(f"  {name}: the prefill's cache on each rank holds "
+                  f"{lens} of {S} positions (want {want}), decoded into "
+                  f"{LM_S + 8} slots ({(LM_S + 8) // MESH_RANKS} a rank)",
+                  flush=True)
+            if any(n != want for n in lens):
+                fails.append(f"{name} cache layout")
+        print(f"  {name}: prefill ({LM_B}, {S}) ms per rank "
               f"{per_rank(part, 'prefill_ms')}, decode ms a token "
               f"{per_rank(part, 'decode_ms')}; logits against the one-rank "
               f"step max |diff| {worst:.3g}, allclose(rtol "
@@ -5719,6 +5821,32 @@ def mesh_phase(dev, job):
     if not (all(x["energy_close"] for x in d)
             and max(x["grad_rel_l2"] for x in d) <= GNN_GRAD_RTOL):
         fails.append("(d) nequip")
+    k = [r["k"] for r in res]
+    k0 = k[0]
+    want_ar = k0["n_layers"] * k0["layer_reduce_bytes"]
+    same = len({x["params_sha256"] for x in k}) == 1
+    print(f"  (k) nequip minibatch_lg, msg_impl \"pjit\" on 2 x 2 under "
+          f"{GNN_PJIT_RULES} ({k0['nodes']} nodes, {k0['n_loc']} a rank; "
+          f"E_loc {k0['e_loc']}): energies max |diff| "
+          f"{max(x['energy_diff'] for x in k):.3g}, allclose(rtol "
+          f"{GNN_TOL['rtol']}, atol {GNN_BIG_ATOL} x max |E| "
+          f"{k0['energy_scale']:.4g}) on every rank "
+          f"{all(x['energy_close'] for x in k)}; gradients relative L2 "
+          f"{max(x['grad_rel_l2'] for x in k):.3g} (gate {GNN_GRAD_RTOL}); "
+          f"one train step: loss {[x['loss'] for x in k]}, grad norm "
+          f"{[x['grad_norm'] for x in k]}, the ranks' params bitwise equal "
+          f"{same}; forward ms {per_rank('k', 'fwd_ms')} (peak GB "
+          f"{per_rank('k', 'fwd_peak_gb')}), train step ms "
+          f"{per_rank('k', 'step_ms')}, peak GB {per_rank('k', 'peak_gb')};"
+          f" all-reduce bytes a layer forward {k0['layer_reduce_bytes']} "
+          f"(N x C x 9 x 4 B), a forward's expected {want_ar}; the "
+          f"forward's collectives {k0['fwd_traffic']}, a step's "
+          f"{k0['step_traffic']}", flush=True)
+    if not (all(x["energy_close"] for x in k)
+            and max(x["grad_rel_l2"] for x in k) <= GNN_GRAD_RTOL and same
+            and all(x["fwd_traffic"]["all_reduce"] == want_ar for x in k)
+            and all(np.isfinite(x["loss"]) for x in k)):
+        fails.append("(k) nequip pjit")
     e = [r["e"] for r in res]
     print(f"  (e) elastic restore of (b)'s params: saved from 2 x 2 in "
           f"{e[0]['save_s']:.2f} s, restored in "

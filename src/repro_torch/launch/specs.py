@@ -12,13 +12,19 @@ The port sets its shard_map implementations by default
 (`PORT_OVERRIDES`, recorded under meta["overrides"]): mixtral-8x7b's
 MoE by `tp_shard_map` (8 experts do not fill a 16-rank model axis),
 arctic-480b's by `ep_shard_map`, nequip's messages by
-`owner_shard_map`. The reference's own MoE default runs too:
+`owner_shard_map`. The reference's own defaults run too:
 `overrides={"moe_impl": "sort"}` (the CLI's `--set moe_impl=sort`)
-counts `moe_ffn_sort_mesh`, the global dispatch. The two cells that the reference leaves to its
-partitioner gather their sharded operands with
-`collectives.gather_replicated` and run the port's one-rank function:
-recsys `retrieval_cand` and CluSD `impl="pjit"`; the default CluSD cell
-(`impl="shard_map"`) runs `core.distributed.make_serve_step`.
+counts `moe_ffn_sort_mesh`, the global dispatch, and
+`overrides={"msg_impl": "pjit"}` (`--set msg_impl=pjit`) NequIP's
+`make_train_step` on this rank's edge and node slices, the global
+function over edge shards (`models/nequip.py`). The cells that the
+reference leaves to its partitioner keep every tensor whole inside the
+step: NequIP "pjit" gathers its node arrays and all-reduces each
+layer's whole (N, C, 9) aggregate, and recsys `retrieval_cand` and CluSD
+`impl="pjit"` gather their sharded operands with
+`collectives.gather_replicated` and run the port's one-rank function;
+the default CluSD cell (`impl="shard_map"`) runs
+`core.distributed.make_serve_step`.
 """
 
 import dataclasses
@@ -203,11 +209,10 @@ def _gnn_cell(arch, cfg, shape, mesh, multi_pod):
             batch["energy_weight"] = _sds((G,), dt)
             batch_sh["energy_weight"] = _repl(mesh)
 
-        if not owner_sharded:
-            raise NotImplementedError(
-                f"nequip msg_impl {cfg.msg_impl!r} on a mesh: the port "
-                f"shards NequIP by 'owner_shard_map'")
-        fn = _owner_sharded_step(cfg, mesh, batch_sh)
+        if owner_sharded:
+            fn = _owner_sharded_step(cfg, mesh, batch_sh)
+        else:   # "pjit": the global step on this rank's slices
+            fn = nq.make_train_step(cfg)
         opt_abs = _opt_abstract(params_abs, "float32")
         args = (params_abs, opt_abs, batch)
         shardings = (params_sh, _opt_shardings(params_sh, mesh), batch_sh)

@@ -15,6 +15,29 @@ Message passing gathers sender features onto the edge list and sums the
 messages at the receivers with `segment_sum`, which drops ids outside
 [0, num_segments) as `jax.ops.segment_sum` does. A species outside
 [0, n_species) embeds as a zero row, as `jax.nn.one_hot` gives it.
+
+On a mesh (`models.sharding.rules_ctx(rules, mesh)`) `forward`,
+`value_and_grad` and `make_train_step` are the reference's
+`msg_impl="pjit"` step, the global function over edge shards: the
+batch's edge arrays are this rank's "edges" slice, its node arrays this
+rank's "nodes" slice (whole where the rules leave "nodes" whole), and
+every tensor inside the step is whole:
+
+  * node arrays split over "nodes" are gathered whole
+    (`collectives.gather_replicated`);
+  * each rank computes the geometry and messages of its own edges and
+    `segment_sum`s them into a whole (N, C, 9) partial (h0, h1 and h2's
+    5 components side by side), which `collectives.all_reduce` sums over
+    the edge axes; the node-wise work (self-interaction, skip, gates,
+    readout) then runs alike on every rank;
+  * what enters the edge work replicated (the positions, the packed node
+    features before the gather at `src`, the radial weights) goes
+    through `collectives.copy_to`, whose backward sums the ranks'
+    cotangents: every gradient is then whole and alike on every rank,
+    and AdamW steps the replicated params alike.
+
+A mesh of more than one rank needs an initialized process group. The
+params are replicated ("layers" sharded raises NotImplementedError).
 """
 
 import math
@@ -24,6 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import tree as tu
+from repro_torch.models import collectives as coll
+from repro_torch.models import sharding as sh
+from repro_torch.models.sharding import logical
 from repro_torch.models.transformer import (Leaf, abstract_from_template,
                                             init_from_template,
                                             shardings_from_template)
@@ -213,11 +239,67 @@ def init_params(cfg, generator=None, d_feat=0, *, device=None):
                               device=device)
 
 
+# the batch's node arrays: this rank's "nodes" slice on a mesh
+NODE_KEYS = ("positions", "node_feat", "species", "graph_id", "node_mask")
+
+
+def batch_shardings(mesh, batch):
+    """The placement of each array of `batch` under the installed rules,
+    as the reference's dry-run cell places it: node arrays split along
+    "nodes", edge arrays along "edges", the per-graph ones replicated."""
+    out = {}
+    for k, v in batch.items():
+        if k in NODE_KEYS:
+            out[k] = sh.named_sharding(mesh, "nodes",
+                                       *(None,) * (v.ndim - 1))
+        elif k.startswith("edge_"):
+            out[k] = sh.named_sharding(mesh, "edges")
+        else:
+            out[k] = sh.NamedSharding(mesh, ())
+    return out
+
+
+class _Plan:
+    """The installed mesh (None without one) and the axes its rules split
+    the edges and the nodes over; without a mesh every method is the
+    identity."""
+
+    def __init__(self):
+        self.mesh = sh.current_mesh()
+        self.edges = self.nodes = ()
+        if self.mesh is not None:
+            if sh.spec("layers")[0] is not None:
+                raise NotImplementedError(
+                    "rules shard 'layers': the sharded NequIP step keeps "
+                    "its params whole")
+            self.edges = sh.spec_axes(sh.spec("edges")[0])
+            self.nodes = sh.spec_axes(sh.spec("nodes")[0])
+
+    def edge_parts(self):
+        return 1 if self.mesh is None else self.mesh.axis_size(self.edges)
+
+    def whole(self, x):
+        """A node array gathered whole over the "nodes" axes."""
+        return coll.gather_replicated(x, self.mesh, self.nodes, 0)
+
+    def enter(self, x):
+        """Into the edge work: identity, the backward sums over edges."""
+        return coll.copy_to(x, self.mesh, self.edges)
+
+    def exit(self, x):
+        """Out of it: the edge shards' partial sums added."""
+        return coll.all_reduce(x, self.mesh, self.edges)
+
+
 def forward(cfg, params, batch):
     """batch: positions (N,3), node_feat (N,F)|species (N,), edge_src/dst (E,),
     edge_mask (E,), graph_id (N,), energy_target (G,) (its length is the
     number of graphs), optional node_mask (N,). Returns per-graph energy
-    (G,)."""
+    (G,). On a mesh: the edge arrays this rank's "edges" slice, the node
+    arrays its "nodes" slice; the energies whole on every rank."""
+    plan = _Plan()
+    batch = {k: plan.whole(v) if k in NODE_KEYS else v
+             for k, v in batch.items()}
     pos = batch["positions"]
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch["edge_mask"].to(pos.dtype)
@@ -236,7 +318,10 @@ def forward(cfg, params, batch):
     h2 = torch.zeros((N, C, 5), dtype=cd, device=pos.device)
 
     # --- edge geometry (shared across layers; computed in f32, stored cd) ---
-    rel = pos[dst] - pos[src]                             # (E, 3)
+    pe = plan.enter(pos)
+    rel = pe[dst] - pe[src]                               # (E, 3)
+    rel = logical(rel, "edges", None,
+                  shape=(rel.shape[0] * plan.edge_parts(), 3))
     dist = torch.sqrt(torch.sum(rel * rel, -1) + 1e-12)
     rhat = rel / dist[:, None]
     y0 = torch.ones_like(dist, dtype=cd)
@@ -246,20 +331,22 @@ def forward(cfg, params, batch):
            * emask[:, None]).to(cd)
     em = emask[:, None, None].to(cd)
 
-    lay = params["layers"]
+    lay = {n: plan.enter(w) if n.startswith("radial") else w
+           for n, w in params["layers"].items()}
     names = sorted(lay)
     for row in zip(*(torch.unbind(lay[n], 0) for n in names)):
         lp = {n: w.to(cd) for n, w in zip(names, row)}
         # radial weights per edge
         rw = F.silu(rbf @ lp["radial_w1"] + lp["radial_b1"])
         rw = (rw @ lp["radial_w2"]).reshape(-1, N_PATHS, C) * em
-        # gather sender features to edges
-        m0, m1, m2 = tensor_product(h0[src], h1[src], from5(h2[src]), y0,
-                                    y1, y2m, rw)
-        # scatter to receivers
-        a0 = segment_sum(m0, dst, N)
-        a1 = segment_sum(m1, dst, N)
-        a2 = segment_sum(to5(m2), dst, N)
+        # gather sender features (h0, h1, h2 packed (N, C, 9)) to edges
+        e = plan.enter(torch.cat([h0[..., None], h1, h2], -1))[src]
+        m0, m1, m2 = tensor_product(e[..., 0], e[..., 1:4],
+                                    from5(e[..., 4:]), y0, y1, y2m, rw)
+        # scatter to receivers, the edge shards' partials summed
+        a = plan.exit(segment_sum(torch.cat([m0[..., None], m1, to5(m2)],
+                                            -1), dst, N))
+        a0, a1, a2 = a[..., 0], a[..., 1:4], a[..., 4:]
         # self-interaction + skip
         n0 = a0 @ lp["self0"] + h0 @ lp["skip0"]
         n1 = torch.einsum("nci,cd->ndi", a1, lp["self1"]) + torch.einsum(
@@ -295,7 +382,8 @@ def loss_fn(cfg, params, batch):
 
 def value_and_grad(cfg, params, batch):
     """(loss, grads): the loss and its gradients (a tree of params'
-    structure) by torch.autograd.grad."""
+    structure) by torch.autograd.grad; on a mesh both whole and alike on
+    every rank."""
     leaves = [p.detach().requires_grad_() for p in tu.tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(cfg, tu.tree_unflatten_like(params, leaves), batch)
@@ -307,7 +395,9 @@ def make_train_step(cfg, train_cfg=None):
     """fn(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}): the loss's gradients, then the port's adamw_update at
     the train config's lr and grad_clip (AdamW's other settings at their
-    defaults, as the reference passes them)."""
+    defaults, as the reference passes them). On a mesh: the batch's
+    slices as `forward` takes them; the params, their gradients and the
+    optimizer state whole and alike on every rank."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim import adamw_update
     tc = train_cfg or TrainConfig()

@@ -33,12 +33,15 @@ torch.distributed:
     row-parallel product takes this rank's columns of its output;
   * the KV sequence over the tensor-parallel axes when the rules shard
     "seq_kv" (the reference's prefill and decode cells): prefill emits
-    this rank's sequence slice of the cache, and decode attends every
-    head over the local slice and combines the ranks flash-decode style
-    (an all-reduce of the row max, then of the exp-sums and the
-    weighted V, the mask in global positions). A cache length that does
-    not divide over those ranks raises ValueError, as `local_shape`
-    does (the reference pads such shards);
+    the cache's values whole and lays them out by their length, this
+    rank's sequence slice where the length divides over those ranks and
+    the whole cache on every rank where it does not, as the reference's
+    jitted prefill returns it (`prefill_cache_shardings`). Decode
+    attends every head over the local slice and combines the ranks
+    flash-decode style (an all-reduce of the row max, then of the
+    exp-sums and the weighted V, the mask in global positions); its
+    cache width must divide over the ranks, and one that does not
+    raises ValueError in `local_shape`, as in `jax.device_put`;
   * the batch over "data", FSDP of the "embed_w" dimension over "data"
     (`_gather_weights` all-gathers a layer's weights where they are
     used; the backward reduce-scatters their gradients);
@@ -470,15 +473,14 @@ def _layer(cfg, x, lp, positions, plan=None):
         k = k[:, -cfg.sliding_window:]
         v = v[:, -cfg.sliding_window:]
     ns, T = _seq_parts(plan), k.shape[1]
-    if ns > 1:          # this rank's slice of the emitted cache
+    seq = "seq_kv" if T % ns == 0 else None
+    if ns > 1 and seq:  # this rank's slice of the emitted cache
         n = T // ns
         k = k.narrow(1, plan.mi * n, n)
         v = v.narrow(1, plan.mi * n, n)
-    # against the whole length: a sequence that does not split over the
-    # ranks raises here (as local_shape does) rather than losing its tail
-    k = logical(k, "batch", "seq_kv", "kv_heads", "head_dim",
+    k = logical(k, "batch", seq, "kv_heads", "head_dim",
                 shape=(Bg, T) + tuple(k.shape[2:]))
-    v = logical(v, "batch", "seq_kv", "kv_heads", "head_dim",
+    v = logical(v, "batch", seq, "kv_heads", "head_dim",
                 shape=(Bg, T) + tuple(v.shape[2:]))
     return logical(x, "batch", "seq", "embed", shape=(Bg, S, d)), (k, v), aux
 
@@ -698,6 +700,20 @@ def cache_shardings(cfg, mesh, batch, seq_len):
                                    mesh)
 
 
+def prefill_cache_shardings(cfg, mesh, batch, seq_len):
+    """The placement of make_prefill_step's cache of `seq_len` positions:
+    `cache_shardings`, with the KV sequence whole where the installed
+    rules split it over ranks that do not divide its length (what the
+    reference's jitted prefill returns)."""
+    rules = sh.current_rules() or sh.BASE_RULES
+    W = cache_template(cfg, batch, seq_len)["k"].shape[2]
+    axes = sh.spec_axes(sh.spec("seq_kv")[0])
+    if W % mesh.axis_size(axes) == 0:
+        return cache_shardings(cfg, mesh, batch, seq_len)
+    with sh.rules_ctx(dict(rules, seq_kv=None), mesh=sh.current_mesh()):
+        return cache_shardings(cfg, mesh, batch, seq_len)
+
+
 def init_cache(cfg, batch, seq_len, device=None):
     """Zero KV cache {"k", "v"} of (L, batch, W, Hkv, hd) in cfg.dtype; SWA
     configurations keep a ring of W = min(seq_len, window) slots."""
@@ -719,7 +735,7 @@ def make_prefill_step(cfg):
     """fn(params, tokens (B, S)) -> (last-position logits (B, V) float32,
     cache {"k", "v"} of (L, B, S', Hkv, hd), S' the window for SWA). On a
     mesh: this rank's batch rows, their logits over the whole vocabulary,
-    and the cache as `cache_shardings` places it."""
+    and the cache as `prefill_cache_shardings` places it."""
 
     @torch.no_grad()
     def prefill(params, tokens):

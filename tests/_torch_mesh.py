@@ -1,7 +1,7 @@
 """Helpers of the mesh tests (tests/test_torch_{sharding,moe_mesh,
-moe_sort_mesh,transformer_mesh,nequip_mesh}.py): the JAX reference on
-host devices in a subprocess, and the port on gloo ranks spawned by
-torch.multiprocessing, both on the same mesh shapes.
+moe_sort_mesh,transformer_mesh,nequip_mesh,nequip_pjit_mesh}.py): the
+JAX reference on host devices in a subprocess, and the port on gloo
+ranks spawned by torch.multiprocessing, both on the same mesh shapes.
 
 `run_jax(code, n_devices)` runs `code` with
 --xla_force_host_platform_device_count; `spawn(task, job, tmp)` runs
@@ -403,6 +403,44 @@ def task_nequip(rank, job):
     return out
 
 
+def task_nequip_pjit(rank, job):
+    """NequIP msg_impl "pjit" (models/nequip.py on a mesh) for each case
+    under its rules on its mesh, from JAX's init: this rank's slices of
+    the batch, the energies, one train step (params, first moment,
+    metrics) and the bytes each collective kind returned, by call."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import nequip_params_from_numpy
+    from repro_torch.models import collectives as coll
+    from repro_torch.models import nequip as nq
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("nequip", "smoke")
+    out = {}
+    for i, case in enumerate(job["cases"]):
+        params = nequip_params_from_numpy(cfg, job[f"params{i}"],
+                                          case.get("d_feat", 0),
+                                          device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in job[f"batch{i}"].items()}
+        mesh = _debug_mesh(case["mesh"])
+        with sh.rules_ctx(_rules(case["rules"]), mesh=mesh):
+            bsh = nq.batch_shardings(mesh, batch)
+            local = {k: bsh[k].shard(v).clone() for k, v in batch.items()}
+            coll.reset_traffic()
+            with torch.no_grad():
+                e = nq.forward(cfg, params, local)
+            fwd = dict(coll.TRAFFIC)
+            coll.reset_traffic()
+            p2, o2, m = nq.make_train_step(cfg)(params, adamw_init(params),
+                                                local)
+            out[i] = {"energy": _np(e), "params": _tree_np(p2),
+                      "mu": _tree_np(o2["mu"]), "loss": float(m["loss"]),
+                      "gnorm": float(m["grad_norm"]), "fwd_traffic": fwd,
+                      "step_traffic": dict(coll.TRAFFIC),
+                      "n_edges": int(local["edge_src"].shape[0])}
+    return out
+
+
 def _rules(raw):
     """A rules dict from JSON (lists as tuples, null as None)."""
     return {k: tuple(v) if isinstance(v, list) else v
@@ -412,7 +450,10 @@ def _rules(raw):
 def task_lm_rules(rank, job):
     """For each case, under its rules on its mesh: the sharded train step
     (with "train"), then prefill and N decode steps; the caches gathered
-    whole, and on rank 0 the port's one-rank step, prefill and decode."""
+    whole, and on rank 0 the port's one-rank step, prefill and decode.
+    Where the rules shard "seq_kv", also a prefill of S - 1 positions
+    (which do not split) and its decode into S + N slots, and whether a
+    cache of S + N - 1 slots is refused."""
     import dataclasses
 
     from repro_torch.common import tree as tu
@@ -422,23 +463,25 @@ def task_lm_rules(rank, job):
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adamw_init
 
-    def infer(cfg, params, tok, dec, rows, mesh=None):
+    def infer(cfg, params, tok, dec, rows, mesh=None, width=None):
         B, S = tok.shape
         n_dec = dec.shape[1]
+        W = width or S + n_dec
         logits, cache = tf.make_prefill_step(cfg)(params, rows.shard(tok)
                                                   if rows else tok)
-        res = {"prefill": _np(logits)}
-        csh = ccsh = None
+        res = {"prefill": _np(logits),
+               "prefill_local_len": int(cache["k"].shape[2])}
+        ccsh = None
         if mesh is not None:
-            csh = tf.cache_shardings(cfg, mesh, B, S)
-            cache = {k: csh[k].gather(v.contiguous())
+            psh = tf.prefill_cache_shardings(cfg, mesh, B, S)
+            cache = {k: psh[k].gather(v.contiguous())
                      for k, v in cache.items()}
         res["prefill_cache"] = {k: _np(v) for k, v in cache.items()}
-        full = tf.init_cache(cfg, B, S + n_dec, device="cpu")
+        full = tf.init_cache(cfg, B, W, device="cpu")
         for k in full:
             full[k][:, :, :cache[k].shape[2]] = cache[k]
         if mesh is not None:
-            ccsh = tf.cache_shardings(cfg, mesh, B, S + n_dec)
+            ccsh = tf.cache_shardings(cfg, mesh, B, W)
             full = {k: ccsh[k].shard(v).clone() for k, v in full.items()}
         step = tf.make_decode_step(cfg)
         res["decode"] = []
@@ -462,8 +505,13 @@ def task_lm_rules(rank, job):
         dec = torch.from_numpy(job[f"dec{i}"])
         batch = {"tokens": tok, "labels": tok}
         res = {}
+        seq = bool(case.get("rules"))
         if rank == 0:
             res["single"] = infer(cfg, params, tok, dec, None)
+            if seq:
+                res["single_odd"] = infer(cfg, params, tok[:, :-1], dec,
+                                          None, width=tok.shape[1]
+                                          + dec.shape[1])
             if case.get("train"):
                 p1, o1, m1 = tf.make_train_step(cfg)(
                     params, adamw_init(params), batch)
@@ -487,13 +535,19 @@ def task_lm_rules(rank, job):
                 res.update(loss=float(m2["loss"]),
                            gnorm=float(m2["grad_norm"]))
             res.update(infer(cfg, pl, tok, dec, rows, mesh))
-            if sh.spec("seq_kv")[0] is not None:
-                # a prefill whose length does not split over "model"
+            if seq:
+                # a prefill whose length does not split over "model", then
+                # decode into a width that splits and one that does not
+                W = tok.shape[1] + dec.shape[1]
+                res["odd"] = infer(cfg, pl, tok[:, :-1], dec, rows, mesh,
+                                   width=W)
                 try:
-                    tf.make_prefill_step(cfg)(pl, rows.shard(tok[:, :-1]))
-                    res["odd_seq_error"] = None
+                    tf.cache_shardings(cfg, mesh, tok.shape[0], W - 1)[
+                        "k"].shard(tf.init_cache(cfg, tok.shape[0], W - 1,
+                                                 device="cpu")["k"])
+                    res["odd_refusal"] = ""
                 except ValueError as e:
-                    res["odd_seq_error"] = str(e)
+                    res["odd_refusal"] = str(e)
             res["rows"] = _np(sh.named_sharding(mesh, "batch").shard(
                 torch.arange(tok.shape[0])))
         out[i] = res

@@ -4,12 +4,15 @@ configs.cells() and CluSD's retrieval shapes, on the 16 x 16 and the
 2 x 16 x 16 production meshes, every argument's global shape, dtype and
 PartitionSpec, with the port's overrides given to both; the skipped
 cells' reasons; model_flops bitwise; roofline_terms on the same inputs
-and spec numbers. JAX builds its cells in a subprocess with 512 host
+and spec numbers; and nequip minibatch_lg with the reference's default
+msg_impl "pjit" in place of the port's override, its cell against JAX's
+and its collective bytes counted on a fake 16 x 16 group. JAX builds its cells in a subprocess with 512 host
 devices; the port's cells are built on a Mesh of rank 0 (no process
 group: building a cell runs no collective).
 """
 
 import json
+import os
 
 import pytest
 
@@ -54,6 +57,18 @@ for multi in (False, True):
 for arch, shape in todo:
     out["flops"][f"{arch}|{shape.name}"] = model_flops(get_config(arch),
                                                        shape)
+# NequIP's own default message pass on the 16 x 16 mesh
+cell = build_cell("nequip", shapes_for("gnn")["minibatch_lg"],
+                  make_production_mesh(multi_pod=False), multi_pod=False,
+                  overrides={"msg_impl": "pjit"})
+args = jax.tree_util.tree_flatten_with_path(cell.args)[0]
+shs = jax.tree.leaves(cell.in_shardings,
+                      is_leaf=lambda x: isinstance(x, NamedSharding))
+out["pjit"] = {
+    "args": [[jax.tree_util.keystr(p), list(a.shape), str(a.dtype),
+              norm(s.spec)] for (p, a), s in zip(args, shs)],
+    "rules": {k: list(v) if isinstance(v, tuple) else v
+              for k, v in cell.rules.items()}}
 cost = {"flops": 3.7e15, "bytes accessed": 2.9e12}
 coll = {"wire": 4.1e10, "raw": 4.4e10}
 out["terms"] = roofline_terms(cost, coll, 256, TPU_V5E)
@@ -87,6 +102,16 @@ def _norm(spec):
     return parts
 
 
+def _cell_record(cell):
+    args = _flatten(cell.args)
+    shs = [s for _, s in _flatten(cell.in_shardings)]
+    return {"args": [[p, list(a.shape), str(a.dtype).replace("torch.", ""),
+                      _norm(s.spec)] for (p, a), s in zip(args, shs)],
+            "rules": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in cell.rules.items()},
+            "overrides": cell.meta["overrides"]}
+
+
 def _port_cells():
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.specs import build_cell
@@ -101,15 +126,7 @@ def _port_cells():
             except ValueError as e:
                 out[key] = {"error": str(e)}
                 continue
-            args = _flatten(cell.args)
-            shs = [s for _, s in _flatten(cell.in_shardings)]
-            out[key] = {
-                "args": [[p, list(a.shape),
-                          str(a.dtype).replace("torch.", ""), _norm(s.spec)]
-                         for (p, a), s in zip(args, shs)],
-                "rules": {k: list(v) if isinstance(v, tuple) else v
-                          for k, v in cell.rules.items()},
-                "overrides": cell.meta["overrides"]}
+            out[key] = _cell_record(cell)
     return out
 
 
@@ -158,6 +175,64 @@ def test_port_overrides_are_the_sharded_implementations(both):
     assert got["nequip|minibatch_lg|0"]["overrides"] == {
         "msg_impl": "owner_shard_map"}
     assert got["qwen2-1.5b|train_4k|0"]["overrides"] == {}
+
+
+_PJIT_COUNT = r"""
+import json
+from repro_torch.configs.shapes import shapes_for
+from repro_torch.launch import dryrun
+rec = dryrun.run_cell("nequip", shapes_for("gnn")["minibatch_lg"], False,
+                      overrides={"msg_impl": "pjit"})
+print("JSON" + json.dumps(rec))
+"""
+
+
+def test_nequip_pjit_cell_is_jax_and_counts_whole_node_aggregates(both):
+    """nequip minibatch_lg with the reference's default msg_impl "pjit"
+    (the CLI's --set msg_impl=pjit): its arguments, placements and rules
+    are JAX's build_cell's with the same override. Counted on one rank of
+    a fake 16 x 16 group, each layer all-reduces the whole (N, C, 9)
+    float32 aggregate twice (the forward's sum over the edge shards, the
+    backward's of the packed node features' cotangent), the step adds
+    the three radial weights' gradients, and the node arrays are gathered
+    whole once: the bytes of the design that keeps every tensor whole, an
+    upper bound on what a partitioner would move."""
+    import subprocess
+    import sys
+
+    from _torch_mesh import SRC
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import shapes_for
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.nequip import N_PATHS, RADIAL_HIDDEN
+
+    want, _ = both
+    shape = shapes_for("gnn")["minibatch_lg"]
+    cell = build_cell("nequip", shape, Mesh((16, 16), ("data", "model")),
+                      overrides={"msg_impl": "pjit"})
+    got = _cell_record(cell)
+    assert got["overrides"] == {"msg_impl": "pjit"}
+    assert got["args"] == want["pjit"]["args"]
+    assert got["rules"] == want["pjit"]["rules"] == {"nodes": ["data"]}
+    r = subprocess.run([sys.executable, "-c", _PJIT_COUNT],
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=SRC))
+    assert r.returncode == 0, r.stderr[-4000:]
+    rec = json.loads(r.stdout.split("JSON", 1)[1])
+    batch = dict(zip([p for p, _ in _flatten(cell.args[2])],
+                     [a for _, a in _flatten(cell.args[2])]))
+    N, d_feat = batch["['node_feat']"].shape
+    cfg = get_config("nequip")
+    L, C = cfg.n_layers, cfg.d_hidden
+    radial = (cfg.n_rbf * RADIAL_HIDDEN + RADIAL_HIDDEN
+              + RADIAL_HIDDEN * N_PATHS * C) * 4
+    coll = rec["collectives"]
+    assert rec["status"] == "ok" and rec["n_layers"] == L
+    assert coll["all-reduce_raw"] == L * (2 * N * C * 9 * 4 + radial)
+    assert coll["all-gather_raw"] == N * (3 + d_feat + 1) * 4
+    assert coll["count"] == 3 + 2 * L + 3
+    assert "reduce-scatter_raw" not in coll
 
 
 def test_model_flops_bitwise_jax(both):

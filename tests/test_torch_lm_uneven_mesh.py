@@ -5,6 +5,9 @@ KV sequence sharded over "model" (the decode and prefill cells' rule
 `seq_kv: ("model",)`, with `batch: None` as long_500k has it), on 4 gloo
 ranks against the JAX package's jitted steps on 4 host devices under
 the same rules, from JAX's init, and against the port's one-rank steps.
+Under the seq_kv rules also a prefill whose length does not split over
+"model" (returned whole, as JAX returns it) and its decode into a width
+that splits.
 
 Tolerances, those of tests/test_torch_transformer_mesh.py (float32 on
 the CPU): the loss within 1e-4 and every param within 5e-4 after one
@@ -103,6 +106,40 @@ for i, c in enumerate(cases):
             out[f"decode{i}_{t}"] = np.asarray(lg)
         for k, v in cache.items():
             out[f"cache{i}{k}"] = np.asarray(v)
+        if not c.get("rules"):
+            continue
+        # a prefill of S - 1 positions, which do not split over "model",
+        # then decode into a width that splits and one that does not
+        odd = tok[:, :-1]
+        logits, cache = jax.jit(tf.make_prefill_step(cfg))(
+            pp, jax.device_put(odd, bsh))
+        out[f"odd_prefill{i}"] = np.asarray(logits)
+        out[f"odd_spec{i}"] = np.asarray(json.dumps(
+            [[list(e) if isinstance(e, tuple) else e
+              for e in cache[k].sharding.spec] for k in ("k", "v")]))
+        out[f"odd_shards{i}"] = np.asarray(
+            [s.data.shape for s in cache["k"].addressable_shards])
+        for k, v in cache.items():
+            out[f"odd_prefill_cache{i}{k}"] = np.asarray(v)
+        W = tok.shape[1] + n_dec
+        csh = tf.cache_shardings(cfg, mesh, tok.shape[0], W)
+        cache = {k: jax.device_put(jnp.pad(
+            v, ((0, 0), (0, 0), (0, W - v.shape[2]), (0, 0), (0, 0))),
+            csh[k]) for k, v in cache.items()}
+        for t in range(n_dec):
+            lg, cache = dec(pp, cache, jax.device_put(
+                jnp.asarray(job[f"dec{i}"][:, t:t + 1]), bsh),
+                odd.shape[1] + t)
+            out[f"odd_decode{i}_{t}"] = np.asarray(lg)
+        for k, v in cache.items():
+            out[f"odd_cache{i}{k}"] = np.asarray(v)
+        try:
+            jax.device_put(jnp.zeros(tf.cache_template(
+                cfg, tok.shape[0], W - 1)["k"].shape, jnp.float32),
+                tf.cache_shardings(cfg, mesh, tok.shape[0], W - 1)["k"])
+            out[f"odd_refusal{i}"] = np.asarray("")
+        except ValueError as e:
+            out[f"odd_refusal{i}"] = np.asarray(str(e))
 np.savez(OUT, **out)
 """
 
@@ -187,13 +224,58 @@ SEQ = [i for i, c in enumerate(CASES) if c.get("rules")]
 
 @pytest.mark.parametrize("i", SEQ, ids=[CASES[i]["name"] for i in SEQ])
 def test_seq_kv_prefill_refuses_a_length_that_does_not_split(results, i):
-    """S - 1 = 31 positions over the "model" ranks (4, or 2 on 2 x 2):
-    every rank raises rather than emit a cache that lost its tail."""
-    _, got = results
-    nm = CASES[i]["mesh"][1]
+    """S - 1 = 31 positions over the "model" ranks (4, or 2 on 2 x 2) do
+    not split. The prefill keeps them whole, as JAX's jitted prefill does
+    (its output spec splits the batch as the rules do and not the
+    sequence: PartitionSpec() with batch None): on every rank JAX's
+    logits and the whole sequence of the cache. Decode into S + 4 = 36
+    slots, which split, matches JAX's logits and caches and the one-rank
+    run's. A width that does not split (35) is refused on both sides: by
+    jax.device_put, and by the port's local_shape (ValueError)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tf
+
+    want, got = results
+    c = CASES[i]
+    nm = c["mesh"][1]
+    # JAX's output placement is the port's stated one: the batch as the
+    # rules split it, the sequence whole
+    cfg = dataclasses.replace(get_config(c["arch"], "smoke"), **c["over"])
+    mesh = Mesh(tuple(c["mesh"]), ("data", "model"))
+    rules = {k: tuple(v) if isinstance(v, list) else v
+             for k, v in c["rules"].items()}
+    with sh.rules_ctx(rules, mesh=mesh):
+        spec = [list(e) if isinstance(e, tuple) else e for e in
+                tf.prefill_cache_shardings(cfg, mesh, B, S - 1)["k"].spec]
+    while spec and spec[-1] is None:
+        spec.pop()
+    assert "model" not in json.dumps(spec)
+    assert json.loads(str(want[f"odd_spec{i}"])) == [spec, spec]
+    whole = want[f"odd_prefill_cache{i}k"].shape
+    assert whole[2] == S - 1 and whole[2] % nm
+    nd = c["mesh"][0] if rules.get("batch", ("data",)) else 1
+    local = whole[:1] + (whole[1] // nd,) + whole[2:]
+    assert all(tuple(s) == local for s in want[f"odd_shards{i}"])
+    one = got[0][i]["single_odd"]
     for o in got:
-        err = o[i]["odd_seq_error"]
-        assert err is not None and f"divides by {nm}" in err, err
+        r, rows = o[i]["odd"], o[i]["rows"]
+        # this rank's batch rows, every position of the sequence
+        assert r["prefill_local_len"] == S - 1
+        _close(r["prefill"], want[f"odd_prefill{i}"][rows])
+        _close(r["prefill"], one["prefill"][rows])
+        for t in range(N_DEC):
+            _close(r["decode"][t], want[f"odd_decode{i}_{t}"][rows])
+            _close(r["decode"][t], one["decode"][t][rows])
+        for k in ("k", "v"):
+            _close(r["prefill_cache"][k], want[f"odd_prefill_cache{i}{k}"])
+            _close(r["cache"][k], want[f"odd_cache{i}{k}"])
+            _close(r["cache"][k], one["cache"][k])
+        assert f"divisible by {nm}" in str(want[f"odd_refusal{i}"])
+        assert f"divides by {nm}" in o[i]["odd_refusal"]
 
 
 def test_the_repairs_take_the_new_layouts():
