@@ -229,9 +229,10 @@ but where a phase says otherwise):
      18's init) against the one-rank step (loss 1e-4, params 5e-4), prefill
      (8, 128) and 4 decode tokens against its logits; (b) mixtral-8x7b at
      full width and 1 layer in float32, tp_shard_map, 2 x 2, one train step
-     against the one-rank step that runs each data shard's rows as a
-     microbatch (so its MoE drops per shard as the mesh does), the
-     per-shard dropped pairs beside the global count; (e) (b)'s params
+     at microbatch 0 (each data shard's rows routed at their own capacity)
+     against the one-rank step at microbatch 2, whose microbatches are the
+     two data shards' rows (so its MoE drops per shard as the mesh does),
+     the per-shard dropped pairs beside the global count; (e) (b)'s params
      saved from 2 x 2 and restored on 1 x 4 and on a (4,) data mesh, each
      slice bitwise; (c) arctic-480b at full width and 1 layer in bf16,
      ep_shard_map on 1 x 4 (32 experts a rank, the ranks drawing phase 21's
@@ -259,11 +260,13 @@ but where a phase says otherwise):
      init), then embedding_bag at the rank's slice shape (a zero row for
      other ranks' ids) bitwise its plain version, timed beside
      F.embedding_bag; (i) (b)'s config and init with the reference's
-     default moe_impl "sort" (one global capacity over both data shards) on
-     2 x 2: one train step on a batch that drops pairs against the one-rank
-     step on the whole batch (loss 1e-4, params 5e-4, gradient norm 1e-4
-     relative), the global dropped pairs equal to the one-rank step's,
-     prefill and 4 decode tokens against its logits; (j) (c)'s params with
+     default moe_impl "sort" on 2 x 2 at the reference's microbatch 2 (the
+     global rows [4i, 4i + 4) in microbatch i, 2 a data shard, moved there
+     by one all-gather; one global capacity over both data shards): one
+     train step on a batch that drops pairs against the one-rank step at
+     microbatch 2 (loss 1e-4, params 5e-4, gradient norm 1e-4 relative),
+     each microbatch's global dropped pairs equal to that step's, prefill
+     and 4 decode tokens against its logits; (j) (c)'s params with
      "sort" on 1 x 4, prefill and 4 decode tokens against phase 21's logits
      as (c); each step's ms, peak memory and bytes through the collectives
      printed; then topk at the ranks' per-shard router shapes bitwise its
@@ -3844,7 +3847,8 @@ class _MoeRecorder:
     while it is entered: every top-k's input and indices are kept in
     `routes`, the first moe_ffn arguments of each token count in `calls`,
     and each moe_ffn_sort_mesh call's global dropped pairs (a 0-dim
-    tensor) in `dropped` (the same launches, nothing added)."""
+    tensor) in `dropped`, of the forward's calls only (not remat's
+    recomputation in the backward; the same launches, nothing added)."""
 
     def __init__(self, keep_calls=True):
         from repro_torch.models import moe
@@ -3868,7 +3872,8 @@ class _MoeRecorder:
 
         def sort_mesh(*args, **kw):
             out = real_sort(*args, **kw)
-            self.dropped.append(out[2])
+            if torch._C._current_graph_task_id() == -1:   # not a backward
+                self.dropped.append(out[2])
             return out
         (self.mod.topk_desc_index_asc, self.mod.moe_ffn,
          self.mod.moe_ffn_sort_mesh) = topk, ffn, sort_mesh
@@ -5395,13 +5400,17 @@ def mesh_rank(rank, world, job, dev_kind, settings):
         out["e"] = _mesh_elastic(rank, p2, psh, cfg, job, dev)
         del p2
         torch.cuda.empty_cache()
-        # (i) mixtral with the reference's default "sort": one global
-        # capacity over both data shards, held to the whole batch's step
-        cfg = dataclasses.replace(cfg, moe_impl="sort")
+        # (i) mixtral with the reference's default "sort" at its
+        # microbatch 2: one global capacity over both data shards in each
+        # microbatch, held to the one-rank microbatched step
+        cfg = dataclasses.replace(cfg, moe_impl="sort", microbatch=2)
         with _MoeRecorder(keep_calls=False) as rec:
             out["i"], p2, _ = _mesh_lm_step(rank, m22, cfg, job, "i", dev,
                                             1)
-        out["i"]["dropped"] = int(rec.dropped[0])       # the step's forward
+        L = cfg.n_layers                        # the step's forward calls
+        out["i"]["dropped"] = [sum(int(x) for x in rec.dropped[j * L:
+                                                               (j + 1) * L])
+                               for j in range(cfg.microbatch)]
         del p2, rec
         with sh.rules_ctx({}, mesh=m22):
             params = tt.init_params(cfg, torch.Generator(device=dev)
@@ -5584,17 +5593,18 @@ def mesh_phase(dev, job):
     `mesh_rank`; a rank that raises fails the phase. Gates: (a), (b) and
     (f) loss within MESH_LOSS_ATOL, every param within MESH_PARAM_ATOL
     and the gradient norm within MESH_GRAD_NORM_RTOL of the one-rank step
-    ((b)'s reference steps each data shard's rows as a
-    microbatch, so its MoE drops per shard as the sharded one does), (a)'s
-    logits at MESH_TOL; (c) the rows routed clear within ARCTIC_MESH_TOL
-    x max |logit|; (d) energies allclose at GNN_TOL's rtol and
-    GNN_BIG_ATOL x max |E|, gradients within GNN_GRAD_RTOL relative L2;
-    (e) bitwise; (i) as (a) against the whole batch's one-rank step,
-    its global dropped pairs equal to that step's; (j) as (c); (g)'s
-    prefill caches on each rank a quarter of LM_S positions, or all
-    LM_S - 1 of the length that does not split; (k) as (d), the ranks'
-    params bitwise equal after a train step, and a forward's all-reduce
-    bytes n_layers x N x C x 9 x 4. Returns
+    ((b)'s sharded step runs at microbatch 0 and its reference at 2, whose
+    microbatches are the data shards' rows, so its MoE drops per shard as
+    the sharded one does), (a)'s logits at MESH_TOL; (c) the rows routed
+    clear within ARCTIC_MESH_TOL x max |logit|; (d) energies allclose at
+    GNN_TOL's rtol and GNN_BIG_ATOL x max |E|, gradients within
+    GNN_GRAD_RTOL relative L2; (e) bitwise; (i) as (a) against the
+    one-rank step at its microbatch 2, each microbatch's global dropped
+    pairs equal to that step's; (j) as (c); (g)'s prefill caches on each
+    rank a quarter of LM_S positions, or all LM_S - 1 of the length that
+    does not split; (k) as (d), the ranks' params bitwise equal after a
+    train step, and a forward's all-reduce bytes n_layers x N x C x 9 x
+    4. Returns
     (launches summed over the ranks, {shape: rank 0's router top-k
     input})."""
     import torch.multiprocessing as tmp
@@ -5613,9 +5623,9 @@ def mesh_phase(dev, job):
         get_config("mixtral-8x7b", MOE_VARIANT), n_layers=1, dtype="float32",
         param_dtype="float32", microbatch=2)
     ref_b, peak_b = _mesh_ref_step(cfg_b, "b", job, dev, 1, LM_B, LM_S)
-    # (i)'s: the whole batch in one step (no microbatch), its MoE at the
-    # global capacity, on tokens that drop pairs
-    cfg_i = dataclasses.replace(cfg_b, microbatch=0)
+    # (i)'s: cfg_b at its microbatch 2, each microbatch's MoE at that
+    # microbatch's global capacity, on tokens that drop pairs
+    cfg_i = cfg_b
     ref_i, peak_i = _mesh_ref_step(cfg_i, "i", job, dev, 1, LM_B, LM_S,
                                    repeat=True)
     _mesh_ref_infer(cfg_i, job, dev, 1, tag="i")
@@ -5633,7 +5643,8 @@ def mesh_phase(dev, job):
     print(f"  one-rank references in {ref_s:.2f} s: qwen2 step (peak "
           f"{peak_a:.2f} GB) {ref_a}; mixtral step by data-shard "
           f"microbatches (peak {peak_b:.2f} GB) {ref_b}; mixtral step "
-          f"on the whole batch (peak {peak_i:.2f} GB) {ref_i}; qwen2 with "
+          f"at microbatch 2 on a dropping batch (peak {peak_i:.2f} GB) "
+          f"{ref_i}; qwen2 with "
           f"{MESH_UNEVEN} (peak {peak_f:.2f} GB) {ref_f}; wide-deep "
           f"{RECSYS_SIZE} serve B {MESH_RECSYS_SERVE_B} and train step B "
           f"{MESH_RECSYS_TRAIN_B} ({ref_h_s:.2f} s) {ref_h}", flush=True)
@@ -5661,7 +5672,7 @@ def mesh_phase(dev, job):
                        ("f", f"(f) {LM_ARCH} {LM_PARITY_LAYERS} layers "
                              f"float32 with {MESH_UNEVEN}, 1 x 4"),
                        ("i", "(i) mixtral-8x7b 1 layer float32 sort, "
-                             "2 x 2")):
+                             "microbatch 2, 2 x 2")):
         rr = [r[part] for r in res]
         loss_d = max(abs(x["loss"] - x["ref_loss"]) for x in rr)
         pd = max(x["param_diff"] for x in rr)
@@ -5763,13 +5774,14 @@ def mesh_phase(dev, job):
           f"{ref_b['dropped_per_microbatch']}", flush=True)
     i = [r["i"] for r in res]
     drops = [x["dropped"] for x in i]
-    print(f"  (i) global dropped (token, k) pairs on every rank {drops}, "
-          f"the one-rank step's {ref_i['dropped_global']}; prefill and "
-          f"decode's {i[0]['infer_dropped']}; the step's bytes a rank "
-          f"{i[0]['traffic']}, the prefill's {i[0]['prefill_traffic']}",
-          flush=True)
-    if not (ref_i["dropped_global"] > 0
-            and all(d == ref_i["dropped_global"] for d in drops)):
+    want = ref_i["dropped_per_microbatch"]
+    print(f"  (i) each microbatch's global dropped (token, k) pairs on "
+          f"every rank {drops}, the one-rank step's {want} (its whole batch "
+          f"at one global capacity would drop {ref_i['dropped_global']}); "
+          f"prefill and decode's {i[0]['infer_dropped']}; the step's bytes "
+          f"a rank {i[0]['traffic']}, the prefill's "
+          f"{i[0]['prefill_traffic']}", flush=True)
+    if not (sum(want) > 0 and all(d == want for d in drops)):
         fails.append("(i) dropped pairs")
     arc = MESH_REFS["arctic"]
     steps = [arc["prefill"]] + list(arc["decode"])

@@ -38,7 +38,7 @@ from repro_torch.analysis.roofline import model_flops, roofline_terms
 from repro_torch.common.hw import H100_SXM
 from repro_torch.configs import cells
 from repro_torch.configs.shapes import shapes_for
-from repro_torch.launch.specs import build_cell, cell_config, cell_overrides
+from repro_torch.launch.specs import build_cell, cell_config
 from repro_torch.models.sharding import rules_ctx
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -164,7 +164,7 @@ def run_cell(arch, shape, multi_pod, extra_rules=None, save_hlo=False,
         "useful_flops_ratio": mf / max(terms["global_flops"], 1.0),
         "rules": {k: list(v) if isinstance(v, tuple) else v
                   for k, v in rules.items()},
-        "overrides": cell_overrides(arch, overrides),
+        "overrides": dict(overrides or {}),
         "kernels": "plain",
         "counted_layers": [d for d in depths if d is not None],
     }

@@ -8,16 +8,14 @@ that place them (the reference's). The dry run materializes each
 argument as a meta tensor of its sharding's `local_shape` and runs `fn`
 on this rank's slices.
 
-The port sets its shard_map implementations by default
-(`PORT_OVERRIDES`, recorded under meta["overrides"]): mixtral-8x7b's
-MoE by `tp_shard_map` (8 experts do not fill a 16-rank model axis),
-arctic-480b's by `ep_shard_map`, nequip's messages by
-`owner_shard_map`. The reference's own defaults run too:
-`overrides={"moe_impl": "sort"}` (the CLI's `--set moe_impl=sort`)
-counts `moe_ffn_sort_mesh`, the global dispatch, and
-`overrides={"msg_impl": "pjit"}` (`--set msg_impl=pjit`) NequIP's
-`make_train_step` on this rank's edge and node slices, the global
-function over edge shards (`models/nequip.py`). The cells that the
+Every cell counts the config as the reference's dry run does, its
+defaults included: mixtral-8x7b's and arctic-480b's MoE by "sort"
+(`moe_ffn_sort_mesh`, the global dispatch) and NequIP's messages by
+"pjit" (`make_train_step` on this rank's edge and node slices, the
+global function over edge shards, `models/nequip.py`). The caller's
+overrides (the CLI's `--set`, recorded under meta["overrides"]) select
+the shard_map variants: `{"moe_impl": "tp_shard_map"}` (or
+"ep_shard_map") and `{"msg_impl": "owner_shard_map"}`. The cells that the
 reference leaves to its partitioner keep every tensor whole inside the
 step: NequIP "pjit" gathers its node arrays and all-reduces each
 layer's whole (N, C, 9) aggregate, and recsys `retrieval_cand` and CluSD
@@ -41,13 +39,6 @@ from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
 from repro_torch.models.sharding import (NamedSharding, named_sharding,
                                          rules_ctx, spec_axes)
-
-PORT_OVERRIDES = {
-    "mixtral-8x7b": {"moe_impl": "tp_shard_map"},
-    "arctic-480b": {"moe_impl": "ep_shard_map"},
-    "nequip": {"msg_impl": "owner_shard_map"},
-}
-
 
 @dataclasses.dataclass
 class Cell:
@@ -484,18 +475,10 @@ def _clusd_pjit_fn(cfg, shardings):
 # entry
 # ---------------------------------------------------------------------------
 
-def cell_overrides(arch, overrides=None):
-    """The port's implementation overrides of `arch` with the caller's on
-    top."""
-    out = dict(PORT_OVERRIDES.get(arch, {}))
-    out.update(overrides or {})
-    return out
-
-
 def cell_config(arch, overrides=None, variant="full"):
     """The `variant` config of `arch` ("smoke" for the CPU tests) with
-    the port's overrides and the caller's."""
-    over = cell_overrides(arch, overrides)
+    the caller's overrides."""
+    over = dict(overrides or {})
     cfg = get_config(arch, variant)
     return dataclasses.replace(cfg, **over) if over else cfg
 
@@ -503,7 +486,7 @@ def cell_config(arch, overrides=None, variant="full"):
 def build_cell(arch, shape: ShapeSpec, mesh, multi_pod=False,
                overrides=None, variant="full") -> Cell:
     """The cell of (arch, shape) on `mesh` from cell_config."""
-    over = cell_overrides(arch, overrides)
+    over = dict(overrides or {})
     cfg = cell_config(arch, overrides, variant)
     skip = cell_is_skipped(cfg, shape)
     if skip:

@@ -154,37 +154,39 @@ def moe_ffn_tp_shardmap(x, router_w, w_gate, w_up, w_down, *, top_k,
 
 
 def moe_ffn_sort_mesh(x, router_w, w_gate, w_up, w_down, *, top_k,
-                      mesh, batch_axes=("data",), model_axis="model"):
+                      mesh, batch_axes=("data",), model_axis="model",
+                      n_tokens=None):
     """The reference's default dispatch ("sort") on a mesh: `moe_ffn` of
     the global token set, whose rows are the batch ranks' tokens in mesh
     order (pod-major over ("pod", "data")), with one capacity C =
-    capacity(T_local x n_batch_ranks, E, K). Tokens never move: a pair is
-    kept iff its rank within its expert, counting the pairs of that
-    expert on earlier batch ranks (one all-gather of each rank's (E,)
-    counts), is below C. A rank keeps at most min(C, T_local) pairs of an
-    expert, so its experts run on that many slots each. The params'
-    layout picks the experts' split: (E / n_model, d, f) weights are EP,
-    (E, d, f / n_model) TP; one all-reduce over the model axes combines,
-    as in the shard_map paths.
+    capacity(n_tokens, E, K). n_tokens is the global token count (default
+    T_local x n_batch_ranks; the ranks may hold unequal parts of it, or
+    none). Tokens never move: a pair is kept iff its rank within its
+    expert, counting the pairs of that expert on earlier batch ranks (one
+    all-gather of each rank's (E,) counts), is below C. A rank keeps at
+    most min(C, T_local) pairs of an expert, so its experts run on that
+    many slots each. The params' layout picks the experts' split: (E /
+    n_model, d, f) weights are EP, (E, d, f / n_model) TP; one all-reduce
+    over the model axes combines, as in the shard_map paths.
 
     x: this rank's (T_local, d) tokens (the same on every model rank).
     Returns (out (T_local, d), the aux loss E * sum(mean(p) * mean(f))
-    over the global batch, the global dropped (token, k) pairs as a 0-dim
-    int64 tensor, the same on every rank)."""
+    over the global batch, each token weighing alike, the global dropped
+    (token, k) pairs as a 0-dim int64 tensor, the same on every rank)."""
     _check_top_k(top_k)
     E = router_w.shape[-1]
     mode = "tp" if w_gate.shape[0] == E else "ep"
     E_loc = _check_layout(mode, E, mesh.axis_size(model_axis), w_gate)
     T_l, d = x.shape
-    nb = mesh.axis_size(batch_axes)
-    C = capacity(T_l * nb, E, top_k)
+    T = T_l * mesh.axis_size(batch_axes) if n_tokens is None else n_tokens
+    C = capacity(T, E, top_k)
 
     probs, gate, eidx = route(x, router_w, top_k)
-    me = probs.mean(0)
-    ce = F.one_hot(eidx, E).float().sum(1).mean(0)
-    # the global batch's means: one collective for both
-    stats = coll.pmean(torch.cat([me, ce]), mesh, batch_axes)
-    aux = E * torch.sum(stats[:E] * stats[E:])
+    load = F.one_hot(eidx, E).float().sum(1)
+    # the global batch's sums, one collective for both
+    sums = coll.all_reduce(torch.cat([probs.sum(0), load.sum(0)]), mesh,
+                           batch_axes) / T
+    aux = E * torch.sum(sums[:E] * sums[E:])
 
     counts = expert_counts(eidx.reshape(-1), E)
     every = coll.gather_parts(counts[None], mesh, batch_axes)   # (nb, E)

@@ -237,6 +237,8 @@ class _Plan:
     shardings: dict
     seq: Tuple[str, ...] = ()      # the axes of "seq_kv": () or tp
     even: bool = True              # n_heads divides over tp
+    rows: Optional[int] = None     # the call's global batch rows, where
+                                   # set (grads_fn's microbatches)
 
 
 def _seq_parts(plan):
@@ -275,6 +277,30 @@ def _mesh_plan(cfg):
     return _Plan(mesh, tp, batch, nm, mesh.axis_index(tp),
                  mesh.axis_size(batch), param_shardings(cfg, mesh),
                  seq=seq if nm > 1 else (), even=cfg.n_heads % nm == 0)
+
+
+def _global_rows(plan, B):
+    """The global batch rows of a call that holds B rows on this rank."""
+    if plan is None:
+        return B
+    return B * plan.nd if plan.rows is None else plan.rows
+
+
+def microbatch_rows(B, m, R):
+    """Each batch rank's rows of a microbatch, [(first, count)] by rank
+    (pod-major over the batch axes), offsets within the microbatch:
+    microbatch i of a global batch of B rows is the global rows
+    [i B/m, (i + 1) B/m). Where R divides B/m, rank r takes B/(m R) rows
+    from r B/(m R); else the first (B/m) mod R ranks take one row more
+    than the others, and a rank may take none."""
+    n, extra = divmod(B // m, R)
+    return [(r * n + min(r, extra), n + (r < extra)) for r in range(R)]
+
+
+def _shard_map_moe(cfg, mesh):
+    """Whether the MoE runs the reference's shard_map branch here."""
+    return (cfg.moe and cfg.moe_impl in ("ep_shard_map", "tp_shard_map")
+            and mesh is not None and "model" in mesh.shape)
 
 
 def _enter(plan, x):
@@ -391,16 +417,16 @@ def _qkv(cfg, h, lp):
     return q, k, v
 
 
-def _moe_dispatch(cfg, flat, lp, plan):
-    """The MoE on flat (T, d) tokens: the reference's shard_map branch (EP
-    or TP over "model" by cfg.moe_impl, the batch axes from the rules)
-    when a mesh with a "model" axis is installed and moe_impl asks for
-    it; on any other mesh its default, `moe_ffn_sort_mesh` (the global
-    function, its capacity global) over the plan's batch and
-    tensor-parallel axes; with no mesh the one-device `moe_ffn`."""
+def _moe_dispatch(cfg, flat, lp, plan, n_tokens):
+    """The MoE on flat (T, d) tokens, `n_tokens` over all batch ranks: the
+    reference's shard_map branch (EP or TP over "model" by cfg.moe_impl,
+    the batch axes from the rules) when a mesh with a "model" axis is
+    installed and moe_impl asks for it; on any other mesh its default,
+    `moe_ffn_sort_mesh` (the global function, its capacity global) over
+    the plan's batch and tensor-parallel axes; with no mesh the
+    one-device `moe_ffn`."""
     mesh = None if plan is None else plan.mesh
-    if (cfg.moe_impl in ("ep_shard_map", "tp_shard_map")
-            and mesh is not None and "model" in mesh.shape):
+    if _shard_map_moe(cfg, mesh):
         rules = sh.current_rules() or {}
         batch = rules.get("batch", ("data",))
         batch_axes = tuple(batch) if batch else ()  # () = replicated batch
@@ -411,27 +437,58 @@ def _moe_dispatch(cfg, flat, lp, plan):
                 f"the params are laid out for expert parallelism")
         fn = (moe_lib.moe_ffn_ep_shardmap if ep_ok
               else moe_lib.moe_ffn_tp_shardmap)
-        return fn(flat, lp["router"], lp["moe_wg"], lp["moe_wu"],
-                  lp["moe_wd"], top_k=cfg.moe_top_k, mesh=mesh,
-                  batch_axes=batch_axes)
+
+        def call(x):
+            return fn(x, lp["router"], lp["moe_wg"], lp["moe_wu"],
+                      lp["moe_wd"], top_k=cfg.moe_top_k, mesh=mesh,
+                      batch_axes=batch_axes)
+        if plan.rows is None or plan.rows % plan.nd == 0:
+            return call(flat)
+        return _reblocked(plan, flat, n_tokens, call)
     if mesh is not None:
         out, aux, _ = moe_lib.moe_ffn_sort_mesh(
             flat, lp["router"], lp["moe_wg"], lp["moe_wu"], lp["moe_wd"],
             top_k=cfg.moe_top_k, mesh=mesh, batch_axes=plan.batch,
-            model_axis=plan.tp)
+            model_axis=plan.tp, n_tokens=n_tokens)
         return out, aux
     return moe_lib.moe_ffn(flat, lp["router"], lp["moe_wg"], lp["moe_wu"],
                            lp["moe_wd"], top_k=cfg.moe_top_k)
 
 
+def _reblocked(plan, flat, n_tokens, call):
+    """`call` on the reference shard_map's block of a microbatch whose
+    rows do not split evenly over the batch ranks: the microbatch's
+    n_tokens flat tokens in global order, rank r's the r-th of nd equal
+    blocks (grads_fn has checked that nd divides n_tokens). The ranks'
+    tokens are all-gathered (each padded to the most a rank holds),
+    `call` runs on this rank's block, and the blocks' outputs are
+    all-gathered for this rank's own tokens: (out (T_local, d), aux)."""
+    mesh, axes, nd = plan.mesh, plan.batch, plan.nd
+    per = n_tokens // plan.rows                         # tokens a row
+    lay = microbatch_rows(plan.rows, 1, nd)
+    most = lay[0][1] * per
+    pad = flat.new_zeros((most - flat.shape[0],) + tuple(flat.shape[1:]))
+    every = coll.all_gather(torch.cat([flat, pad]), mesh, axes, 0)
+    order = torch.cat([torch.arange(q * most, q * most + n * per,
+                                    device=flat.device)
+                       for q, (_, n) in enumerate(lay)])
+    t, r = n_tokens // nd, mesh.axis_index(axes)
+    out, aux = call(every[order[r * t:(r + 1) * t]])
+    first, n = lay[r]
+    out = coll.all_gather(out, mesh, axes, 0)
+    return out[first * per:(first + n) * per], aux
+
+
 def _ffn(cfg, h2, lp, plan=None):
-    """The layer's FFN on h2 (..., d): the MoE over the flattened tokens
-    plus, without MoE or with a dense residual, the dense SwiGLU.
+    """The layer's FFN on h2 (..., S, d): the MoE over the flattened
+    tokens plus, without MoE or with a dense residual, the dense SwiGLU.
     Returns (out of h2's shape, the MoE aux loss or 0.0)."""
     aux = torch.zeros((), dtype=torch.float32, device=h2.device)
     out = 0.
     if cfg.moe:
-        mo, aux = _moe_dispatch(cfg, h2.reshape(-1, h2.shape[-1]), lp, plan)
+        n_tokens = _global_rows(plan, h2.shape[0]) * h2.shape[1]
+        mo, aux = _moe_dispatch(cfg, h2.reshape(-1, h2.shape[-1]), lp, plan,
+                                n_tokens)
         out = out + mo.reshape(h2.shape)
     if not cfg.moe or cfg.dense_residual:
         out = out + _exit(plan, swiglu(_enter(plan, h2), lp["ffn_wg"],
@@ -444,7 +501,9 @@ def _layer(cfg, x, lp, positions, plan=None):
     (k, v), aux), k/v cut to the last window for SWA configurations."""
     B, S, d = x.shape
     hd, Hkv = cfg.hd, cfg.n_kv_heads
-    Bg = B * (1 if plan is None else plan.nd)
+    Bg = _global_rows(plan, B)
+    # the global shapes are checked where the rows split evenly
+    split = plan is None or Bg % plan.nd == 0
     even = plan is None or plan.even
     lp = _gather_weights(cfg, lp, plan)
     h = _enter(plan, rmsnorm(x, lp["ln1"]))
@@ -455,7 +514,7 @@ def _layer(cfg, x, lp, positions, plan=None):
     q = apply_rope(q.reshape(B, S, Hq, hd), positions, cfg.rope_theta)
     if even:
         q = logical(q, "batch", "seq", "heads", "head_dim",
-                    shape=(Bg, S, cfg.n_heads, hd))
+                    shape=(Bg, S, cfg.n_heads, hd) if split else None)
     k = apply_rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, Hkv, hd)
     kv = _local_kv(cfg, plan, k, v, Hq) if even else (k, v)
@@ -463,7 +522,7 @@ def _layer(cfg, x, lp, positions, plan=None):
     attn = attn.reshape(B, S, Hq * hd)
     if even:
         logical(attn.view(B, S, Hq, hd), "batch", "seq", "heads",
-                "head_dim", shape=(Bg, S, cfg.n_heads, hd))
+                "head_dim", shape=(Bg, S, cfg.n_heads, hd) if split else None)
     else:               # this rank's columns for wo's rows
         attn = _own_cols(plan, attn)
     x = x + _exit(plan, attn @ lp["wo"].to(x.dtype))
@@ -479,10 +538,11 @@ def _layer(cfg, x, lp, positions, plan=None):
         k = k.narrow(1, plan.mi * n, n)
         v = v.narrow(1, plan.mi * n, n)
     k = logical(k, "batch", seq, "kv_heads", "head_dim",
-                shape=(Bg, T) + tuple(k.shape[2:]))
+                shape=(Bg, T) + tuple(k.shape[2:]) if split else None)
     v = logical(v, "batch", seq, "kv_heads", "head_dim",
-                shape=(Bg, T) + tuple(v.shape[2:]))
-    return logical(x, "batch", "seq", "embed", shape=(Bg, S, d)), (k, v), aux
+                shape=(Bg, T) + tuple(v.shape[2:]) if split else None)
+    return (logical(x, "batch", "seq", "embed",
+                    shape=(Bg, S, d) if split else None), (k, v), aux)
 
 
 def _layer_slices(params, cd):
@@ -514,12 +574,16 @@ def _embed(cfg, params, tokens, plan):
     return _exit(plan, torch.where(mine[..., None], x, 0))
 
 
-def forward(cfg, params, tokens, *, return_kv=False):
+def forward(cfg, params, tokens, *, return_kv=False, rows=None):
     """tokens: (B, S) -> (hidden (B, S, d), (k, v) stacked (L, B, S', Hkv,
     hd) or None, the mean over layers of the MoE aux loss (0.0 without
     MoE)). With cfg.remat and grad enabled, each layer is recomputed in
-    the backward. On a mesh: this rank's batch rows and param slices."""
+    the backward. On a mesh: this rank's batch rows and param slices;
+    `rows` is the global batch rows where the ranks may hold unequal
+    parts of it (grads_fn's microbatches; default B x the batch ranks)."""
     plan = _mesh_plan(cfg)
+    if plan is not None and rows is not None:
+        plan = dataclasses.replace(plan, rows=rows)
     B, S = tokens.shape
     cd = _dt(cfg.dtype)
     x = _embed(cfg, params, tokens, plan)
@@ -567,12 +631,13 @@ def _chunk_xent_vp(hc, yc, lm_head, plan):
     return torch.sum(lse - ll)
 
 
-def lm_loss(cfg, hidden, lm_head, labels):
+def lm_loss(cfg, hidden, lm_head, labels, rows=None):
     """Mean softmax cross-entropy, chunked over the sequence: logits exist
     one (B, chunk, V) slab at a time (chunk = S when S does not divide by
     cfg.logits_chunk), in the hidden dtype and then float32, and each
-    chunk is recomputed in the backward. On a mesh: the mean over this
-    rank's rows, the vocabulary split over the tensor-parallel axes."""
+    chunk is recomputed in the backward. The sum is divided by `rows`
+    (default B) x S. On a mesh: over this rank's rows, the vocabulary
+    split over the tensor-parallel axes."""
     plan = _mesh_plan(cfg)
     B, S, d = hidden.shape
     chunk = cfg.logits_chunk or S
@@ -593,51 +658,87 @@ def lm_loss(cfg, hidden, lm_head, labels):
             acc = acc + checkpoint(fn, hc, yc, lm_head, use_reentrant=False)
         else:
             acc = acc + fn(hc, yc, lm_head)
-    return acc / (B * S)
+    return acc / ((B if rows is None else rows) * S)
 
 
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
 
-def _loss(cfg, params, batch):
-    hidden, _, aux = forward(cfg, params, batch["tokens"])
-    loss = lm_loss(cfg, hidden, params["lm_head"], batch["labels"])
+def _loss(cfg, params, batch, rows=None):
+    hidden, _, aux = forward(cfg, params, batch["tokens"], rows=rows)
     plan = _mesh_plan(cfg)
-    if plan is not None:
-        # the mean over the batch axes (each rank's rows weigh alike)
-        loss = coll.pmean(loss, plan.mesh, plan.batch)
+    if plan is None:
+        loss = lm_loss(cfg, hidden, params["lm_head"], batch["labels"])
+    else:
+        # the global mean: each rank's rows' sum over the global count,
+        # summed over the batch axes (a rank may hold no rows)
+        B = batch["tokens"].shape[0]
+        loss = coll.all_reduce(lm_loss(
+            cfg, hidden, params["lm_head"], batch["labels"],
+            rows=B * plan.nd if rows is None else rows), plan.mesh,
+            plan.batch)
     return loss + 0.01 * aux, loss, aux
 
 
-def value_and_grad(cfg, params, batch):
+def value_and_grad(cfg, params, batch, rows=None):
     """((total, loss, aux), grads): one batch's loss and its gradients
-    (a tree of params' structure) by torch.autograd.grad."""
+    (a tree of params' structure) by torch.autograd.grad. On a mesh,
+    `rows` is the global batch rows (forward's)."""
     leaves = [p.detach().requires_grad_() for p in tu.tree_leaves(params)]
     with torch.enable_grad():
         tot, loss, aux = _loss(cfg, tu.tree_unflatten_like(params, leaves),
-                               batch)
+                               batch, rows)
         grads = torch.autograd.grad(tot, leaves)
     return ((tot.detach(), loss.detach(), aux.detach()),
             tu.tree_unflatten_like(params, list(grads)))
 
 
 def grads_fn(cfg, params, batch):
-    """value_and_grad, or with cfg.microbatch m (dividing the batch) the
-    mean over m microbatches: gradients summed in cfg.grad_accum_dtype
-    from zero in microbatch order, then scaled by 1/m."""
+    """value_and_grad, or with cfg.microbatch m dividing the global batch
+    of B rows the mean over m microbatches, as the reference's scan:
+    microbatch i is the global rows [i B/m, (i + 1) B/m), its gradients
+    summed in cfg.grad_accum_dtype from zero in microbatch order, then
+    scaled by 1/m.
+
+    Under an installed mesh B is this rank's rows times R, the size of
+    the batch axes: the decision is the reference's, on the global
+    batch. The rows move once a step (each batch leaf all-gathered over
+    the batch axes), and rank r steps on `microbatch_rows(B, m, R)[r]`
+    of each microbatch: B/(m R) rows from r B/(m R) where R divides B/m,
+    else the first (B/m) mod R ranks one row more, a rank perhaps none.
+    Every mean is the global one. Where the rows do not split, the
+    shard_map MoE takes the reference's even token blocks, and raises
+    ValueError, as the reference's shard_map does, where R does not
+    divide a microbatch's tokens."""
     m = cfg.microbatch
-    B = batch["tokens"].shape[0]
+    plan = _mesh_plan(cfg)
+    R = 1 if plan is None else plan.nd
+    B = batch["tokens"].shape[0] * R
     if not m or B % m:
         return value_and_grad(cfg, params, batch)
+    Bm = B // m
+    first, n = 0, Bm // R
+    if plan is not None and m > 1:
+        S = batch["tokens"].shape[1]
+        if Bm % R and (Bm * S) % R and _shard_map_moe(cfg, plan.mesh):
+            raise ValueError(
+                f"{cfg.moe_impl}: microbatch {m} of the global batch B {B} "
+                f"leaves {Bm} rows of {S} tokens, which do not split over "
+                f"the R {R} ranks of the batch axes {plan.batch}")
+        batch = {k: coll.gather_parts(v, plan.mesh, plan.batch)
+                 for k, v in batch.items()}
+        first, n = microbatch_rows(B, m, R)[
+            plan.mesh.axis_index(plan.batch)]
     acc_dt = _dt(cfg.grad_accum_dtype)
     acc_g = tu.tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
                                               device=p.device), params)
     acc_m = None
     for i in range(m):
-        mb = {k: v.reshape(m, B // m, *v.shape[1:])[i]
+        mb = {k: v[i * Bm + first:i * Bm + first + n]
               for k, v in batch.items()}
-        vals, g = value_and_grad(cfg, params, mb)
+        vals, g = value_and_grad(cfg, params, mb,
+                                 None if plan is None else Bm)
         for a, b in zip(tu.tree_leaves(acc_g), tu.tree_leaves(g)):
             a.add_(b.to(a.dtype))
         del g
@@ -656,8 +757,10 @@ def make_train_step(cfg, schedule=None, train_cfg=None):
 
     Under an installed mesh the step takes and returns this rank's slices
     (`param_shardings` places params and both moments, "batch" the
-    batch): each gradient is summed over the axes its computation is
-    split on (`_complete_grads`), clipped by the norm of the whole
+    batch): grads_fn microbatches the global batch (rank r's rows of
+    microbatch i are `microbatch_rows`'s, moved there by one all-gather
+    of the batch), each gradient is summed over the axes its computation
+    is split on (`_complete_grads`), clipped by the norm of the whole
     gradient, and AdamW updates the local slices."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim import adamw_update

@@ -1,5 +1,6 @@
 """Helpers of the mesh tests (tests/test_torch_{sharding,moe_mesh,
-moe_sort_mesh,transformer_mesh,nequip_mesh,nequip_pjit_mesh}.py): the
+moe_sort_mesh,transformer_mesh,mesh_microbatch,nequip_mesh,
+nequip_pjit_mesh}.py): the
 JAX reference on host devices in a subprocess, and the port on gloo
 ranks spawned by torch.multiprocessing, both on the same mesh shapes.
 
@@ -374,6 +375,85 @@ def task_lm(rank, job):
                 res["rows"] = _np(sh.named_sharding(mesh, "batch").shard(
                     torch.arange(B)))
         out[i] = res
+    return out
+
+
+def task_lm_microbatch(rank, job):
+    """For each case: the sharded train step at the case's microbatch on
+    its mesh from JAX's init (the whole params and first moments after
+    it, gathered; the metrics; the bytes its collectives returned), and
+    the MoE's forward calls in the step's order (not the recomputation
+    in the backward): ("sort", its global dropped pairs) per
+    moe_ffn_sort_mesh, ("route", this rank's dropped pairs at its own
+    capacity) per router call. A step that raises ValueError returns
+    {"raised": its message}."""
+    import dataclasses
+
+    from repro_torch.common import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_from_numpy
+    from repro_torch.models import collectives as coll
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    real_route, real_sort = moe.route, moe.moe_ffn_sort_mesh
+    calls = []
+
+    def forward_pass():
+        # not inside the backward (remat's recomputation)
+        return torch._C._current_graph_task_id() == -1
+
+    def route(x, router_w, top_k):
+        probs, gate, eidx = real_route(x, router_w, top_k)
+        E = router_w.shape[-1]
+        C = moe.capacity(x.shape[0], E, top_k)
+        load = moe.expert_counts(eidx.reshape(-1), E)
+        if forward_pass():
+            calls.append(("route", int((load - C).clamp(min=0).sum())))
+        return probs, gate, eidx
+
+    def sort_mesh(*args, **kw):
+        res = real_sort(*args, **kw)
+        if forward_pass():
+            calls.append(("sort", int(res[2])))
+        return res
+
+    out = {}
+    moe.route, moe.moe_ffn_sort_mesh = route, sort_mesh
+    try:
+        for i, case in enumerate(job["cases"]):
+            cfg = dataclasses.replace(get_config(case["arch"], "smoke"),
+                                      **case["over"])
+            params = transformer_params_from_numpy(cfg, job[f"params{i}"],
+                                                   device="cpu")
+            tok = torch.from_numpy(job[f"tokens{i}"])
+            mesh = _debug_mesh(case["mesh"])
+            calls.clear()
+            with sh.rules_ctx({}, mesh=mesh):
+                psh = tf.param_shardings(cfg, mesh)
+                pl = tu.tree_map(lambda x: x.clone(),
+                                 sh.shard_tree(params, psh))
+                rows = sh.named_sharding(mesh, "batch", None)
+                bl = {"tokens": rows.shard(tok), "labels": rows.shard(tok)}
+                coll.reset_traffic()
+                try:
+                    p2, o2, m2 = tf.make_train_step(cfg)(
+                        pl, adamw_init(pl), bl)
+                except ValueError as e:
+                    out[i] = {"raised": str(e)}
+                    continue
+                traffic = dict(coll.TRAFFIC)
+                out[i] = {"params": _tree_np(sh.gather_tree(p2, psh)),
+                          "mu": _tree_np(sh.gather_tree(o2["mu"], psh)),
+                          "loss": float(m2["loss"]),
+                          "aux": float(m2["aux_loss"]),
+                          "gnorm": float(m2["grad_norm"]),
+                          "traffic": traffic, "calls": list(calls),
+                          "coords": dict(mesh.coords)}
+    finally:
+        moe.route, moe.moe_ffn_sort_mesh = real_route, real_sort
     return out
 
 

@@ -15,6 +15,11 @@ decides inside the fixture, never at import). On the GPU machine:
     and 1 x 4 arctic steps' (T_local, E) and their decode batches),
     bitwise its plain version
   * a sharded LM step on a mesh of 4 ranks and no process group raises
+  * a rank that holds no rows of a microbatch (the mesh train step's
+    uneven split): the router's topk on a (0, E) CUDA tensor returns
+    empty outputs with no launch and no plain version, and
+    moe_ffn_sort_mesh on (0, d) tokens runs its dispatch plan, scatters
+    and expert bmms on the card, with its gradients
 """
 
 import dataclasses
@@ -112,3 +117,40 @@ def test_a_sharded_step_raises_without_a_process_group(card):
         with pytest.raises(RuntimeError, match="process group"):
             tf.make_train_step(cfg)(pl, adamw_init(pl),
                                     {"tokens": tok, "labels": tok})
+
+
+def test_topk_and_the_sort_moe_on_a_rank_with_no_tokens(card, monkeypatch):
+    """A rank with no rows of a microbatch: topk on a (0, E) CUDA tensor
+    gives (0, 2) values and int64 indices on the card without a launch
+    or its plain version; moe_ffn_sort_mesh on a 1 x 1 mesh with (0, d)
+    tokens of a global 64 gives a (0, d) output, no load (aux 0), no
+    dropped pairs and zero gradients for every weight, with no topk
+    launch."""
+    from repro_torch import kernels
+    from repro_torch.kernels.topk import ops as topk_ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe
+
+    def plain(*args, **kw):
+        raise AssertionError("topk's plain version ran on the card")
+    monkeypatch.setattr(topk_ops, "topk_ref", plain)
+    kernels.reset_launches()
+    v, i = topk_ops.topk(torch.empty((0, 8), device=card), 2)
+    assert v.shape == i.shape == (0, 2)
+    assert v.is_cuda and i.is_cuda and i.dtype == torch.long
+    E, D, F = 8, 64, 32
+    g = torch.Generator(device=card).manual_seed(0)
+    w = [torch.randn(s, generator=g, device=card).requires_grad_()
+         for s in ((D, E), (E, D, F), (E, D, F), (E, F, D))]
+    x = torch.empty((0, D), device=card, requires_grad=True)
+    y, aux, dropped = moe.moe_ffn_sort_mesh(
+        x, *w, top_k=2, mesh=make_debug_mesh((1, 1)), n_tokens=64)
+    grads = torch.autograd.grad((y * 2).sum() + aux, [x] + w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["topk"] == 0
+    assert y.shape == (0, D) and y.is_cuda
+    assert float(aux.detach()) == 0.0 and int(dropped) == 0
+    assert grads[0].shape == (0, D)
+    for gw, ww in zip(grads[1:], w):
+        assert gw.shape == ww.shape and gw.is_cuda
+        assert not bool(gw.any())

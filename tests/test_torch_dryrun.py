@@ -124,6 +124,10 @@ CASES = [
                                        global_batch=8)),
     dict(arch="mixtral-8x7b", shape=dict(name="t", mode="train", seq_len=16,
                                          global_batch=8)),
+    # the global microbatch: the rows' all-gather, then 2 rows a rank
+    dict(arch="mixtral-8x7b", shape=dict(name="t", mode="train", seq_len=16,
+                                         global_batch=8),
+         over={"microbatch": 2}),
     dict(arch="wide-deep", shape=dict(name="t", mode="train", batch=16)),
     dict(arch="din", shape=dict(name="s", mode="serve", batch=16)),
 ]
@@ -148,6 +152,7 @@ print("JSON" + json.dumps(out))
 
 @pytest.mark.parametrize("i", range(len(CASES)),
                          ids=[f"{c['arch']}_{c['shape']['mode']}"
+                              + ("_microbatch" if c.get("over") else "")
                               for c in CASES])
 def test_2x2_collective_bytes_equal_traffic_on_4_gloo_ranks(tmp_path, i):
     got = _sub(_DRY.replace("CASES", repr([CASES[i]])))[0]

@@ -2,11 +2,12 @@
 the JAX package's (repro.launch.specs.build_cell): for every cell of
 configs.cells() and CluSD's retrieval shapes, on the 16 x 16 and the
 2 x 16 x 16 production meshes, every argument's global shape, dtype and
-PartitionSpec, with the port's overrides given to both; the skipped
-cells' reasons; model_flops bitwise; roofline_terms on the same inputs
-and spec numbers; and nequip minibatch_lg with the reference's default
-msg_impl "pjit" in place of the port's override, its cell against JAX's
-and its collective bytes counted on a fake 16 x 16 group. JAX builds its cells in a subprocess with 512 host
+PartitionSpec, each package's cells with no overrides (the reference's
+defaults: "sort" for the MoE, "pjit" for NequIP); the skipped cells'
+reasons; model_flops bitwise; roofline_terms on the same inputs and
+spec numbers; and nequip minibatch_lg's default msg_impl "pjit" given
+explicitly, its cell against JAX's and its collective bytes counted on
+a fake 16 x 16 group. JAX builds its cells in a subprocess with 512 host
 devices; the port's cells are built on a Mesh of rank 0 (no process
 group: building a cell runs no collective).
 """
@@ -27,7 +28,6 @@ from repro.configs import cells, get_config
 from repro.configs.shapes import shapes_for
 from repro.launch.mesh import make_production_mesh
 from repro.launch.specs import build_cell
-over = json.loads(OVER)
 todo = [(a, s) for a, s, _ in cells()] + [
     ("clusd-msmarco", s) for s in shapes_for("retrieval").values()]
 out = {"cells": {}, "flops": {}}
@@ -41,8 +41,7 @@ for multi in (False, True):
     for arch, shape in todo:
         key = f"{arch}|{shape.name}|{int(multi)}"
         try:
-            cell = build_cell(arch, shape, mesh, multi_pod=multi,
-                              overrides=over.get(arch))
+            cell = build_cell(arch, shape, mesh, multi_pod=multi)
         except ValueError as e:
             out["cells"][key] = {"error": str(e)}
             continue
@@ -132,9 +131,7 @@ def _port_cells():
 
 @pytest.fixture(scope="module")
 def both():
-    from repro_torch.launch.specs import PORT_OVERRIDES
-    code = _JAX.replace("OVER", repr(json.dumps(PORT_OVERRIDES)))
-    want = json.loads(run_jax(code, 512).split("JSON", 1)[1])
+    want = json.loads(run_jax(_JAX, 512).split("JSON", 1)[1])
     return want, _port_cells()
 
 
@@ -167,14 +164,25 @@ def test_skipped_cells_raise_the_same_text(both):
 
 
 def test_port_overrides_are_the_sharded_implementations(both):
+    """The port sets no implementation of its own: every default cell
+    counts the reference's config ("sort" for the MoE, "pjit" for
+    NequIP), and the shard_map variants are the caller's overrides."""
+    from repro_torch.configs.shapes import shapes_for
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import build_cell, cell_config
+
     _, got = both
-    assert got["mixtral-8x7b|train_4k|0"]["overrides"] == {
-        "moe_impl": "tp_shard_map"}
-    assert got["arctic-480b|decode_32k|1"]["overrides"] == {
-        "moe_impl": "ep_shard_map"}
-    assert got["nequip|minibatch_lg|0"]["overrides"] == {
-        "msg_impl": "owner_shard_map"}
-    assert got["qwen2-1.5b|train_4k|0"]["overrides"] == {}
+    for key in ("mixtral-8x7b|train_4k|0", "arctic-480b|decode_32k|1",
+                "nequip|minibatch_lg|0", "qwen2-1.5b|train_4k|0"):
+        assert got[key]["overrides"] == {}, key
+    assert cell_config("mixtral-8x7b").moe_impl == "sort"
+    assert cell_config("arctic-480b").moe_impl == "sort"
+    assert cell_config("nequip").msg_impl == "pjit"
+    over = {"moe_impl": "tp_shard_map"}
+    assert cell_config("mixtral-8x7b", over).moe_impl == "tp_shard_map"
+    cell = build_cell("mixtral-8x7b", shapes_for("lm")["train_4k"], Mesh(
+        (16, 16), ("data", "model")), overrides=over)
+    assert cell.meta["overrides"] == over
 
 
 _PJIT_COUNT = r"""

@@ -268,14 +268,14 @@ def test_dry_run_counts_the_sort_cell_and_its_counts_gather():
     """mixtral's train cell with moe_impl "sort" on a fake 2 x 2 group is
     ok, and its all-gathers include the MoE's (1, E) int64 counts over
     the 2 data ranks, once a layer in the forward and once in the remat;
-    the port's default stays tp_shard_map."""
+    "sort" is the cell's default, as in the reference."""
     env = dict(os.environ, PYTHONPATH=SRC)
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(_DRY)],
                        capture_output=True, text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     out = json.loads(r.stdout.split("JSON", 1)[1])
-    from repro_torch.launch.specs import PORT_OVERRIDES
-    assert PORT_OVERRIDES["mixtral-8x7b"] == {"moe_impl": "tp_shard_map"}
+    from repro_torch.launch.specs import cell_config
+    assert cell_config("mixtral-8x7b").moe_impl == "sort"
     srt, tp = out["sort"], out["tp_shard_map"]
     assert srt["status"] == "ok" and srt["over"]["moe_impl"] == "sort"
     E, L = srt["E"], srt["layers"]

@@ -9,8 +9,12 @@ the loss within 1e-4, every param within 5e-4 after one AdamW step
 (the gradients clipped by the global norm: grad_clip 1.0 and a norm
 above it here), the first moments within 5e-5 and the gradient norm
 rtol 1e-4; prefill and decode logits rtol 1e-4, atol 1e-5. The dense
-step is also held to the port's one-rank step at the same tolerances;
-the MoE steps drop per shard, so only to JAX's sharded step.
+step is also held to the port's one-rank step at the same tolerances.
+The MoE steps here are the shard_map paths, each data shard's tokens
+routed at its own capacity, so they are held only to JAX's sharded
+step; the default "sort" (one global capacity) is also held to the
+one-rank step in tests/test_torch_moe_sort_mesh.py, and every path at a
+config's microbatch in tests/test_torch_mesh_microbatch.py.
 """
 
 import json
